@@ -1,0 +1,147 @@
+"""Build and load the port's CUDA kernels (``ipdm_tpu_torch/csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a``, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use into ``ipdm_tpu_torch/_build/<hash>/``, keyed by a hash of
+the sources and flags, so an edited kernel is rebuilt and an unchanged
+one is loaded as it is.
+
+Every C entry point takes its pointers and the CUDA stream as
+``void*``, launches on that stream, and returns ``cudaGetLastError()``;
+:func:`check` turns a non-zero code into an exception. Each kernel
+wrapper counts its launches in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C signature of every entry point: argtypes (pointers and the stream as
+# c_void_p, sizes and flags as c_int); each returns a cudaError_t as int.
+SIGNATURES = {
+    # x, a, bb, w, bias, skip, out, B, C, O, H, W, act, bf16, stream
+    "planar_unit_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # Q, s0, s1, frac, out, V, B, L, n, stream
+    "bp_shift_launch": [P, P, P, P, P, I, I, I, I, P],
+    # q, k, v, out, BH, T, scale_log2, stream
+    "flash_attn_launch": [P, P, P, P, I, I, ctypes.c_float, P],
+}
+
+# launches per kernel since the last reset_launches(); each wrapper adds
+# one where it launches its kernel and nowhere else
+LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _compile(out_dir: Path) -> Path:
+    nvcc = _nvcc()
+    cus = sorted(SRC_DIR.glob("*.cu"))
+    procs = []
+    for src in cus:  # one nvcc per source, all running at once
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"{src.name}:\n{out.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+    lib = out_dir / "libipdm_kernels.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+           *[str(o) for _s, o, _p in procs]]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if res.returncode:
+        raise RuntimeError("nvcc link failed\n"
+                           + res.stdout.decode(errors="replace"))
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    build yet."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        final = BUILD_DIR / _digest()
+        lib_path = final / "libipdm_kernels.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR))
+            try:
+                _compile(tmp)
+                try:
+                    tmp.rename(final)   # atomic publish of a whole build
+                except OSError:
+                    if not lib_path.exists():
+                        raise
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {code}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
