@@ -40,11 +40,19 @@ SIGNATURES = {
     "bp_shift_launch": [P, P, P, P, P, I, I, I, I, P],
     # q, k, v, out, BH, T, scale_log2, stream
     "flash_attn_launch": [P, P, P, P, I, I, ctypes.c_float, P],
+    # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
+    "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, rf, inv2, frac, s0, nrmi, T, S, Vp, B, n, L, lam, stream
+    "os_sart_sweep_launch": [P, P, P, P, P, P, P, I, I, I, I, I,
+                             ctypes.c_float, P],
+    # P, qi0, W, out, V, B, Ntp, Lp, Wt, stream
+    "anterp_taps_launch": [P, P, P, P, I, I, I, I, I, P],
 }
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else
-LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0}
+LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,
+            "fp_plane_deposit": 0, "os_sart_sweep": 0, "anterp_taps": 0}
 
 _lock = threading.Lock()
 _lib = None

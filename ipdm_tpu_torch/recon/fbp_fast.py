@@ -33,9 +33,11 @@ from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP, FBPGeometry
 
 class _FastPlan:
     """Precomputed static tables for one FBPGeometry (host numpy), with
-    per-device tensor copies made at first use (fbp_fast.py:49-124)."""
+    per-device tensor copies made at first use (fbp_fast.py:49-124).
+    ``oversample`` sets the parallel t grid to ``oversample·N`` bins: 2
+    for the FBP, 1 for the OS-SART plan (recon/sart_fast.py)."""
 
-    def __init__(self, g: FBPGeometry):
+    def __init__(self, g: FBPGeometry, oversample: float = 2.0):
         self.g = g
         N, M = g.N, g.M
         self.D = float(g.D)
@@ -44,7 +46,7 @@ class _FastPlan:
         self.nda0 = float(nda[0])
         gamma_max = float(np.abs(nda).max())
         # parallel t grid
-        self.Nt = 2 * N  # t-grid oversampling 2
+        self.Nt = int(N * oversample)
         T = self.D * math.sin(gamma_max + self.da)
         self.T = T
         self.dt = 2 * T / (self.Nt - 1)
@@ -107,10 +109,10 @@ class _FastPlan:
 _PLANS = {}
 
 
-def _plan_for(g: FBPGeometry) -> _FastPlan:
-    k = (g.N, g.M, g.grid_n, g.grid_l, g.D, g.da)
+def _plan_for(g: FBPGeometry, oversample: float = 2.0) -> _FastPlan:
+    k = (g.N, g.M, g.grid_n, g.grid_l, g.D, g.da, oversample)
     if k not in _PLANS:
-        _PLANS[k] = _FastPlan(g)
+        _PLANS[k] = _FastPlan(g, oversample=oversample)
     return _PLANS[k]
 
 

@@ -1,7 +1,9 @@
-"""The port's constant-λ guided_reverse_process against the JAX sampler of
+"""The port's guided_reverse_process against the JAX sampler of
 ipdm_tpu/diffusion/guided.py, with a tiny UNet carried across from Flax,
 T = 50 timesteps and the noise forced to zero on both sides (as
-tests/test_reference_oracle.py:228-237 does)."""
+tests/test_reference_oracle.py:228-237 does): constant λ, and the per-pixel
+λ after a cosine-λ probe with a static t_start (img and proj mode) and
+with t_start=None (proj mode, which picks a noise class)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +15,12 @@ from ipdm_tpu.diffusion.diffusion import GaussianDiffusion as JaxDiffusion
 from ipdm_tpu.diffusion.guided import \
     guided_reverse_process as jax_guided
 from ipdm_tpu.models.unet import UNetModel as FlaxUNet
+from ipdm_tpu.ops import lambda_curve as jax_curve
 from ipdm_tpu_torch.diffusion import diffusion as port_diffusion
 from ipdm_tpu_torch.diffusion.diffusion import GaussianDiffusion
 from ipdm_tpu_torch.diffusion.guided import guided_reverse_process
 from ipdm_tpu_torch.models.unet import UNetModel
+from ipdm_tpu_torch.ops import lambda_curve
 from ipdm_tpu_torch.utils.torch_import import state_dict_from_flax
 
 # one level plus the middle block: each JAX sampler compile stays short
@@ -68,18 +72,68 @@ def test_constant_lambda_guided_matches_jax(zero_noise, mode, t_start, clip,
         mode=mode, constant_guidance=lam,
         ldct=None if ldct is None else jnp.asarray(ldct))
     nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)
-    got = guided_reverse_process(
+    got, ns = guided_reverse_process(
         model, GaussianDiffusion(50, "cosine", device="cpu"), nchw(x), None,
         t_start=t_start, clip=clip, eta=eta, mode=mode,
         constant_guidance=lam, ldct=None if ldct is None else nchw(ldct))
+    assert ns is None
     assert len(got) == len(want) == len(t_start) + 1  # + the ensemble
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(w), rtol=1e-4, atol=1e-4)
 
 
-def test_adaptive_lambda_is_the_next_slice():
-    gd = GaussianDiffusion(50, "cosine", device="cpu")
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        guided_reverse_process(lambda x, t: x, gd, torch.zeros(1, 1, 4, 4),
-                               None, t_start=[2], constant_guidance=None)
+def _per_pixel_pair(mode, t_start, amplitude, seed):
+    """The JAX and the port's per-pixel-λ runs on the same input (the
+    preset's curve, kernel 4, λ ratio 1 for proj and 10 for img)."""
+    jfn, model = tiny_pair(TINY, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    x = rng.random((1, 16, 16, 1)).astype(np.float32)
+    x = x * (0.8 if mode == "img" else 3.0)
+    ldct = x if mode == "img" else None
+    init = "curve_init" if mode == "img" else "proj_curve_init"
+    kw = dict(t_start=t_start, clip=mode == "img", eta=0.5, mode=mode,
+              constant_guidance=None, kernel_size=4, amplitude=amplitude,
+              lambda_ratio=10 if mode == "img" else 1)
+    want, _, want_ns = jax_guided(
+        jfn, JaxDiffusion(50, "cosine"), jnp.asarray(x),
+        jax.random.PRNGKey(0), lambda_curve=getattr(jax_curve, init)(),
+        ldct=None if ldct is None else jnp.asarray(ldct), **kw)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)
+    got, got_ns = guided_reverse_process(
+        model, GaussianDiffusion(50, "cosine", device="cpu"), nchw(x), None,
+        lambda_curve=getattr(lambda_curve, init)(),
+        ldct=None if ldct is None else nchw(ldct), **kw)
+    return got, got_ns, want, want_ns
+
+
+def _assert_iters_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        # the λ map's f32 exp/pow over the UNet's f32 sums in another order
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,amplitude", [("img", 30.0), ("proj", 7.0)])
+def test_per_pixel_lambda_static_t_start_matches_jax(zero_noise, mode,
+                                                     amplitude):
+    """The probe (cosine λ), the restart from the clean condition, two
+    map-λ iterations and the ensemble: [probe, it1, it2, ens]."""
+    got, got_ns, want, want_ns = _per_pixel_pair(mode, [3, 3, 3], amplitude,
+                                                 seed=6)
+    assert len(got) == 4 and got_ns is None and want_ns is None
+    _assert_iters_close(got, want)
+
+
+def test_adaptive_lambda_is_the_next_slice(zero_noise):
+    """The adaptive mode (t_start=None) matches JAX: the 20-step probe,
+    the one host read of the residual max, the noise class and its
+    schedule, the map-λ iterations and the ensemble, the probe dropped."""
+    got, got_ns, want, want_ns = _per_pixel_pair("proj", None, 1.0, seed=7)
+    # amplitude 1 keeps the residual max below 4.5 (2.25 here, with the
+    # per-pixel exponents spread over 1.0-20): the "low" class, whose
+    # schedule is [15, 15, 15]
+    assert got_ns == want_ns == "low"
+    assert len(got) == 4
+    _assert_iters_close(got, want)
