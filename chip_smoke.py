@@ -33,9 +33,12 @@ exits non-zero without a result line:
 8. kernels-ART — each new kernel against its plain version on those
    inputs (the sweep on the last sweep of each drive, where x ≠ 0);
 9. reference-ART — the ART-mode pipeline at a small size (per-pixel proj
-   λ, OS-SART, ultra pass), f32, card against CPU with the same noise on
-   both (checked) and with zero noise (printed); the TV convert and the
-   adaptive proj mode (t_start=None, its noise class), card against CPU;
+   λ, OS-SART, ultra pass), f32, card against CPU: with the same noise on
+   both; with zero noise, where the convert's output is held to 1e-3 of
+   its range and the final image to the CPU's own spread under a one-ulp
+   change of the input (the image stage is ill-conditioned at zero
+   noise); the TV convert and the adaptive proj mode (t_start=None, its
+   noise class);
 10. slice-ART — the ART-mode slice with bench.py's ART settings (proj
    per-pixel λ after a cosine-λ probe, 3×15 steps, η=0.5; OS-SART of the
    four kept iterations, nstart=10, 40 subsets; 3×15 img steps at λ=0.45,
@@ -622,7 +625,7 @@ def phase_kernels_art(calls, reps):
         for args, kw in calls["anterp_taps"]:
             P, qi0, W = args
             err, msg = check_sum(
-                "anterp_taps", shift.anterp_taps(*args),
+                "anterp_taps", shift.anterp_taps(*args, **kw),
                 shift.anterp_taps_plain(*args),
                 shift.anterp_taps_plain(P.abs(), qi0, W.abs()), W.shape[1])
             V, B, Ntp = P.shape
@@ -630,7 +633,8 @@ def phase_kernels_art(calls, reps):
             nbytes = 4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp)
             flops = 2 * Wt * V * B * Lp
             s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.anterp_taps(*args), reps),
+                     ms=cuda_ms(lambda: shift.anterp_taps(*args, **kw),
+                                reps),
                      plain_ms=cuda_ms(lambda: shift.anterp_taps_plain(*args),
                                       5))
             log(f"kernels-ART: anterp_taps V={V} B={B} Wt={Wt} Lp={Lp} "
@@ -643,17 +647,28 @@ def phase_kernels_art(calls, reps):
 
         # the sweep on the last sweep of each drive (x != 0; the first
         # sweep starts from x = 0 and its FP is all zeros). 2·32 dependent
-        # subset updates of f32 sums in another order, where the
-        # correction rf − P·inv2 cancels as the sweeps converge: 1e-4 of
-        # the largest pixel plus 1e-4 of each
+        # subset updates of f32 sums in another order: 1e-5 of the largest
+        # pixel plus 1e-4 of each. Beside it, how far a sweep that drops
+        # its last subset lands from the plain one (a fault the tolerance
+        # has to see)
         stats = []
         sweeps = calls["os_sart_sweep"]
         for args, kw in sweeps[-2:]:
             x, rf, inv2, frac, s0, nrmi, lam = args
             if not float(x.abs().max()) > 0:
                 raise AssertionError("os_sart_sweep held on x = 0")
-            err, msg = check("os_sart_sweep", shift.os_sart_sweep(*args),
-                             shift.os_sart_sweep_plain(*args), 1e-4, 1e-4)
+            want = shift.os_sart_sweep_plain(*args)
+            err, msg = check("os_sart_sweep",
+                             shift.os_sart_sweep(*args, **kw), want, 1e-4,
+                             1e-5)
+            short = shift.os_sart_sweep_plain(
+                x, *(a[:-1] for a in (rf, inv2, frac, s0, nrmi)), lam)
+            over = float(((short - want).abs()
+                          / (1e-5 * float(want.abs().max())
+                             + 1e-4 * want.abs())).max())
+            log(f"kernels-ART: os_sart_sweep with its last subset dropped: "
+                f"max |diff| {float((short - want).abs().max()):.3e}, "
+                f"{over:.1f}× the tolerance at its worst pixel")
             S, Vp, B, L = rf.shape
             n = x.shape[-1]
             live = int((inv2 != 0).any(dim=2).sum())
@@ -661,7 +676,8 @@ def phase_kernels_art(calls, reps):
                           + 2 * S * Vp * n + S * n * n)
             flops = 8 * live * B * n * n + 2 * S * Vp * B * L + 4 * S * B * n * n
             s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.os_sart_sweep(*args), reps),
+                     ms=cuda_ms(lambda: shift.os_sart_sweep(*args, **kw),
+                                reps),
                      plain_ms=cuda_ms(
                          lambda: shift.os_sart_sweep_plain(*args), 2, 1))
             log(f"kernels-ART: os_sart_sweep S={S} Vp={Vp} ({live} live "
@@ -693,13 +709,16 @@ def phase_kernels_art(calls, reps):
 
 def phase_reference_art(seed: int) -> None:
     """The ART-mode pipeline at a small size in f32: the card (kernels)
-    against the CPU (plain versions). The checked run draws the same
-    noise on both devices, from one CPU generator seeded alike. A second
-    run with zero noise is printed, not checked: there the guidance term
-    (x_t − √ᾱ·g)/√(1−ᾱ) of an iteration that barely moves the image is a
-    tiny difference that std_normalize scales to unit variance, so f32
-    rounding differences between the devices grow far past the tolerance;
-    with noise the term is ~unit noise and the run is well conditioned."""
+    against the CPU (plain versions), the whole pipeline with the same
+    noise on both devices (drawn from one CPU generator seeded alike) and
+    with zero noise. At zero noise the image stage is ill-conditioned: the
+    guidance term (x_t − √ᾱ·g)/√(1−ᾱ) of an iteration that barely moves
+    the image is a tiny difference that std_normalize scales to unit
+    variance, so a rounding difference grows through the iterations. So
+    at zero noise the convert's output (proj stage and OS-SART) is held to
+    1e-3 of its range, and the final image to 1e-3 of its range or twice
+    the CPU's own spread, the larger: the CPU run again on the input moved
+    up by one ulp."""
     import torch
     from ipdm_tpu_torch.diffusion import diffusion
     from ipdm_tpu_torch.diffusion.guided import guided_reverse_process
@@ -726,25 +745,31 @@ def phase_reference_art(seed: int) -> None:
                compute_dtype="float32")
     x = np.random.default_rng(seed).random((1, 360, 128, 1), np.float32)
 
-    def run(noise):
-        outs = []
-        for dev in ("cpu", "cuda"):
-            gen = torch.Generator().manual_seed(seed)
-            if noise == "shared":
-                diffusion.noise_like = lambda t, g: torch.randn(
-                    t.shape, generator=gen, dtype=t.dtype).to(t.device)
-            else:
-                diffusion.noise_like = lambda t, g: torch.zeros_like(t)
-            pm, im = copy.deepcopy(proj).to(dev), copy.deepcopy(img).to(dev)
-            before = dict(_build.LAUNCHES)
-            outs.append(progressive_denoiser(
-                opt, pm, im, x, None,
-                convertor=Convertor("ART", geom, nstart=2, nsubsets=6),
-                device=dev).cpu())
-            used = {k: _build.LAUNCHES[k] - before[k] for k in before}
-        cpu, gpu = outs
-        return (float((cpu - gpu).abs().max()), float(cpu.abs().max()),
-                bool(torch.isfinite(gpu).all()), used)
+    def set_noise(noise):
+        gen = torch.Generator().manual_seed(seed)
+        if noise == "shared":
+            diffusion.noise_like = lambda t, g: torch.randn(
+                t.shape, generator=gen, dtype=t.dtype).to(t.device)
+        else:
+            diffusion.noise_like = lambda t, g: torch.zeros_like(t)
+
+    def run(noise, dev, xin):
+        """The pipeline on ``dev``: (final image, the convert's output,
+        the launches of the run)."""
+        set_noise(noise)
+        conv = Convertor("ART", geom, nstart=2, nsubsets=6)
+        seen = []
+        pm, im = copy.deepcopy(proj).to(dev), copy.deepcopy(img).to(dev)
+        before = dict(_build.LAUNCHES)
+        out = progressive_denoiser(
+            opt, pm, im, xin, None,
+            convertor=lambda pj: seen.append(conv(pj)) or seen[-1],
+            device=dev)
+        used = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        return out.cpu(), seen[0].cpu(), used
+
+    def diff(a, b):
+        return float((a - b).abs().max())
 
     def adaptive():
         """The adaptive proj mode (t_start=None: the probe, the one host
@@ -752,9 +777,7 @@ def phase_reference_art(seed: int) -> None:
         noise; returns card vs CPU max |diff|, max|cpu| and the classes."""
         outs = []
         for dev in ("cpu", "cuda"):
-            gen = torch.Generator().manual_seed(seed)
-            diffusion.noise_like = lambda t, g: torch.randn(
-                t.shape, generator=gen, dtype=t.dtype).to(t.device)
+            set_noise("shared")
             xd = torch.from_numpy(x).permute(0, 3, 1, 2).to(dev)
             its, ns = guided_reverse_process(
                 copy.deepcopy(proj).to(dev), diffusion_for(opt, "proj", dev),
@@ -763,36 +786,56 @@ def phase_reference_art(seed: int) -> None:
                 amplitude=7, lambda_curve=proj_curve_init())
             outs.append((its[-1].cpu(), ns))
         (cpu, ns_cpu), (gpu, ns_gpu) = outs
-        return (float((cpu - gpu).abs().max()), float(cpu.abs().max()),
-                ns_cpu, ns_gpu)
+        return diff(cpu, gpu), float(cpu.abs().max()), ns_cpu, ns_gpu
 
+    x_ulp = np.nextafter(x, np.float32(np.inf)).astype(np.float32)
     noise_like = diffusion.noise_like
     try:
-        err, scale, finite, used = run("shared")
-        zero_err, zero_scale, _, _ = run("zero")
+        cpu, _, _ = run("shared", "cpu", x)
+        gpu, _, used = run("shared", "cuda", x)
+        z_cpu, zc_cpu, _ = run("zero", "cpu", x)
+        z_gpu, zc_gpu, z_used = run("zero", "cuda", x)
+        z_ulp, zc_ulp, _ = run("zero", "cpu", x_ulp)
         ad_err, ad_scale, ns_cpu, ns_gpu = adaptive()
     finally:
         diffusion.noise_like = noise_like
+    err, scale = diff(cpu, gpu), float(cpu.abs().max())
+    zc_err, zc_scale = diff(zc_cpu, zc_gpu), float(zc_cpu.abs().max())
+    z_err, z_scale = diff(z_cpu, z_gpu), float(z_cpu.abs().max())
+    spread, c_spread = diff(z_cpu, z_ulp), diff(zc_cpu, zc_ulp)
     # the TV convert (OS-SART with a TV step per sweep), card vs CPU
     tv = Convertor("TV", geom, nstart=2, nsubsets=6)
     sino = torch.from_numpy(x[..., 0])
     tv_cpu, tv_gpu = tv(sino), tv(sino.cuda()).cpu()
-    tv_err = float((tv_cpu - tv_gpu).abs().max())
+    tv_err = diff(tv_cpu, tv_gpu)
     tv_scale = float(tv_cpu.abs().max())
     log(f"reference-ART: 64x64 ART-mode pipeline (per-pixel proj λ, "
         f"OS-SART nstart=2 over 6 subsets, ultra pass), f32, shared noise: "
         f"card vs CPU max |diff| {err:.3e} (tol 1e-3·max|cpu| = "
         f"{1e-3 * scale:.3e}); card launches {used}")
-    log(f"reference-ART: the same with zero noise (not checked): card vs "
-        f"CPU max |diff| {zero_err:.3e}, max|cpu| {zero_scale:.3e}")
+    log(f"reference-ART: zero noise, the convert's output (proj stage and "
+        f"OS-SART): card vs CPU max |diff| {zc_err:.3e} (tol 1e-3·max|cpu| "
+        f"= {1e-3 * zc_scale:.3e}); the CPU on the input + 1 ulp "
+        f"{c_spread:.3e}")
+    log(f"reference-ART: zero noise, the final image: card vs CPU max "
+        f"|diff| {z_err:.3e} (max|cpu| {z_scale:.3e}); the CPU against "
+        f"itself on the input + 1 ulp {spread:.3e} (tol the larger of "
+        f"1e-3·max|cpu| and 2× that = "
+        f"{max(1e-3 * z_scale, 2 * spread):.3e}); card launches {z_used}")
     log(f"reference-ART: Convertor('TV') (ntv=1), card vs CPU max |diff| "
         f"{tv_err:.3e} (tol 1e-3·max|cpu| = {1e-3 * tv_scale:.3e})")
-    if not (finite and err <= 1e-3 * scale):
-        raise AssertionError(f"small-input ART pipeline: card and CPU "
-                             f"differ by {err} (max |cpu| {scale})")
     log(f"reference-ART: adaptive proj mode (t_start=None), shared noise: "
         f"noise class {ns_gpu} (CPU {ns_cpu}); card vs CPU max |diff| "
         f"{ad_err:.3e} (tol 1e-3·max|cpu| = {1e-3 * ad_scale:.3e})")
+    if not (torch.isfinite(gpu).all() and err <= 1e-3 * scale):
+        raise AssertionError(f"small-input ART pipeline: card and CPU "
+                             f"differ by {err} (max |cpu| {scale})")
+    if not (torch.isfinite(z_gpu).all() and zc_err <= 1e-3 * zc_scale
+            and z_err <= max(1e-3 * z_scale, 2 * spread)):
+        raise AssertionError(f"small-input ART pipeline, zero noise: card "
+                             f"and CPU differ by {zc_err} after the convert"
+                             f" and {z_err} at the end (CPU spread "
+                             f"{spread})")
     if not (torch.isfinite(tv_gpu).all() and tv_err <= 1e-3 * tv_scale):
         raise AssertionError(f"TV convert: card and CPU differ by {tv_err}")
     if not (ns_gpu == ns_cpu and ad_err <= 1e-3 * ad_scale):

@@ -55,13 +55,17 @@ def bp_shift_accumulate_plain(Q, s0, s1, frac, n: int):
 
 
 def _check_windows(s0, s1, n: int, L: int,
-                   name: str = "bp_shift_accumulate") -> None:
+                   name: str = "bp_shift_accumulate", bounds=None) -> None:
     # JAX clamps out-of-range gather indices silently; neither torch
-    # indexing nor the kernel does, so the window bound is checked here
-    # (one host read for the four bounds)
-    m0, m1, x0, x1 = torch.stack([s0.min(), s1.min(), s0.max(),
-                                  s1.max()]).tolist()
-    lo, hi = min(m0, m1), max(x0, x1)
+    # indexing nor the kernel does, so the window bound is checked here:
+    # on ``bounds`` = (min, max) of the starts where the caller read them
+    # once from a static table's host copy, else with one host read
+    if bounds is not None:
+        lo, hi = bounds
+    else:
+        m0, m1, x0, x1 = torch.stack([s0.min(), s1.min(), s0.max(),
+                                      s1.max()]).tolist()
+        lo, hi = min(m0, m1), max(x0, x1)
     if lo < 0 or hi + n > L:
         raise ValueError(f"{name}: window starts span [{lo}, {hi}], need "
                          f"0 <= s and s + {n} <= L (L={L})")
@@ -209,18 +213,21 @@ def os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam: float):
     return x
 
 
-def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float):
+def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
+                  s0_bounds=None):
     """One OS-SART sweep over a drive axis's subsets, in order (the f32
     mode of shift.py:544 os_sart_sweep_mm). x: [B,n,n] drive-frame image;
     rf: [S,Vp,B,L] masked measured ratios on the fine grid; inv2:
     [S,Vp,L] masked scale/n_fine; frac, s0: [S,Vp,n] tap fractions and
     int32 starts (the second tap starts at s0 + 1; 0 ≤ s0 and
     s0 + n < L, checked); nrmi: [S,n,n] per-subset 1/BP-norm; lam: the
-    relaxation. Returns a new [B,n,n] image; on the card one call is
-    2·S kernel launches on one stream, counted as one."""
+    relaxation; s0_bounds: (min, max) of s0 when the caller knows them
+    (a plan table), which spares the device read of the window check.
+    Returns a new [B,n,n] image; on the card one call is 2·S kernel
+    launches on one stream, counted as one."""
     name = "os_sart_sweep"
     S, Vp, B, n, L = _sweep_shapes(x, rf, inv2, frac, s0, nrmi)
-    _check_windows(s0, s0, n + 1, L, name)
+    _check_windows(s0, s0, n + 1, L, name, s0_bounds)
     if _device_of(name, x) == "cpu":
         return os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam)
     f32 = torch.float32
@@ -263,9 +270,10 @@ def anterp_taps_plain(P, qi0, W):
     return out
 
 
-def anterp_taps(P, qi0, W):
+def anterp_taps(P, qi0, W, qi0_bounds=None):
     """out[v,:,d] = Σ_k W[v,k,d]·P[v,:,qi0[v,d]+k]. P [V,B,Ntp] f32; qi0
-    [V,Lp] int32 with 0 ≤ qi0 and qi0 + Wt − 1 < Ntp (checked; the TPU
+    [V,Lp] int32 with 0 ≤ qi0 and qi0 + Wt − 1 < Ntp (checked, on
+    qi0_bounds = (min, max) of qi0 when the caller knows them; the TPU
     kernel's monotone-within-288 contract does not apply); W [V,Wt,Lp]
     f32. Returns [V,B,Lp] f32."""
     name = "anterp_taps"
@@ -274,7 +282,7 @@ def anterp_taps(P, qi0, W):
     V, B, Ntp = P.shape
     Wt, Lp = W.shape[1], W.shape[2]
     _check_shapes(name, [("qi0", qi0, (V, Lp)), ("W", W, (V, Wt, Lp))])
-    _check_windows(qi0, qi0, Wt, Ntp, name)
+    _check_windows(qi0, qi0, Wt, Ntp, name, qi0_bounds)
     if _device_of(name, P) == "cpu":
         return anterp_taps_plain(P, qi0, W)
     _check_cuda(name, P.device, [("P", P, torch.float32),

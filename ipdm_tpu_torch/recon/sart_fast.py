@@ -29,8 +29,6 @@ Output orientation matches ``fbp_convert_fast``.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -56,21 +54,21 @@ def _round_up(x: int, m: int) -> int:
 
 
 class _Group:
-    """Static tables of one view group (sart_fast.py:95-203).
+    """Static tables of one view group (sart_fast.py:95-203) on the Kf=1
+    fine grid: fine ray m sits at t position sgn·(step·m + β0), with step
+    the view's per-row advance, and a row deposit is a contiguous width-n
+    window of the [L] fine layout.
 
     ``ids`` are global view indices (they pick the angles); ``local_ids``
-    the rows of the folded, subsampled parallel sinogram. Fine ray
-    m ∈ [0, K·Lq) lives at flat index f = (m % K)·Lq + m // K, so a row
-    deposit is a contiguous width-n window of the flat layout."""
+    the rows of the folded, subsampled parallel sinogram."""
 
     def __init__(self, p: _FastPlan, ids: np.ndarray, local_ids: np.ndarray,
-                 xdrive: bool, Kf: int):
+                 xdrive: bool):
         self.p = p
         self.local_ids = local_ids
         self.xdrive = xdrive
         self.V = len(ids)
         self.Vpad = _round_up(max(self.V, 1), VB)
-        self.K = Kf
         n = p.n
         dt = p.dt
         if xdrive:
@@ -83,9 +81,8 @@ class _Group:
         b = (other[:, None] * otrig[None, :]
              + drive[0] * dtrig[None, :] + p.T) / dt           # [n, V]
         sgn = np.sign(a)
-        a_abs = np.abs(a)
+        step = np.abs(a)                                       # [V]
         b_adj = np.where(sgn > 0, b, -b)
-        step = a_abs / Kf                                      # [V]
         beta0 = b_adj.min(axis=0) - 2 * step                   # [V]
         o_real = (b_adj - beta0[None, :]) / step[None, :]      # [n, V]
         self.sgn = sgn.astype(np.float32)
@@ -95,14 +92,14 @@ class _Group:
         self.other = other.astype(np.float32)                  # [n]
         self.ob = (otrig / dt).astype(np.float32)              # [V]
         self.c0 = ((drive[0] * dtrig + p.T) / dt).astype(np.float32)
-        # flat layout: Lq sized so every deposit/read window stays inside
-        # one k-plane
+        # Lq fine rays, sized so every deposit/read window stays inside
         self.Wn = _round_up(n, 128)
         o_hi = int(np.floor(o_real).max() + 1 if self.V else 0)
-        self.Lq = o_hi // Kf + self.Wn + 132
-        self.L = _round_up(Kf * self.Lq + 128, 128)
+        self.Lq = o_hi + self.Wn + 132
+        self.L = _round_up(self.Lq + 128, 128)
         self._host = {}
         self._dev = {}
+        self._bounds = {}
 
     def _pad_vec(self, v: np.ndarray, fill=0.0) -> torch.Tensor:
         """[V] host vector → [Vpad] f32 tensor."""
@@ -128,47 +125,34 @@ class _Group:
         frac = o - oi
         smax = self.L - self.Wn - 128
         oi = oi.to(torch.int32).clamp(0, smax)
-        s0 = (oi % self.K) * self.Lq + oi // self.K
-        oi1 = oi + 1
-        s1 = (oi1 % self.K) * self.Lq + oi1 // self.K
         live = self._live()
         zero = torch.zeros((), dtype=torch.int32)
-        return (torch.where(live, s0, zero).clamp(0, smax),
-                torch.where(live, s1, zero).clamp(0, smax),
+        return (torch.where(live, oi, zero),
+                torch.where(live, oi + 1, zero).clamp(0, smax),
                 torch.where(live, frac, torch.zeros(())))
 
-    def _fine_tables(self):
-        """t → fine resample tables over the flat layout (sart_fast.py:
-        182-203): qi0, qi1 int32, qf, qvalid f32, each [Vpad, L]. Fine ray
-        m(f) = (f % Lq)·K + f // Lq sits at t position sgn·(step·m + β0);
-        pad rows and the tail past the planes are dead."""
-        Nt = self.p.Nt
-        f = torch.arange(self.L, dtype=torch.int32)
-        m = (f % self.Lq) * self.K + f // self.Lq              # [L]
-        live_f = (f // self.Lq) < self.K
+    def _qpos(self, m: torch.Tensor) -> torch.Tensor:
+        """t positions sgn·(step·m + β0) of fine rays m [M]: [Vpad, M]."""
         sgn = self._pad_vec(self.sgn)[:, None]
         step = self._pad_vec(self.step, fill=1.0)[:, None]
         beta0 = self._pad_vec(self.beta0)[:, None]
-        qpos = sgn * (step * m[None, :].float() + beta0)       # [Vpad, L]
-        qi = torch.floor(qpos)
-        qf = qpos - qi
-        qi = qi.to(torch.int32)
-        qvalid = ((qpos >= 0.0) & (qpos <= Nt - 1) & live_f[None, :]
-                  & self._live()).float()
-        return qi.clamp(0, Nt - 1), (qi + 1).clamp(0, Nt - 1), qf, qvalid
+        return sgn * (step * m[None, :].float() + beta0)
+
+    def _valid_table(self):
+        """qvalid f32 [Vpad, L] (sart_fast.py:182-203): the fine rays that
+        land inside the t grid; pad rows and the tail past Lq are dead."""
+        f = torch.arange(self.L, dtype=torch.int32)
+        qpos = self._qpos(f)
+        return ((qpos >= 0.0) & (qpos <= self.p.Nt - 1)
+                & (f < self.Lq)[None, :] & self._live()).float()
 
     def _resample_tables(self):
-        """The two taps of the t → fine resample in plane layout
-        (sart_fast.py:417-438): qi [Vpad, K·Lq] int32 and W [Vpad, 2, K·Lq],
-        where a second tap clipped onto the first folds into it
-        (w0 = (1−qf) + qf·same), the clipped lerp exactly."""
-        Nt, K, Lq = self.p.Nt, self.K, self.Lq
-        sgn = self._pad_vec(self.sgn)[:, None, None]
-        step = self._pad_vec(self.step, fill=1.0)[:, None, None]
-        beta0 = self._pad_vec(self.beta0)[:, None, None]
-        m = (torch.arange(Lq, dtype=torch.int32)[None, :] * K
-             + torch.arange(K, dtype=torch.int32)[:, None])   # [K, Lq]
-        qpos = sgn * (step * m[None].float() + beta0)          # [Vpad,K,Lq]
+        """The two taps of the t → fine resample (sart_fast.py:417-438):
+        qi [Vpad, Lq] int32 and W [Vpad, 2, Lq], where a second tap
+        clipped onto the first folds into it (w0 = (1−qf) + qf·same), the
+        clipped lerp exactly."""
+        Nt = self.p.Nt
+        qpos = self._qpos(torch.arange(self.Lq, dtype=torch.int32))
         qi = torch.floor(qpos)
         qf = qpos - qi
         qi = qi.to(torch.int32)
@@ -176,34 +160,37 @@ class _Group:
         same = ((qi + 1).clamp(0, Nt - 1) == qi0u).float()
         w0 = (1 - qf) + qf * same
         w1 = qf * (1 - same)
-        Vp = self.Vpad
-        return (qi0u.reshape(Vp, K * Lq).contiguous(),
-                torch.stack([w0, w1], dim=1).reshape(Vp, 2, K * Lq)
-                .contiguous())
+        return qi0u.contiguous(), torch.stack([w0, w1], dim=1).contiguous()
 
     def tables(self, device) -> dict:
         """The group's tables as tensors on ``device`` (computed once on
         the CPU, copied once per device)."""
         if not self._host:
             s0, s1, frac = self._row_tables()
-            qi0, qi1, qf, qvalid = self._fine_tables()
             rqi, rw = self._resample_tables()
-            self._host = dict(s0=s0, s1=s1, frac=frac, qi0=qi0, qi1=qi1,
-                              qf=qf, qvalid=qvalid, rqi=rqi, rw=rw)
+            self._host = dict(s0=s0, s1=s1, frac=frac,
+                              qvalid=self._valid_table(), rqi=rqi, rw=rw)
         key = str(torch.device(device))
         if key not in self._dev:
             self._dev[key] = {k: v.to(device) for k, v in self._host.items()}
         return self._dev[key]
 
+    def bounds(self, name: str) -> tuple:
+        """(min, max) of an int table, read once from its host copy: the
+        window bounds its kernels check without a device read."""
+        if name not in self._bounds:
+            t = self.tables("cpu")[name]
+            self._bounds[name] = (int(t.min()), int(t.max()))
+        return self._bounds[name]
+
 
 class _SartFastPlan:
     """Static tables for one (geometry, nsubsets, view subset)
-    (sart_fast.py:206-355). ``kf`` sets the fine-grid refinement; the
-    fused sweep runs on kf=1 (fine ray spacing = the view's per-row
-    advance)."""
+    (sart_fast.py:206-355) on the Kf=1 fine grid (fine ray spacing = the
+    view's per-row advance), the one the fused sweep runs on."""
 
     def __init__(self, g: FBPGeometry, nsubsets: int,
-                 view_ids: np.ndarray = None, kf: int = None):
+                 view_ids: np.ndarray = None):
         self.g = g
         self.p = _plan_for(g, oversample=1.0)
         p = self.p
@@ -214,13 +201,11 @@ class _SartFastPlan:
         while nsubsets > 1 and nv % nsubsets:
             nsubsets -= 1
         self.nsubsets = nsubsets
-        self.Kf = int(kf) if kf else max(1, int(math.ceil(p.dp_pix / p.dt)))
         xd = p.group_xdrive
         loc_all = np.arange(nv)
         m = xd[self.view_ids]
-        self.gx_all = _Group(p, self.view_ids[m], loc_all[m], True, self.Kf)
-        self.gy_all = _Group(p, self.view_ids[~m], loc_all[~m], False,
-                             self.Kf)
+        self.gx_all = _Group(p, self.view_ids[m], loc_all[m], True)
+        self.gy_all = _Group(p, self.view_ids[~m], loc_all[~m], False)
         # each drive's views in angle-interleaved subsets of ≤ 16 views:
         # drive -> (S, Vp, idx [S, Vp] into the drive's rows, pad = -1)
         self.dsub = {}
@@ -263,7 +248,7 @@ class _SartFastPlan:
     # -- FP ------------------------------------------------------------
 
     def fp_group_fine(self, img: torch.Tensor, grp: _Group) -> torch.Tensor:
-        """FP of one group onto its flat fine grid (sart_fast.py:285-302).
+        """FP of one group onto its fine grid (sart_fast.py:285-302).
         img [B, n, n] (fbp frame). Returns [Vpad, B, L] ray sums in
         deposit units."""
         B = img.shape[0]
@@ -282,33 +267,28 @@ class _SartFastPlan:
 
     def fp_group(self, img: torch.Tensor, grp: _Group) -> torch.Tensor:
         """FP of one group onto the t bins (sart_fast.py:304-355, the
-        anterpolation branch): the fine ray sums resampled by
-        :func:`anterp_taps` with 2·Kf+2 linear taps. img [B, n, n].
-        Returns [B, V, Nt]."""
+        anterpolation branch at Kf=1): the fine ray sums resampled by
+        :func:`anterp_taps` with 4 linear taps. img [B, n, n]. Returns
+        [B, V, Nt]."""
         p = self.p
-        Kf = self.Kf
         B = img.shape[0]
         dev = img.device
         if grp.V == 0:
             return img.new_zeros((B, 0, p.Nt))
-        T = self.fp_group_fine(img, grp)[:grp.V]               # [V, B, L]
-        Mfine = Kf * grp.Lq
-        Wt = 2 * Kf + 2
-        # m-order of the fine rays: the k-planes interleave
-        Tm = (T[:, :, :Mfine].reshape(grp.V, B, Kf, grp.Lq)
-              .transpose(2, 3).reshape(grp.V, B, Mfine))
+        Wt = 4
+        T = self.fp_group_fine(img, grp)[:grp.V, :, :grp.Lq]  # [V, B, Lq]
         d = torch.arange(p.Nt, dtype=torch.float32, device=dev)[None, :]
         f32 = lambda a: torch.as_tensor(a, device=dev)[:, None]
         sgn, step, beta0 = f32(grp.sgn), f32(grp.step), f32(grp.beta0)
         d_adj = torch.where(sgn > 0, d, -d)
         m0 = torch.floor((d_adj - 1.0 - beta0) / step).to(torch.int32)
-        qi0 = m0.clamp(0, max(Mfine - 1, 0))                   # [V, Nt]
+        qi0 = m0.clamp(0, max(grp.Lq - 1, 0))                  # [V, Nt]
         ks = torch.arange(Wt, dtype=torch.float32, device=dev)[None, :, None]
         midx = qi0[:, None, :].float() + ks                    # [V, Wt, Nt]
         qpos = sgn[:, None] * (step[:, None] * midx + beta0[:, None])
         W = ((1.0 - (qpos - d[:, None]).abs()).clamp_min(0.0)
-             * (midx < Mfine))
-        Tp = F.pad(Tm, (0, Wt)).contiguous()   # the last window's headroom
+             * (midx < grp.Lq))
+        Tp = F.pad(T, (0, Wt)).contiguous()   # the last window's headroom
         out = anterp_taps(Tp, qi0.contiguous(), W.contiguous())
         return out.transpose(0, 1)                             # [B, V, Nt]
 
@@ -316,49 +296,32 @@ class _SartFastPlan:
 
     def resample_to_fine(self, R: torch.Tensor, grp: _Group) -> torch.Tensor:
         """Resample per-view t-grid signals R [B, nv, Nt] onto the group's
-        flat fine grid with two clipped-lerp taps (sart_fast.py:394-443),
-        one :func:`anterp_taps` call. Returns [Vpad, B, L]."""
+        fine grid with two clipped-lerp taps (sart_fast.py:394-443), one
+        :func:`anterp_taps` call. Returns [Vpad, B, L]."""
         B = R.shape[0]
         if grp.V == 0:
             return R.new_zeros((grp.Vpad, B, grp.L))
-        rv = self._group_rows(R, grp)                          # [Vpad,B,Nt]
-        tb = grp.tables(R.device)
-        out = anterp_taps(F.pad(rv, (0, 1)).contiguous(), tb["rqi"],
-                          tb["rw"])                            # [Vpad,B,KLq]
-        return F.pad(out, (0, grp.L - grp.K * grp.Lq))
-
-    def _group_rows(self, R, grp):
         rv = R[:, torch.as_tensor(grp.local_ids, device=R.device)]
         rv = rv.transpose(0, 1).float()                        # [V, B, Nt]
-        return F.pad(rv, (0, 0, 0, 0, 0, grp.Vpad - grp.V))
-
-    def resample_to_fine_gather(self, R: torch.Tensor,
-                                grp: _Group) -> torch.Tensor:
-        """The same resample as two plain gathers (the JAX package's
-        ``_resample_to_fine_gather``, sart_fast.py:445-455), plain PyTorch
-        with no kernel: the yardstick of :meth:`resample_to_fine`."""
-        B = R.shape[0]
-        rv = self._group_rows(R, grp)
+        rv = F.pad(rv, (0, 1, 0, 0, 0, grp.Vpad - grp.V))     # [Vpad,B,Nt+1]
         tb = grp.tables(R.device)
-        i0 = tb["qi0"][:, None, :].long().expand(grp.Vpad, B, grp.L)
-        i1 = tb["qi1"][:, None, :].long().expand(grp.Vpad, B, grp.L)
-        f = tb["qf"][:, None, :]
-        return ((1 - f) * torch.gather(rv, 2, i0)
-                + f * torch.gather(rv, 2, i1))
+        out = anterp_taps(rv.contiguous(), tb["rqi"], tb["rw"],
+                          qi0_bounds=grp.bounds("rqi"))        # [Vpad,B,Lq]
+        return F.pad(out, (0, grp.L - grp.Lq))
 
 
 _SPLANS = {}
 
 
 def _splan_for(g: FBPGeometry, nsubsets: int, fold: bool = False,
-               sample_rate: int = 1, kf: int = None) -> _SartFastPlan:
+               sample_rate: int = 1) -> _SartFastPlan:
     k = (g.N, g.M, g.grid_n, g.grid_l, g.D, g.da, nsubsets, fold,
-         sample_rate, kf)
+         sample_rate)
     if k not in _SPLANS:
         ids = np.arange(g.M // 2 if fold else g.M)
         if sample_rate > 1:
             ids = ids[::sample_rate]
-        _SPLANS[k] = _SartFastPlan(g, nsubsets, view_ids=ids, kf=kf)
+        _SPLANS[k] = _SartFastPlan(g, nsubsets, view_ids=ids)
     return _SPLANS[k]
 
 
@@ -380,6 +343,7 @@ def _compute_norms_fused(sp: _SartFastPlan, device):
         inv2  [S, Vp, L] — masked scale/n_fine by subset
         nrmi  [S, n, n]  — per-subset 1/BP(valid), drive frame
         s0, frac [S, Vp, n] — the sweep's row tables
+        s0_bounds        — (min, max) of s0, read from its host copy
     """
     p = sp.p
     n = p.n
@@ -408,10 +372,13 @@ def _compute_norms_fused(sp: _SartFastPlan, device):
                 n)[0]
             nrm.append(torch.where(bpn > _EPS, 1.0 / bpn.clamp_min(_EPS),
                                    zero))
+        s0_host = sp.subset_take(key, grp.tables("cpu")["s0"])
         per_drive[key] = dict(valid=valid,
                               inv2=sp.subset_take(key, inv2_rows).contiguous(),
                               nrmi=torch.stack(nrm).contiguous(),
-                              s0=s0, frac=frac)
+                              s0=s0, frac=frac,
+                              s0_bounds=(int(s0_host.min()),
+                                         int(s0_host.max())))
     return nt_full, per_drive
 
 
@@ -451,11 +418,12 @@ def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
         for key, d in per_drive.items():
             args = (rf[key], d["inv2"], d["frac"], d["s0"], d["nrmi"],
                     float(lam))
+            kw = dict(s0_bounds=d["s0_bounds"])
             if key == "x":
-                x = os_sart_sweep(x.contiguous(), *args)
+                x = os_sart_sweep(x.contiguous(), *args, **kw)
             else:   # the y-driven views run on the transposed image
-                x = os_sart_sweep(x.transpose(1, 2).contiguous(),
-                                  *args).transpose(1, 2)
+                x = os_sart_sweep(x.transpose(1, 2).contiguous(), *args,
+                                  **kw).transpose(1, 2)
         x_res = x
         sigma = max(np.float32(sigma * np.float32(0.9)), np.float32(0.1))
         if ntv > 0:
@@ -470,15 +438,16 @@ def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
 
 def sart_fast_convert(pj: torch.Tensor, g: FBPGeometry, nstart: int = 10,
                       ntv: int = 0, nsubsets: int = 40,
-                      sample_rate: int = 1, fold: bool = True) -> torch.Tensor:
+                      sample_rate: int = 1) -> torch.Tensor:
     """[B, na, nr] fan sinograms → [B, n, n] images in fbp_convert_fast
     orientation (sart_fast.py:741-772): the reference's recons_torch
     semantics (nstart sweeps, ntv TV steps per sweep, every sample_rate-th
-    view) on the folded rebinned-parallel geometry, the fused sweep on a
-    Kf=1 fine grid, the whole batch at once."""
+    view) on the rebinned-parallel geometry, folded to a half turn when
+    the view count is even, the fused sweep on the Kf=1 fine grid, the
+    whole batch at once."""
     sample_rate = int(sample_rate)
-    fold = bool(fold) and g.M % 2 == 0
-    sp = _splan_for(g, nsubsets, fold=fold, sample_rate=sample_rate, kf=1)
+    fold = g.M % 2 == 0
+    sp = _splan_for(g, nsubsets, fold=fold, sample_rate=sample_rate)
     norms = _norms_for(sp, pj.device)
     par = _rebin(pj.float().flip(-1), sp.p)  # detector flip (fbp convention)
     if fold:

@@ -114,19 +114,33 @@ def test_fp_plane_deposit_plain_matches_pallas():
     torch.testing.assert_close(via, got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kernel", ["anterp", "sweep", "deposit"])
+@pytest.mark.parametrize("kernel", ["anterp", "sweep", "deposit",
+                                    "anterp-bounds", "sweep-bounds"])
 def test_wrappers_reject_windows_past_the_signal(kernel):
     """JAX clamps out-of-range indices silently; each wrapper checks its
-    windows on the host instead of reading or writing past the signal."""
-    if kernel == "anterp":
+    windows on the host instead of reading or writing past the signal,
+    on the starts themselves or on the (min, max) a caller passes for a
+    static table."""
+    if kernel.startswith("anterp"):
         P, qi0, W = _anterp_inputs()
-        qi0[2, 5] = P.shape[2] - W.shape[1] + 1
-        call = lambda: shift.anterp_taps(t(P), t(qi0), t(W))
-    elif kernel == "sweep":
+        over = P.shape[2] - W.shape[1] + 1
+        if kernel == "anterp":
+            qi0[2, 5] = over
+            call = lambda: shift.anterp_taps(t(P), t(qi0), t(W))
+        else:
+            call = lambda: shift.anterp_taps(t(P), t(qi0), t(W),
+                                             qi0_bounds=(0, over))
+    elif kernel.startswith("sweep"):
         x0, rf, inv2, frac, s0, nrmi = _sweep_inputs()
-        s0[1, 2, 3] = rf.shape[3] - x0.shape[2]   # the s0 + 1 tap overruns
+        over = rf.shape[3] - x0.shape[2]   # the s0 + 1 tap overruns
+        bounds = None
+        if kernel == "sweep":
+            s0[1, 2, 3] = over
+        else:
+            bounds = (int(s0.min()), over)
         call = lambda: shift.os_sart_sweep(t(x0), t(rf), t(inv2), t(frac),
-                                           t(s0), t(nrmi), 0.3)
+                                           t(s0), t(nrmi), 0.3,
+                                           s0_bounds=bounds)
     else:
         rows, s0, s1, w0, w1, L = _deposit_inputs()
         s0[4, 0] = -1
