@@ -46,7 +46,35 @@ exits non-zero without a result line:
    main-path run on a plan built anew (every kernel > 0), then warm
    slices split into proj stage / convert / img stage, launches per warm
    slice, peak memory, one profiled slice;
-11. the ``kernels`` JSON line, the nvidia-smi line, and the last line
+11. record-FP — one ``project_fast`` of two 512² phantoms at the SIEMENS
+   scanner (natural Kf = 2, 500 views per drive) with the kernel wrappers'
+   inputs recorded, its launches, its device time; then one
+   ``sart_fast_convert(..., mm_bf16=True)`` of four full-width sinograms
+   (those two and their low-dose versions; nstart=10, 40 subsets) with
+   its launches, beside the f32 convert of the same four;
+12. kernels-FP — on those inputs fp_shift_deposit_batched, fp_shift_deposit
+   (one item) and fp_plane_deposit against the plain deposit and against
+   each other, and anterp_taps at Wt = 6; the bf16 mode of os_sart_sweep
+   on the last sweep of each drive against its plain version, with its
+   distance from the f32 sweep;
+13. reference-FP — at 64², ``project_fast`` on the card against the CPU,
+   both anterpolation forms, then ``sart_fast_convert`` of that sinogram
+   back to an image, f32 and bf16 sweeps, with its PSNR against the
+   phantom (a physics check);
+14. engine — the steps of examples/synthetic_e2e_torch.py at full width
+   in a temporary directory: a corpus of two slices (phantom →
+   project_fast → add_noise at dose 0.25 → OS-SART), two checkpoints
+   written from seeded weights, then
+   ``ProgressiveDomainDenoiser(IPDMConfig(mode="test_prog", ...)).fit()``
+   with the ART settings and all five metrics: checkpoints loaded, every
+   kernel of the path launched, metric.json per slice and in aggregate,
+   the engine's phase times; then one more slice through ``update_opt``:
+   FBP with one converted iteration, which backprojects a single sinogram
+   through bp_shift_accumulate, with that wrapper's inputs recorded;
+15. kernels-BP1 — bp_shift_accumulate on those inputs (V=500, n=512)
+   against its plain version and the batched kernel at B=1, and beside
+   the row on two of the OS-SART norms' calls (V=16);
+16. the ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when no CUDA device is present. It imports nothing of
@@ -57,9 +85,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
+import math
+import os.path as osp
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,6 +130,9 @@ REPS = 20     # timed launches per kernel measurement
 FBP_KERNELS = ("planar_unit", "flash_attn", "bp_shift")
 ART_KERNELS = FBP_KERNELS + ("fp_plane_deposit", "os_sart_sweep",
                              "anterp_taps")
+# the engine phase's run also builds its corpus: one project_fast per slice
+ENGINE_KERNELS = ART_KERNELS + ("fp_shift_deposit",)
+DOSE = 0.25   # the synthetic corpus's low dose
 
 
 def log(msg: str) -> None:
@@ -576,29 +611,13 @@ def phase_kernels_art(calls, reps):
                                  f"(tol {atol:.3e} + {rtol:g}·|plain|)")
         return err, f"max |diff| {err:.3e} (tol {atol:.2e} + {rtol:g}·|plain|)"
 
-    def check_sum(label, got, want, absum, nterms):
-        """Within the f32 error bound of two summation orders of nterms
-        terms: 2·nterms·2⁻²⁴·Σ|terms| per output (absum = the plain
-        version on absolute values)."""
-        torch.cuda.synchronize()
-        d = (got - want).abs()
-        tol = 2 * nterms * 2.0 ** -24 * absum
-        err = float(d.max())
-        if not bool((d <= tol).all()):
-            raise AssertionError(f"{label} disagrees: max |diff| {err}, "
-                                 f"max |diff|/bound "
-                                 f"{float((d / tol.clamp_min(1e-30)).max())}")
-        return err, (f"max |diff| {err:.3e}, max |diff|/bound "
-                     f"{float((d / tol.clamp_min(1e-30)).max()):.2e} (bound "
-                     f"2·{nterms}·2^-24·Σ|terms|)")
-
     with torch.inference_mode():
         # f32 sums over rows (deposit, 2n terms per bin) or taps (anterp,
         # Wt terms), in another order: the summation error bound
         stats = []
         for args, kw in calls["fp_plane_deposit"]:
             rows_, s0, s1, w0, w1, L = args
-            err, msg = check_sum(
+            err, msg = _sum_bound_check(
                 "fp_plane_deposit", shift.fp_plane_deposit(*args),
                 shift.fp_plane_deposit_plain(*args),
                 shift.fp_plane_deposit_plain(rows_.abs(), s0, s1, w0.abs(),
@@ -624,7 +643,7 @@ def phase_kernels_art(calls, reps):
         stats = []
         for args, kw in calls["anterp_taps"]:
             P, qi0, W = args
-            err, msg = check_sum(
+            err, msg = _sum_bound_check(
                 "anterp_taps", shift.anterp_taps(*args, **kw),
                 shift.anterp_taps_plain(*args),
                 shift.anterp_taps_plain(P.abs(), qi0, W.abs()), W.shape[1])
@@ -848,6 +867,526 @@ def phase_reference_art(seed: int) -> None:
                              f"{missing}")
 
 
+def _sum_bound_check(label, got, want, absum, nterms):
+    """got within the f32 error bound of two summation orders of nterms
+    terms, 2·nterms·2⁻²⁴·Σ|terms| per output (absum = the plain version on
+    absolute values). Returns (max |diff|, message)."""
+    import torch
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    tol = 2 * nterms * 2.0 ** -24 * absum
+    err = float(d.max())
+    worst = float((d / tol.clamp_min(1e-30)).max())
+    if not bool((d <= tol).all()):
+        raise AssertionError(f"{label} disagrees: max |diff| {err}, max "
+                             f"|diff|/bound {worst}")
+    return err, (f"max |diff| {err:.3e}, max |diff|/bound {worst:.2e} "
+                 f"(bound 2·{nterms}·2^-24·Σ|terms|)")
+
+
+def phase_record_fp(seed: int):
+    """One project_fast of two full-width phantoms, driven as a user
+    building a corpus in batches drives it, with the launch counters reset
+    just before and read just after, and the kernel wrappers' inputs
+    recorded; then the bf16 convert of four sinograms made from them.
+    Returns (calls, project_fast's launches, the bf16 convert's)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP as g
+    from ipdm_tpu_torch.recon.phantom import random_ellipse_phantom
+
+    rng = np.random.default_rng(seed)
+    vol = torch.as_tensor(np.stack([random_ellipse_phantom(512, rng)
+                                    for _ in range(2)]).astype(np.float32),
+                          device="cuda")
+    project = lambda: sart_fast.project_fast(vol, g, g.N, float(g.nda[0]),
+                                             float(g.da))
+    names = ("fp_shift_deposit_batched", "anterp_taps")
+    recs = [Recorder(sart_fast, nm) for nm in names]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        for r in recs:
+            stack.enter_context(r)
+        fan = project()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    sp = sart_fast._splan_for(g, 1, fold=True)
+    log(f"record-FP: project_fast of 2 phantoms 512² → {tuple(fan.shape)} "
+        f"(plan built in it: Kf={sp.Kf}, Nt={sp.p.Nt}, per drive V="
+        f"{sp.gx_all.V}/{sp.gy_all.V}, L={sp.gx_all.L}, Lq={sp.gx_all.Lq}): "
+        f"{cold:.3f} s, finite={bool(torch.isfinite(fan).all())}, max "
+        f"{float(fan.max()):.4f}; launches {launches}")
+    if tuple(fan.shape) != (2, g.M, g.N) or not torch.isfinite(fan).all():
+        raise AssertionError(f"project_fast output {tuple(fan.shape)}")
+    missing = [k for k in names if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"project_fast skipped kernels: {missing}")
+    with torch.inference_mode():
+        ms = cuda_ms(project, 5, warmup=1)
+        one = cuda_ms(lambda: sart_fast.project_fast(
+            vol[:1], g, g.N, float(g.nda[0]), float(g.da)), 5, warmup=1)
+    log(f"record-FP: project_fast, plan built: {ms:.3f} ms for 2 phantoms, "
+        f"{one:.3f} ms for 1")
+    return ({nm: r.calls for nm, r in zip(names, recs)}, launches,
+            _convert_bf16(vol, fan, seed))
+
+
+def _convert_bf16(vol, fan, seed: int):
+    """``sart_fast_convert(..., mm_bf16=True)`` of four full-width
+    sinograms (``fan`` and its low-dose version), as a user who asks for
+    the bf16 sweeps calls it, with the launch counters reset just before
+    and read just after; beside it the f32 convert of the same four.
+    Returns the bf16 convert's launches."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP as g
+    from ipdm_tpu_torch.recon.simulate import add_noise
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(nstart=10, nsubsets=40)
+    with torch.inference_mode():
+        pj = torch.cat([fan, add_noise(fan, gen, DOSE)])
+        f32 = sart_fast.sart_fast_convert(pj, g, **kw)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        bf16 = sart_fast.sart_fast_convert(pj, g, mm_bf16=True, **kw)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        ms = {m: cuda_ms(lambda: sart_fast.sart_fast_convert(
+            pj, g, mm_bf16=m, **kw), 3, warmup=1) for m in (False, True)}
+    ref = torch.cat([vol, vol]).transpose(1, 2)      # recon orientation
+    psnr = lambda x: [round(10 * math.log10(
+        float(r.max()) ** 2 / float(((a - r) ** 2).mean())), 2)
+        for a, r in zip(x, ref)]
+    gap, top = float((bf16 - f32).abs().max()), float(f32.abs().max())
+    log(f"record-FP: sart_fast_convert(mm_bf16=True) of 4 sinograms (2 "
+        f"full dose, 2 at dose {DOSE}; 10 sweeps of 40 subsets) → "
+        f"{tuple(bf16.shape)}: launches {launches}; {ms[True]:.3f} ms (f32 "
+        f"sweeps {ms[False]:.3f} ms); PSNR against the phantoms "
+        f"{psnr(bf16)} dB (f32 sweeps {psnr(f32)} dB); bf16 − f32 max "
+        f"|diff| {gap:.3e} at max|f32| {top:.4f} (tol 1e-2·max)")
+    if (tuple(bf16.shape) != (4, g.grid_n, g.grid_n)
+            or not torch.isfinite(bf16).all() or gap > 1e-2 * top
+            or gap == 0.0 or min(psnr(bf16)) < 15.0):
+        raise AssertionError(f"the bf16 convert: shape {tuple(bf16.shape)}, "
+                             f"bf16 − f32 {gap}, PSNR {psnr(bf16)}")
+    if launches["os_sart_sweep_bf16"] <= 0 or launches["os_sart_sweep"]:
+        raise AssertionError(f"the bf16 convert's sweeps: {launches}")
+    return launches
+
+
+def phase_kernels_fp(fp_calls, art_calls, reps):
+    """The deposits and the anterpolation on project_fast's inputs, the
+    bf16 sweep on the recorded last sweep of each drive. Returns the rows
+    of the kernels JSON line."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    rows = []
+    tag = "kernels-FP"
+
+    def row(name, source, replaces, stats):
+        summarise(rows, tag, name, source, replaces, stats, False)
+
+    with torch.inference_mode():
+        st8, st9 = [], []
+        for args, kw in fp_calls["fp_shift_deposit_batched"]:
+            rows_, s0, s1, w0, w1, L = args
+            n, B, W = rows_.shape
+            V = s0.shape[0]
+            want = shift.fp_plane_deposit_plain(*args)
+            absum = shift.fp_plane_deposit_plain(rows_.abs(), s0, s1,
+                                                 w0.abs(), w1.abs(), L)
+            plane = shift.fp_plane_deposit(*args)
+            batched = shift.fp_shift_deposit_batched(*args)
+            one_rows = rows_[:, B - 1].contiguous()
+            one_args = (one_rows, s0, s1, w0, w1, L)
+            single = shift.fp_shift_deposit(*one_args)
+            single_want = shift.fp_shift_deposit_plain(*one_args)
+            e6, m6 = _sum_bound_check("fp_plane_deposit (project_fast)",
+                                      plane, want, absum, 2 * n)
+            e8, m8 = _sum_bound_check("fp_shift_deposit_batched", batched,
+                                      want, absum, 2 * n)
+            e9, m9 = _sum_bound_check("fp_shift_deposit", single,
+                                      single_want, absum[:, B - 1], 2 * n)
+            d86 = float((batched - plane).abs().max())
+            d96 = float((single - plane[:, B - 1]).abs().max())
+            if d86 != 0.0 or d96 != 0.0:   # same row order, same sums
+                raise AssertionError(f"the shift deposits differ from "
+                                     f"fp_plane_deposit: {d86}, {d96}")
+            live = int((w0 != 0).any(dim=1).sum())
+            t6 = cuda_ms(lambda: shift.fp_plane_deposit(*args), reps)
+            s8 = dict(err=e8, **bound_ms(
+                4 * (n * B * W + 4 * V * n + V * B * L),
+                4 * live * n * B * W, F32_FLOPS),
+                ms=cuda_ms(lambda: shift.fp_shift_deposit_batched(*args),
+                           reps),
+                plain_ms=cuda_ms(
+                    lambda: shift.fp_plane_deposit_plain(*args), 3))
+            s9 = dict(err=e9, **bound_ms(
+                4 * (n * W + 4 * V * n + V * L), 4 * live * n * W,
+                F32_FLOPS),
+                ms=cuda_ms(lambda: shift.fp_shift_deposit(*one_args), reps),
+                plain_ms=cuda_ms(
+                    lambda: shift.fp_shift_deposit_plain(*one_args), 3))
+            log(f"{tag}: deposits V={V} ({live} live) B={B} n={n} W={W} "
+                f"L={L}: fp_shift_deposit_batched {m8} {s8['ms']:.4f} ms, "
+                f"plain {s8['plain_ms']:.4f} ms, bound "
+                f"{max(s8['bytes_ms'], s8['ops_ms']):.4f} ms; "
+                f"fp_shift_deposit (item {B - 1}) {m9} {s9['ms']:.4f} ms, "
+                f"plain {s9['plain_ms']:.4f} ms, bound "
+                f"{max(s9['bytes_ms'], s9['ops_ms']):.4f} ms; "
+                f"fp_plane_deposit {m6} {t6:.4f} ms; batched − plane "
+                f"{d86:.1e}, single − plane {d96:.1e}")
+            st8.append(s8)
+            st9.append(s9)
+        row("fp_shift_deposit_batched",
+            "ipdm_tpu_torch/csrc/fp_shift_deposit.cu",
+            "ipdm_tpu/ops/pallas/shift.py:354", st8)
+        row("fp_shift_deposit", "ipdm_tpu_torch/csrc/fp_shift_deposit.cu",
+            "ipdm_tpu/ops/pallas/shift.py:625", st9)
+
+        for args, kw in fp_calls["anterp_taps"]:
+            P, qi0, W = args
+            err, msg = _sum_bound_check(
+                "anterp_taps (project_fast)", shift.anterp_taps(*args, **kw),
+                shift.anterp_taps_plain(*args),
+                shift.anterp_taps_plain(P.abs(), qi0, W.abs()), W.shape[1])
+            ms = cuda_ms(lambda: shift.anterp_taps(*args, **kw), reps)
+            log(f"{tag}: anterp_taps (project_fast) V={P.shape[0]} "
+                f"B={P.shape[1]} Wt={W.shape[1]} Lp={W.shape[2]} "
+                f"Ntp={P.shape[2]}: {msg} {ms:.4f} ms")
+
+        # the bf16 sweep on the last sweep of each drive, against the
+        # plain version with the same bf16-rounded operands: the two sum
+        # the same exact products in another order, and a last-bit
+        # difference of a correction can move its bf16 rounding by one
+        # step (2^-8 relative) in a few of the 2·16 products of a pixel:
+        # 2e-6 of the largest pixel plus 2e-5 of each. Beside it the
+        # distance from the f32 sweep, which has to lie well outside that
+        # tolerance (the f32 sweep's own, 1e-5 + 1e-4, would not tell the
+        # two modes apart on a late sweep)
+        stats = []
+        for args, kw in art_calls["os_sart_sweep"][-2:]:
+            x, rf, inv2, frac, s0, nrmi, lam = args
+            kw = dict(kw, bf16=True)
+            want = shift.os_sart_sweep_plain(*args, bf16=True)
+            got = shift.os_sart_sweep(*args, **kw)
+            torch.cuda.synchronize()
+            top = float(want.abs().max())
+            ok, err = _within(got, want, 2e-5, 2e-6 * top)
+            f32 = shift.os_sart_sweep_plain(*args)
+            gap = float((f32 - want).abs().max())
+            over = float(((f32 - want).abs()
+                          / (2e-6 * top + 2e-5 * want.abs())).max())
+            S, Vp, B, L = rf.shape
+            n = x.shape[-1]
+            live = int((inv2 != 0).any(dim=2).sum())
+            nbytes = 4 * (2 * B * n * n + S * Vp * B * L + S * Vp * L
+                          + 2 * S * Vp * n + S * n * n)
+            b = bound_ms(nbytes, 0, F32_FLOPS)
+            # the taps are bf16 products (tensor-core rate), the
+            # correction and the update f32
+            b["ops_ms"] = (8 * live * B * n * n / BF16_FLOPS
+                           + (2 * S * Vp * B * L + 4 * S * B * n * n)
+                           / F32_FLOPS) * 1e3
+            s = dict(err=err, **b,
+                     ms=cuda_ms(lambda: shift.os_sart_sweep(*args, **kw),
+                                reps),
+                     plain_ms=cuda_ms(lambda: shift.os_sart_sweep_plain(
+                         *args, bf16=True), 2, 1))
+            f32_ms = cuda_ms(lambda: shift.os_sart_sweep(
+                *args, **dict(kw, bf16=False)), reps)
+            log(f"{tag}: os_sart_sweep bf16 S={S} Vp={Vp} ({live} live "
+                f"views) B={B} n={n} L={L} max|x|={float(x.abs().max()):.4f}"
+                f": max |diff| {err:.3e} (tol {2e-6 * top:.2e} + "
+                f"2e-5·|plain|); the f32 sweep lies {gap:.3e} away, "
+                f"{over:.1f}× the tolerance at its worst pixel; "
+                f"{s['ms']:.4f} ms (the f32 sweep {f32_ms:.4f} ms), plain "
+                f"{s['plain_ms']:.4f} ms, bound "
+                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms (bytes "
+                f"{s['bytes_ms']:.4f}, operations {s['ops_ms']:.4f})")
+            if not ok:
+                raise AssertionError(f"os_sart_sweep bf16 disagrees: max "
+                                     f"|diff| {err} (max|plain| {top})")
+            if not over > 5.0:
+                raise AssertionError(f"the bf16 tolerance does not tell the "
+                                     f"bf16 sweep from the f32 one ({over})")
+            stats.append(s)
+        row("os_sart_sweep_bf16", "ipdm_tpu_torch/csrc/os_sart_sweep.cu",
+            "ipdm_tpu/ops/pallas/shift.py:441", stats)
+    return rows
+
+
+def phase_reference_fp(seed: int) -> None:
+    """At 64² (180 views of 128 detectors): project_fast on the card
+    against the CPU plain path in both anterpolation forms, then the
+    OS-SART convert of that sinogram back to an image, with f32 and with
+    bf16 sweeps, card against CPU, and its PSNR against the phantom."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan
+    from ipdm_tpu_torch.recon.geometry import FanBeamGeometry
+    from ipdm_tpu_torch.recon.phantom import shepp_logan
+
+    geom = FanBeamGeometry(nx=64, ny=64, dx=42 / 64, dy=42 / 64, nr=128,
+                           dr=0.0010125 * 912 / 128, na=180)
+    g = fbp_geom_from_fan(geom)
+    ph = shepp_logan(64).astype(np.float32)
+    vol = torch.from_numpy(ph[None])
+    args = (g, geom.nr, float(g.nda[0]), float(g.da))
+    before = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        fan = {}
+        for anterp in (True, False):
+            cpu = sart_fast.project_fast(vol, *args, anterp=anterp)
+            gpu = sart_fast.project_fast(vol.cuda(), *args,
+                                         anterp=anterp).cpu()
+            err, scale = float((cpu - gpu).abs().max()), float(cpu.max())
+            log(f"reference-FP: 64² project_fast, "
+                f"{'anterp_taps' if anterp else 'windowed-gather'} form: "
+                f"card vs CPU max |diff| {err:.3e} (tol 1e-5·max|cpu| = "
+                f"{1e-5 * scale:.3e})")
+            if not (torch.isfinite(gpu).all() and err <= 1e-5 * scale):
+                raise AssertionError(f"project_fast: card and CPU differ by "
+                                     f"{err}")
+            fan[anterp] = gpu
+        forms = float((fan[True] - fan[False]).abs().max())
+        log(f"reference-FP: the two forms on the card differ by "
+            f"{forms:.3e} (tol 2e-5·max)")
+        if forms > 2e-5 * float(fan[True].max()):
+            raise AssertionError(f"the anterpolation forms differ: {forms}")
+        ref = torch.from_numpy(ph.T.copy())
+        for bf16 in (False, True):
+            kw = dict(nstart=10, nsubsets=18, mm_bf16=bf16)
+            cpu = sart_fast.sart_fast_convert(fan[True], g, **kw)[0]
+            gpu = sart_fast.sart_fast_convert(fan[True].cuda(), g,
+                                              **kw)[0].cpu()
+            err, scale = float((cpu - gpu).abs().max()), float(cpu.max())
+            psnr = 10 * math.log10(float(ref.max()) ** 2
+                                   / float(((gpu - ref) ** 2).mean()))
+            tol = (2e-3 if bf16 else 1e-3) * scale
+            log(f"reference-FP: sart_fast_convert(mm_bf16={bf16}) of that "
+                f"sinogram, 10 sweeps of 18 subsets: card vs CPU max |diff| "
+                f"{err:.3e} (tol {tol:.3e}); PSNR against the phantom "
+                f"{psnr:.2f} dB (floor 17 dB: the JAX fast path gives "
+                f"17.98 dB on this phantom and scanner)")
+            if not (torch.isfinite(gpu).all() and err <= tol
+                    and psnr >= 17.0):
+                raise AssertionError(f"64² convert (mm_bf16={bf16}): card "
+                                     f"vs CPU {err}, PSNR {psnr}")
+    used = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    log(f"reference-FP: card launches {used}")
+    for k in ("fp_shift_deposit", "anterp_taps", "os_sart_sweep",
+              "os_sart_sweep_bf16"):
+        if used[k] <= 0:
+            raise AssertionError(f"reference-FP skipped {k}")
+
+
+def _example():
+    """examples/synthetic_e2e_torch.py as a module."""
+    path = osp.join(osp.dirname(osp.abspath(__file__)), "examples",
+                    "synthetic_e2e_torch.py")
+    spec = importlib.util.spec_from_file_location("synthetic_e2e_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_metric_file(path, want_counts, names):
+    """metric.json at ``path``: for each mode the number of iterations
+    scored, each with every metric finite. Returns the dict."""
+    with open(path) as f:
+        m = json.load(f)
+    for mode, count in want_counts.items():
+        for name in names:
+            vals = [v for k, v in m[mode].items()
+                    if k.startswith(name + "_iter_") and not
+                    k.endswith("_std")]
+            if len(vals) != count or not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"{path}: {mode}/{name}: {vals} "
+                                     f"(expected {count} finite values)")
+    return m
+
+
+def phase_engine(seed: int):
+    """The example's steps at full width from files on disk: corpus,
+    checkpoints, ``ProgressiveDomainDenoiser(...).fit()`` in test_prog
+    mode. Returns the launches of that run, those of the FBP slice that
+    follows through update_opt, and bp_shift_accumulate's calls in it."""
+    import torch
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import fbp_fast, sart_fast
+
+    ex = _example()
+    names = ["psnr", "ssim", "fsim", "vif", "nqm"]
+    n_slices = 2
+    with tempfile.TemporaryDirectory(prefix="ipdm_engine_") as out:
+        sart_fast._SPLANS.clear()     # a user's first run builds the plans
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ex.build_dataset(out, n_slices, 512, DOSE, seed=seed)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        cfg = dict(ART_SLICE_OPT, mode="test_prog", run_name="chip_smoke",
+                   device="cuda", seed=seed, metrics=names, test_numbers=0,
+                   save_it_state_proj=True, save_it_state_img=False,
+                   **ex.dataset_paths(out))
+        ckpt_dir = ex.write_checkpoints(out, IPDMConfig(**cfg), seed=seed)
+        opt = IPDMConfig(resume_epochs_img=1, resume_epochs_proj=1,
+                         load_img_model_path=ckpt_dir,
+                         load_proj_model_path=ckpt_dir, **cfg)
+        t0 = time.perf_counter()
+        eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        for domain, model in (("img", eng.img_model),
+                              ("proj", eng.proj_model)):
+            saved = torch.load(osp.join(ckpt_dir, f"{domain}_model-1"),
+                               weights_only=True)
+            init = build_unet(opt, domain, device="cuda").state_dict()
+            state = model.state_dict()
+            same = all(torch.equal(state[k].cpu(), v)
+                       for k, v in saved.items())
+            fresh = all(torch.equal(state[k], init[k]) for k in state)
+            if not same or fresh or state.keys() != saved.keys():
+                raise AssertionError(f"{domain}_model-1 was not loaded "
+                                     f"(equals the file: {same}, equals a "
+                                     f"new model: {fresh})")
+        t0 = time.perf_counter()
+        eng.fit()
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"engine: corpus of {n_slices} slices 512² (phantom → "
+            f"project_fast → add_noise dose {DOSE} → OS-SART 4 sweeps) "
+            f"{t_build:.3f} s; engine built and 2 checkpoints loaded "
+            f"{t_init:.3f} s; fit() {t_fit:.3f} s; launches {launches}; "
+            f"peak memory {peak:.2f} GiB")
+        missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the engine's "
+                                 f"run: {missing}")
+        counts = dict(LDCT=1, deProj=4, deProg=1)
+        root = osp.join(eng.save_root_path, "Save_Iter_0")
+        for i in range(n_slices):
+            m = _check_metric_file(
+                osp.join(root, "P001", f"{i:04d}", "metric.json"), counts,
+                names)
+            log(f"engine: slice {i:04d}: LDCT " + ", ".join(
+                f"{nm} {m['LDCT'][nm + '_iter_0']:.4f}" for nm in names)
+                + f"; deProj iter 4 psnr {m['deProj']['psnr_iter_4']:.4f}; "
+                f"deProg psnr {m['deProg']['psnr_iter_1']:.4f} ssim "
+                f"{m['deProg']['ssim_iter_1']:.4f}")
+        agg = _check_metric_file(osp.join(root, "metric.json"), counts,
+                                 names)
+        ld = agg["LDCT"]["psnr_iter_0"]
+        log(f"engine: aggregate LDCT PSNR {ld:.4f} dB (std "
+            f"{agg['LDCT']['psnr_iter_0_std']:.4f}), deProg PSNR "
+            f"{agg['deProg']['psnr_iter_1']:.4f} dB (random weights: it "
+            f"need not beat the low dose)")
+        if not 15.0 < ld < 60.0:
+            raise AssertionError(f"LDCT PSNR {ld} dB outside 15-60 dB")
+        if not osp.exists(osp.join(eng.logger.models_save_dir,
+                                   "option.json")):
+            raise AssertionError("option.json was not written")
+        tm = eng.timer
+        log(f"engine: [phases] {tm.report()}")
+        per = {k: tm.totals[k] / n_slices for k in tm.totals}
+        denoise = per["proj_stage+convert"] + per["img_stage"]
+        log(f"engine: s/slice of the test loop over {n_slices} slices (the "
+            f"first builds the OS-SART plan): denoise {denoise:.4f} "
+            f"(proj stage + convert {per['proj_stage+convert']:.4f}, img "
+            f"stage {per['img_stage']:.4f}), metrics on the host "
+            f"{per['metrics']:.4f} (6 images × 5 metrics), saving "
+            f"{per['save']:.4f}, loading {per['load']:.4f}; fit() "
+            f"{t_fit / n_slices:.4f}")
+
+        # one more slice through update_opt: FBP with the default
+        # save_it_state_proj=False, so one iteration is converted and the
+        # fast FBP backprojects a single sinogram
+        eng.update_opt(dict(convertor="FBP", save_it_state_proj=False,
+                            ultra_img_denoise=False,
+                            metrics=["psnr", "ssim"], test_numbers=1))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with Recorder(fbp_fast, "bp_shift_accumulate") as bp1:
+            eng.test(1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fbp_one = dict(_build.LAUNCHES)
+        psnr = eng.metric_total["deProg"]["psnr_iter_1"]
+        log(f"engine: update_opt → FBP, one converted iteration: one slice "
+            f"{dt:.3f} s, deProg PSNR {psnr:.4f} dB, launches {fbp_one}")
+        if (fbp_one["bp_shift_accumulate"] != len(bp1.calls)
+                or not bp1.calls or not math.isfinite(psnr)):
+            raise AssertionError(f"FBP, one converted iteration: "
+                                 f"bp_shift_accumulate launched "
+                                 f"{fbp_one['bp_shift_accumulate']} times, "
+                                 f"{len(bp1.calls)} recorded, PSNR {psnr}")
+    return launches, fbp_one, bp1.calls
+
+
+def phase_kernels_bp1(calls, norm_calls, reps):
+    """bp_shift_accumulate on the inputs the engine's single-sinogram FBP
+    gave it, against its plain version and the batched kernel at B=1;
+    then, outside the row's means, on the first and the last of the
+    OS-SART norms' calls (V=16, one signal per view). Returns the row of
+    the kernels JSON line."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    rows, stats, tag = [], [], "kernels-BP1"
+    norms = [((a[0][:, 0].contiguous(),) + tuple(a[1:]), kw)
+             for a, kw in (norm_calls[0], norm_calls[-1])]
+    with torch.inference_mode():
+        for i, (args, kw) in enumerate(list(calls) + norms):
+            Q2, s0, s1, fr, n = args
+            Q = Q2[:, None].contiguous()
+            got = shift.bp_shift_accumulate(*args)
+            want = shift.bp_shift_accumulate_plain(Q, s0, s1, fr, n)[0]
+            batched = shift.bp_shift_accumulate_batched(Q, s0, s1, fr, n)[0]
+            torch.cuda.synchronize()
+            # f32 sums over the views in another order
+            atol = 1e-5 * float(want.abs().max())
+            ok, err = _within(got, want, 1e-4, atol)
+            same = float((got - batched).abs().max())
+            if not ok or same != 0.0:
+                raise AssertionError(f"bp_shift_accumulate disagrees: max "
+                                     f"|diff| {err}, from the batched "
+                                     f"kernel {same}")
+            V, L = Q2.shape
+            s = dict(err=err, **bound_ms(
+                4 * (V * L + 3 * V * n + n * n), 4 * V * n * n, F32_FLOPS),
+                ms=cuda_ms(lambda: shift.bp_shift_accumulate(*args), reps),
+                plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
+                    Q, s0, s1, fr, n), 5))
+            log(f"{tag}: bp_shift_accumulate V={V} L={L} n={n}: max |diff| "
+                f"{err:.3e} (tol {atol:.2e} + 1e-4·|plain|), from the "
+                f"batched kernel {same:.1e}; {s['ms']:.4f} ms, plain "
+                f"{s['plain_ms']:.4f} ms, bound "
+                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms"
+                + ("" if i < len(calls) else " (a norms call: not in the "
+                   "row)"))
+            if i < len(calls):
+                stats.append(s)
+        summarise(rows, tag, "bp_shift_accumulate",
+                  "ipdm_tpu_torch/csrc/bp_shift.cu",
+                  "ipdm_tpu/ops/pallas/shift.py:193", stats, False)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -876,24 +1415,47 @@ def main() -> int:
     rows = phase_kernels(phase_record(models, ld_proj), REPS)
     phase_reference(SEED)
     fbp, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
-                         FBP_KERNELS, 90, n_timed=2)
+                         FBP_KERNELS, 90, n_timed=1)
     art_calls, per_plan = phase_record_art(ld_proj)
     rows += phase_kernels_art(art_calls, REPS)
     phase_reference_art(SEED)
     art, warm = phase_slice("ART", ART_SLICE_OPT, models, ld_proj, SEED,
-                            ART_KERNELS, 105, n_timed=3, fresh_plan=True)
+                            ART_KERNELS, 105, n_timed=2, fresh_plan=True)
+    fp_calls, fp_run, bf16_run = phase_record_fp(SEED)
+    rows += phase_kernels_fp(fp_calls, art_calls, REPS)
+    phase_reference_fp(SEED)
+    del models
+    eng_run, fbp_one, bp1_calls = phase_engine(SEED)
+    rows += phase_kernels_bp1(
+        bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
+    # each path's run had the counters set to 0 just before it and read
+    # just after. A kernel's ``launches`` is its count in the ART slice's
+    # main-path run (rows of the earlier slices), or in the run of this
+    # slice that drives it: the engine's run from files (corpus and
+    # fit()), the batched project_fast, the bf16 convert, or the engine's
+    # FBP slice that follows through update_opt
+    own = {"fp_shift_deposit": eng_run,
+           "fp_shift_deposit_batched": fp_run,
+           "bp_shift_accumulate": fbp_one,
+           "os_sart_sweep_bf16": bf16_run}
     for row in rows:
         name = row["name"]
-        row["launches"] = art[name]          # the ART main-path run
+        row["launches"] = own.get(name, art)[name]
         row["launches_per_warm_slice"] = warm[name]
         row["launches_fbp"] = fbp[name]      # the FBP main-path run
+        row["launches_engine"] = eng_run[name]   # corpus + fit(), 2 slices
+        row["launches_project_fast"] = fp_run[name]
         if name in ("fp_plane_deposit", "anterp_taps", "bp_shift"):
             # the first convert's launches less those of a warm one
             row["launches_per_plan"] = per_plan[name] - warm[name]
-        log(f"kernels: {name}: {row['launches']} launches in the ART "
-            f"main-path run (plan built in it), {warm[name]} per warm ART "
-            f"slice, {fbp[name]} per FBP slice; ~{warm[name] * row['ms']:.2f}"
-            f" ms of kernel time per warm ART slice")
+        log(f"kernels: {name}: {row['launches']} launches in its main-path "
+            f"run; {art[name]} in the ART slice's (plan built in it), "
+            f"{warm[name]} per warm ART slice, {fbp[name]} per FBP slice, "
+            f"{eng_run[name]} in the engine's run of 2 slices, "
+            f"{fp_run[name]} in the batched project_fast")
+        if row["launches"] <= 0:
+            raise AssertionError(f"{name} was not launched in its "
+                                 f"main-path run")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

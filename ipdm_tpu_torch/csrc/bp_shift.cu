@@ -1,7 +1,9 @@
-// Batched two-tap shifted-window backprojection accumulate.
+// Two-tap shifted-window backprojection accumulate, batched and single.
 //
-// Replaces the Pallas TPU kernel ipdm_tpu/ops/pallas/shift.py:119
-// bp_shift_accumulate_batched (body _bp2_kernel :73):
+// Replaces the Pallas TPU kernels ipdm_tpu/ops/pallas/shift.py:119
+// bp_shift_accumulate_batched (body _bp2_kernel :73) and :193
+// bp_shift_accumulate (body _bp_kernel :168; the same sum for one signal
+// per view, Q2 [V,L] -> [n,n], entry bp_shift_single_launch below):
 //
 //   out[b,y,j] = sum_v (1 - f[v,y]) * Q[v,b,s0[v,y]+j] + f[v,y] * Q[v,b,s1[v,y]+j]
 //
@@ -60,5 +62,21 @@ extern "C" int bp_shift_launch(const void* Q, const void* s0, const void* s1,
       static_cast<const float*>(Q), static_cast<const int*>(s0),
       static_cast<const int*>(s1), static_cast<const float*>(frac),
       static_cast<float*>(out), V, B, L, n);
+  return (int)cudaGetLastError();
+}
+
+// Q2: [V,L] f32, one signal per view; out: [n,n]. The batched kernel at
+// B = 1: the view stride is L and the grid has one z plane. The TPU
+// kernel's multiple-of-8 view count is its block size and is not needed.
+extern "C" int bp_shift_single_launch(const void* Q2, const void* s0,
+                                      const void* s1, const void* frac,
+                                      void* out, int V, int L, int n,
+                                      void* stream) {
+  if (V < 0 || n < 1 || L < n) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + BJ - 1) / BJ, n, 1);
+  bp_shift_kernel<<<grid, BJ, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Q2), static_cast<const int*>(s0),
+      static_cast<const int*>(s1), static_cast<const float*>(frac),
+      static_cast<float*>(out), V, 1, L, n);
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,16 @@
 // the reads are about L/(|a|*n) ~ 1-1.4x those of the scatter form.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ipdm {
+
+// v rounded to bf16 (nearest even) and back: the value a bf16 matmul
+// operand carries
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 // one view's per-row starts and weights, staged in shared memory
 struct FpTaps {
@@ -40,7 +47,10 @@ __device__ __forceinline__ FpTaps fp_taps_smem(unsigned char* smem, int n) {
 inline int fp_taps_bytes(int n) { return 16 * n; }
 
 // sum over rows y of the taps that land on bin t; row y starts at
-// rows + y * row_stride and is W wide
+// rows + y * row_stride and is W wide. With BF16 each row value is rounded
+// to bf16 before its product (the caller stages bf16-rounded weights): a
+// product of two bf16 values is exact in f32, and the sum stays f32.
+template <bool BF16 = false>
 __device__ __forceinline__ float fp_gather(const float* __restrict__ rows,
                                            size_t row_stride, int W, int n,
                                            int t, const FpTaps& k) {
@@ -49,8 +59,14 @@ __device__ __forceinline__ float fp_gather(const float* __restrict__ rows,
     const float* r = rows + (size_t)y * row_stride;
     const int i0 = t - k.s0[y];
     const int i1 = t - k.s1[y];
-    if ((unsigned)i0 < (unsigned)W) acc += k.w0[y] * __ldg(r + i0);
-    if ((unsigned)i1 < (unsigned)W) acc += k.w1[y] * __ldg(r + i1);
+    if ((unsigned)i0 < (unsigned)W) {
+      const float v = __ldg(r + i0);
+      acc += k.w0[y] * (BF16 ? round_bf16(v) : v);
+    }
+    if ((unsigned)i1 < (unsigned)W) {
+      const float v = __ldg(r + i1);
+      acc += k.w1[y] * (BF16 ? round_bf16(v) : v);
+    }
   }
   return acc;
 }

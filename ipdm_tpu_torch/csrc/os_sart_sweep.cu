@@ -1,7 +1,7 @@
 // One OS-SART sweep over one drive axis's ordered subsets.
 //
 // Replaces the Pallas TPU kernel ipdm_tpu/ops/pallas/shift.py:544
-// os_sart_sweep_mm (body _oss_mm_kernel :432), f32 operand mode. For each
+// os_sart_sweep_mm (body _oss_mm_kernel :432), both operand modes. For each
 // subset s in order, on the drive-frame image x [B,n,n]:
 //
 //   FP:   P[v,b,t] = sum_y (1-f[v,y]) x[b,y,t-s0[v,y]] + f[v,y] x[b,y,t-s0[v,y]-1]
@@ -38,6 +38,15 @@
 // fit in the 50 MB L2. The TPU kernel's tap matrices for the MXU, its
 // 128-residue plane scratch and its rolls exist for the TPU and have no
 // counterpart: the taps are computed directly in f32.
+//
+// The bf16 operand mode (shift.py:441, :470, :480, :526) is the second
+// instantiation of the two kernels (BF16 = true). The TPU kernel casts its
+// two-hot tap matrix and the other matmul operand to bf16 and sums in f32,
+// so each output is a sum of exact bf16 x bf16 products: here the tap
+// weights (1-f, f), the image value (FP half) and the correction T (BP
+// half) are rounded to bf16 before each product and the products are
+// summed in f32. rf, inv2, nrmi, the correction's own arithmetic and the
+// update stay f32, as on the TPU.
 #include "common.cuh"
 #include "fp_deposit.cuh"
 
@@ -46,6 +55,7 @@ namespace {
 constexpr int BT = 256;  // FP threads along t
 constexpr int BJ = 128;  // BP threads along j
 
+template <bool BF16>
 __global__ void __launch_bounds__(BT)
     sweep_fp_kernel(const float* __restrict__ x, const float* __restrict__ rf,
                     const float* __restrict__ inv2,
@@ -62,17 +72,19 @@ __global__ void __launch_bounds__(BT)
     const float f = frac[off + y];
     taps.s0[y] = s;
     taps.s1[y] = s + 1;
-    taps.w0[y] = 1.f - f;
-    taps.w1[y] = f;
+    taps.w0[y] = BF16 ? ipdm::round_bf16(1.f - f) : 1.f - f;
+    taps.w1[y] = BF16 ? ipdm::round_bf16(f) : f;
   }
   __syncthreads();
   const int t = blockIdx.x * BT + threadIdx.x;
   if (t >= L) return;
-  const float p = ipdm::fp_gather(x + (size_t)b * n * n, n, n, n, t, taps);
+  const float p =
+      ipdm::fp_gather<BF16>(x + (size_t)b * n * n, n, n, n, t, taps);
   const size_t o = ((size_t)v * B + b) * L + t;
   T[o] = rf[o] - p * inv2[(size_t)v * L + t];
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(BJ)
     sweep_bp_kernel(const float* __restrict__ T, const int* __restrict__ s0,
                     const float* __restrict__ frac,
@@ -90,7 +102,12 @@ __global__ void __launch_bounds__(BJ)
     const int s = __ldg(s0 + k);
     const float f = __ldg(frac + k);
     const float* q = tb + v * vstride + s;
-    acc += (1.f - f) * __ldg(q) + f * __ldg(q + 1);
+    if (BF16) {
+      acc += ipdm::round_bf16(1.f - f) * ipdm::round_bf16(__ldg(q)) +
+             ipdm::round_bf16(f) * ipdm::round_bf16(__ldg(q + 1));
+    } else {
+      acc += (1.f - f) * __ldg(q) + f * __ldg(q + 1);
+    }
   }
   const size_t o = ((size_t)b * n + y) * n + j;
   x[o] = fmaxf(x[o] + lam * __ldg(nrmi + (size_t)y * n + j) * acc, 0.f);
@@ -102,7 +119,7 @@ extern "C" int os_sart_sweep_launch(void* x, const void* rf, const void* inv2,
                                     const void* frac, const void* s0,
                                     const void* nrmi, void* T, int S, int Vp,
                                     int B, int n, int L, float lam,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   const int smem = ipdm::fp_taps_bytes(n);
   if (S < 1 || Vp < 1 || B < 1 || n < 1 || L <= n || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
@@ -118,14 +135,23 @@ extern "C" int os_sart_sweep_launch(void* x, const void* rf, const void* inv2,
   const dim3 bp_grid((n + BJ - 1) / BJ, n, B);
   for (int s = 0; s < S; ++s) {
     const size_t tab = (size_t)s * Vp * n;
-    sweep_fp_kernel<<<fp_grid, BT, smem, st>>>(
-        xf, rff + (size_t)s * Vp * B * L, inv2f + (size_t)s * Vp * L,
-        fracf + tab, s0i + tab, Tf, B, n, L);
+    const float* rfs = rff + (size_t)s * Vp * B * L;
+    const float* inv2s = inv2f + (size_t)s * Vp * L;
+    if (bf16)
+      sweep_fp_kernel<true><<<fp_grid, BT, smem, st>>>(
+          xf, rfs, inv2s, fracf + tab, s0i + tab, Tf, B, n, L);
+    else
+      sweep_fp_kernel<false><<<fp_grid, BT, smem, st>>>(
+          xf, rfs, inv2s, fracf + tab, s0i + tab, Tf, B, n, L);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    sweep_bp_kernel<<<bp_grid, BJ, 0, st>>>(Tf, s0i + tab, fracf + tab,
-                                            nrmif + (size_t)s * n * n, xf, Vp,
-                                            B, n, L, lam);
+    const float* nrmis = nrmif + (size_t)s * n * n;
+    if (bf16)
+      sweep_bp_kernel<true><<<bp_grid, BJ, 0, st>>>(
+          Tf, s0i + tab, fracf + tab, nrmis, xf, Vp, B, n, L, lam);
+    else
+      sweep_bp_kernel<false><<<bp_grid, BJ, 0, st>>>(
+          Tf, s0i + tab, fracf + tab, nrmis, xf, Vp, B, n, L, lam);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

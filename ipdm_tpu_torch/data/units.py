@@ -3,8 +3,8 @@ of ipdm_tpu/data/units.py:20-44).
 
 Same conventions as the reference (Dataset/npz_data_loader.py:9-52):
 μ_water = 0.183 cm⁻¹, a +24 HU scanner offset, and a fixed display window
-of [-1024, 3072] HU mapped to [0, 1]. The functions take tensors (or
-floats, except ``HU2pixel``, which clamps a tensor).
+of [-1024, 3072] HU mapped to [0, 1]. The functions take tensors or numpy
+arrays (or floats, except ``HU2pixel``, which clips its array).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def miu2HU(miu):
 
 def HU2pixel(HU, new_window=None):
     lo, hi = new_window if new_window is not None else DEFAULT_WINDOW
-    return ((HU - lo) / (hi - lo)).clamp(0.0, 1.0)
+    return ((HU - lo) / (hi - lo)).clip(0.0, 1.0)
 
 
 def miu2pixel(miu, HU_range=None):

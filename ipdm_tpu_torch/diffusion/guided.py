@@ -125,7 +125,8 @@ def guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
                            lambda_curve=None, kernel_size: int = 4,
                            amplitude: float = 20.0,
                            noise_strength: Optional[str] = None,
-                           ldct: Optional[torch.Tensor] = None
+                           ldct: Optional[torch.Tensor] = None,
+                           only_convertor: bool = False
                            ) -> Tuple[List[torch.Tensor], Optional[str]]:
     """Iterative guided reverse process (guided.py:376-477).
 
@@ -134,9 +135,13 @@ def guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
     function (without its saved reverse states): with a constant λ or a
     static ``t_start`` the ``len(t_start)`` iterations and the ensemble;
     with ``t_start=None`` the iterations after the probe and the ensemble,
-    and in proj mode the noise class the probe chose."""
+    and in proj mode the noise class the probe chose. ``only_convertor``
+    (the engine's ``benchmark_test``) runs no diffusion and returns the
+    condition as the one iteration."""
     if mode not in ("img", "proj"):
         raise ValueError(f"mode {mode!r}: 'img' or 'proj'")
+    if only_convertor:
+        return [img], None
     x0 = img
     out_noise_strength = None
     if constant_guidance is not None:

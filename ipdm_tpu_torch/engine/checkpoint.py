@@ -1,0 +1,50 @@
+"""Checkpoint save/load of model weights (port of
+ipdm_tpu/engine/checkpoint.py ``CheckpointManager``).
+
+One file per module under the reference's ``save_models/{name}-{epoch}``
+layout (Utils/loggerx.py:62-80): a ``state_dict`` written with
+``torch.save`` and read with ``torch.load(weights_only=True)``, so resume
+semantics (``resume_epochs_{img,proj}`` → checkpoint id) carry over. A
+file written by the original PyTorch repo (its ``DataParallel`` keys carry
+a ``module.`` prefix) loads through ``strip_module_prefix``. Optimizer
+state is ported with training.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Dict, Optional
+
+import torch
+
+from ipdm_tpu_torch.utils.torch_import import strip_module_prefix
+
+
+class CheckpointManager:
+    """``save_models/{name}-{epoch}`` files of model ``state_dict``s."""
+
+    def __init__(self, models_save_dir: str):
+        self.dir = models_save_dir
+        os.makedirs(models_save_dir, exist_ok=True)
+
+    def save(self, name: str, epoch: int, model: torch.nn.Module) -> str:
+        """Write the module's weights (on the CPU, so the file loads on any
+        machine); returns the path."""
+        path = osp.join(self.dir, f"{name}-{epoch}")
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        torch.save(state, path)
+        return path
+
+    def load(self, name: str, epoch: int, model: torch.nn.Module,
+             load_dir: Optional[str] = None) -> bool:
+        """Load ``{name}-{epoch}`` from ``load_dir`` (default: this
+        manager's directory) into ``model``, strictly: a missing or extra
+        key raises. Returns False when there is no such file."""
+        path = osp.join(load_dir or self.dir, f"{name}-{epoch}")
+        if not osp.exists(path):
+            return False
+        state: Dict[str, torch.Tensor] = strip_module_prefix(
+            torch.load(path, map_location="cpu", weights_only=True))
+        model.load_state_dict(state, strict=True)
+        return True

@@ -1,54 +1,92 @@
-"""Progressive dual-domain denoise of one slice (port of the test path of
-ipdm_tpu/engine/denoiser.py:637-765).
+"""Progressive dual-domain denoiser: the test engine (port of the test
+path of ipdm_tpu/engine/denoiser.py).
 
-``progressive_denoiser`` runs the sinogram stage (guided partial diffusion
-with the proj UNet, constant or per-pixel λ), one batched convert of the
-kept iterations to images (FBP or OS-SART), the FBP sharpen, and the
-image stage (guided partial diffusion with the img UNet, plus the ultra
-pass). Options come from a plain dict with ``IPDMConfig``'s key names
-(``ipdm_tpu/config/config.py``); a key the dict lacks takes IPDMConfig's
-default.
+``ProgressiveDomainDenoiser(opt).fit()`` with a test mode (``test_prog``,
+``test_proj``, ``test_img``) builds the UNets and the convertor the config
+names, loads the model checkpoints, and for each test slice runs the
+denoisers, scores every kept iteration against the full-dose image on the
+host, and writes the reference's artifact layout
+(``save_models/option.json``,
+``save_test_results/Save_Iter_N/<patient>/<slice>/{metric.json, *.npz}``
+and the aggregate ``Save_Iter_N/metric.json``).
 
-Inputs and outputs are NHWC like the JAX engine's ([B, na, nr, 1]
-sinograms, [B, 512, 512, 1] images); the UNets run NCHW inside. Checkpoint
-loading, data loading, metrics and result saving come with a later slice.
+The stages are plain functions over the options (an ``IPDMConfig`` or a
+dict with its key names; a key a dict lacks takes IPDMConfig's default):
+:func:`proj_iterations` (guided partial diffusion with the proj UNet,
+constant or per-pixel λ), :func:`convert_iterations` (one batched convert
+of the kept iterations, FBP or OS-SART), :func:`img_iterations` (guided
+partial diffusion with the img UNet, plus the ultra pass), composed by
+:func:`progressive_denoiser` for a caller that holds models and a
+sinogram. The class runs the same functions and adds the files, the
+metrics and the result stores.
+
+Tensors at the engine's boundary are NHWC like the JAX engine's
+([B, na, nr, 1] sinograms, [B, n, n, 1] images); the UNets run NCHW
+inside, and saved result arrays are NCHW [B, 1, H, W] like the
+reference's. Training, the PNG grids and the sparse (DDIM) sampler are
+ported with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import copy
+import json
+import os
+import os.path as osp
+from datetime import datetime
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ipdm_tpu_torch import resolve_device
+from ipdm_tpu_torch.config.config import IPDMConfig, cfg_load
+from ipdm_tpu_torch.data.dataset import SiemensDatasetNpz
+from ipdm_tpu_torch.data.units import miu2pixel
 from ipdm_tpu_torch.diffusion.diffusion import GaussianDiffusion
 from ipdm_tpu_torch.diffusion.guided import guided_reverse_process
+from ipdm_tpu_torch.diffusion.normalize import (yeo_johnson_inverse_transform,
+                                                yeo_johnson_transform)
+from ipdm_tpu_torch.engine.checkpoint import CheckpointManager
+from ipdm_tpu_torch.engine.logging import LoggerX
+from ipdm_tpu_torch.models.unet import build_unet
 from ipdm_tpu_torch.ops.lambda_curve import curve_init, proj_curve_init
 from ipdm_tpu_torch.ops.sharpen import tensor_sharpen
 from ipdm_tpu_torch.recon.convertor import Convertor
+from ipdm_tpu_torch.recon.geometry import SIEMENS
+from ipdm_tpu_torch.utils.profiling import PhaseTimer
 
-# IPDMConfig's defaults (ipdm_tpu/config/config.py:45-125) of the keys
-# this module reads with opt.get
-_DEFAULTS = dict(ntv=0, ultra_img_denoise=True, sart_subsets=40,
-                 sart_nstart=10, sart_sample_rate=1,
-                 lambda_ratio_img=5, kernel_size_img=4, amplitude_img=20,
-                 lambda_ratio_proj=5, kernel_size_proj=4, amplitude_proj=5)
+_DEFAULTS = IPDMConfig()
 
 
-def _opt(opt: dict, key: str):
-    return opt.get(key, _DEFAULTS[key])
+def _opt(opt, key: str):
+    """opt[key]; a dict that lacks the key takes IPDMConfig's default."""
+    return opt.get(key, getattr(_DEFAULTS, key))
 
 
-def make_convertor(opt: dict) -> Convertor:
-    """The convertor the options name, with the OS-SART settings
-    (engine init_convertor, denoiser.py:288-293)."""
-    return Convertor(opt["convertor"], nstart=_opt(opt, "sart_nstart"),
-                     ntv=_opt(opt, "ntv"), nsubsets=_opt(opt, "sart_subsets"),
+# the options make_convertor reads
+CONVERTOR_KEYS = frozenset(("convertor", "geometry", "sart_nstart", "ntv",
+                            "sart_subsets", "sart_sample_rate", "exact_fbp",
+                            "exact_art"))
+
+
+def make_convertor(opt, kind: Optional[str] = None) -> Convertor:
+    """The convertor the options name (or ``kind``), on the scanner of
+    their ``geometry`` overrides, with the OS-SART settings (engine
+    init_convertor, denoiser.py:284-293)."""
+    if _opt(opt, "exact_fbp") or _opt(opt, "exact_art"):
+        raise NotImplementedError(
+            "exact_fbp / exact_art: the direct fan-beam FBP and the "
+            "footprint SART are ported with the exact physics")
+    overrides = _opt(opt, "geometry")
+    geom = SIEMENS.replace(**overrides) if overrides else SIEMENS
+    return Convertor(kind or opt["convertor"], geom=geom,
+                     nstart=_opt(opt, "sart_nstart"), ntv=_opt(opt, "ntv"),
+                     nsubsets=_opt(opt, "sart_subsets"),
                      sample_rate=_opt(opt, "sart_sample_rate"))
 
 
-def diffusion_for(opt: dict, domain: str, device=None) -> GaussianDiffusion:
+def diffusion_for(opt, domain: str, device=None) -> GaussianDiffusion:
     """The domain's cosine-schedule diffusion (engine init_*_model)."""
     return GaussianDiffusion(timesteps=opt[f"timesteps_{domain}"],
                              beta_schedule="cosine",
@@ -75,69 +113,621 @@ def _guided(opt, domain, model, gd, x, generator, curve, **kw):
         lambda_ratio=_opt(opt, f"lambda_ratio_{domain}"),
         kernel_size=_opt(opt, f"kernel_size_{domain}"),
         amplitude=_opt(opt, f"amplitude_{domain}"), lambda_curve=curve,
-        **kw)
+        only_convertor=_opt(opt, "benchmark_test"), **kw)
+
+
+def _denormalise(result: List[torch.Tensor], trans) -> List[torch.Tensor]:
+    """The Yeo-Johnson inverse of every iteration, on the host (scipy)."""
+    return [torch.as_tensor(
+        yeo_johnson_inverse_transform(r.cpu().numpy(), trans),
+        dtype=torch.float32, device=r.device) for r in result]
 
 
 @torch.inference_mode()
-def proj_denoiser(opt: dict, model, x, generator: torch.Generator,
-                  convertor: Optional[Convertor] = None,
-                  device=None):
-    """Sinogram stage and convert (denoiser.py:637-692). x: NHWC
-    [B, na, nr, 1]. Every kept iteration is converted in one batch (the
-    convert acts per item, so stacking is exact). Returns the last one's
-    image, NHWC [B, n, n, 1], and the noise class the adaptive schedule
-    chose (None unless ``t_start_proj`` is None)."""
+def proj_iterations(opt, model, x, generator: Optional[torch.Generator],
+                    device=None, trans=None, gd=None, curve=None
+                    ) -> Tuple[List[torch.Tensor], Optional[str]]:
+    """Sinogram stage (denoiser.py:637-663). x: NHWC [B, na, nr, 1].
+    Returns every kept iteration, NCHW [B, 1, na, nr], and the noise class
+    the adaptive schedule chose (None unless ``t_start_proj`` is None).
+    ``trans`` is the Yeo-Johnson fit of the input when the options say
+    ``normal``: the iterations come back de-normalised."""
     dev = resolve_device(device)
     result, noise_strength = _guided(
-        opt, "proj", model, diffusion_for(opt, "proj", dev),
-        _as_nchw(x, dev), generator, proj_curve_init())
+        opt, "proj", model, gd or diffusion_for(opt, "proj", dev),
+        _as_nchw(x, dev), generator, curve or proj_curve_init())
+    if _opt(opt, "normal") and trans is not None:
+        result = _denormalise(result, trans)
+    return result, noise_strength
+
+
+@torch.inference_mode()
+def convert_iterations(opt, result: List[torch.Tensor],
+                       convertor: Optional[Convertor] = None
+                       ) -> List[torch.Tensor]:
+    """Kept sinogram iterations (NCHW) → their images, NHWC [B, n, n, 1],
+    in one batched convert (denoiser.py:670-682): the convert acts per
+    item, so stacking over the batch axis is exact and pays the
+    convertor's fixed cost once."""
     if convertor is None:
         convertor = make_convertor(opt)
     G = 10.0 if opt["clip_proj"] else 1.0  # un-scale (/10 load convention)
     B = result[0].shape[0]
     conv = convertor(torch.cat([G * r[:, 0] for r in result], dim=0))
-    return conv[-B:, :, :, None], noise_strength
+    return [conv[i * B:(i + 1) * B, :, :, None] for i in range(len(result))]
+
+
+def proj_denoiser(opt, model, x, generator: Optional[torch.Generator],
+                  convertor: Optional[Convertor] = None, device=None):
+    """Sinogram stage and convert. Returns the image of every kept
+    iteration (a list of NHWC [B, n, n, 1], the last one the stage's
+    result) and the noise class."""
+    result, noise_strength = proj_iterations(opt, model, x, generator,
+                                             device=device)
+    return convert_iterations(opt, result, convertor), noise_strength
 
 
 @torch.inference_mode()
-def img_denoiser(opt: dict, model, x, generator: torch.Generator,
-                 noise_strength: Optional[str] = None,
-                 device=None) -> torch.Tensor:
-    """Image stage (denoiser.py:694-742), NHWC in and out; the input is
-    also the stage's ``ldct`` term, and ``noise_strength`` (the sinogram
-    stage's noise class) picks the adaptive schedule when ``t_start_img``
-    is None. Runs the ultra pass (3×5 steps at λ=0.6, η=0.6) when
-    ``ultra_img_denoise``."""
+def img_iterations(opt, model, x, generator: Optional[torch.Generator],
+                   noise_strength: Optional[str] = None, device=None,
+                   trans=None, gd=None, curve=None) -> List[torch.Tensor]:
+    """Image stage (denoiser.py:694-733), NHWC in, every kept iteration
+    out as NCHW [B, 1, n, n]; the input is also the stage's ``ldct`` term,
+    and ``noise_strength`` (the sinogram stage's noise class) picks the
+    adaptive schedule when ``t_start_img`` is None. With
+    ``ultra_img_denoise`` the ultra pass (3×5 steps at λ=0.6, η=0.6)
+    follows and its iterations are appended."""
     dev = resolve_device(device)
     xc = _as_nchw(x, dev)
-    gd = diffusion_for(opt, "img", dev)
-    curve = curve_init()
-    result, _ = _guided(opt, "img", model, gd, xc, generator, curve,
+    gd = gd or diffusion_for(opt, "img", dev)
+    result, _ = _guided(opt, "img", model, gd, xc, generator,
+                        curve or curve_init(),
                         noise_strength=noise_strength, ldct=xc)
     if _opt(opt, "ultra_img_denoise"):
-        result, _ = guided_reverse_process(
+        ultra, _ = guided_reverse_process(
             model, gd, result[-1], generator, t_start=[5, 5, 5],
             clip=opt["clip_img"], eta=0.6, mode="img",
-            constant_guidance=0.6, ldct=xc)
-    return result[-1].permute(0, 2, 3, 1)
+            constant_guidance=0.6, ldct=xc,
+            only_convertor=_opt(opt, "benchmark_test"))
+        result = result + ultra
+    if _opt(opt, "normal") and trans is not None:
+        result = _denormalise(result, trans)
+    return result
 
 
-@torch.inference_mode()
-def progressive_denoiser(opt: dict, proj_model, img_model, ldproj,
-                         generator: torch.Generator,
-                         convertor: Optional[Convertor] = None,
-                         sharpen_num: int = 42, device=None) -> torch.Tensor:
-    """proj stage → convert → (sharpen) → img stage (denoiser.py:744-765).
-    ldproj: NHWC [B, na, nr, 1]. The convertor defaults to the one the
-    options name (:func:`make_convertor`). Returns the denoised image NHWC
-    [B, n, n, 1] in f32."""
-    if opt.get("normal", False):
-        raise NotImplementedError(
-            "the Yeo-Johnson normalisation is ported with a later slice")
-    img, noise_strength = proj_denoiser(opt, proj_model, ldproj, generator,
-                                        convertor=convertor, device=device)
-    if not (opt["convertor"] == "FBP" and opt.get("fbp_sharpen", False)):
+def img_denoiser(opt, model, x, generator: Optional[torch.Generator],
+                 noise_strength: Optional[str] = None,
+                 device=None) -> torch.Tensor:
+    """Image stage; returns its last iteration, NHWC."""
+    return img_iterations(opt, model, x, generator, noise_strength,
+                          device=device)[-1].permute(0, 2, 3, 1)
+
+
+def _sharpen_and_normalise(opt, img: torch.Tensor, sharpen_num: int):
+    """Between the stages (denoiser.py:754-760): the FBP sharpen, then
+    with ``normal`` the Yeo-Johnson fit of the image stage's input.
+    Returns (x NHWC, its fit or None)."""
+    if not (opt["convertor"] == "FBP" and _opt(opt, "fbp_sharpen")):
         sharpen_num = -1
     x = tensor_sharpen(img, sharpen_num)
-    return img_denoiser(opt, img_model, x, generator,
-                        noise_strength=noise_strength, device=device)
+    if not _opt(opt, "normal"):
+        return x, None
+    x_np, trans = yeo_johnson_transform(x.cpu().numpy())
+    return torch.as_tensor(x_np, dtype=torch.float32, device=x.device), trans
+
+
+def progressive_denoiser(opt, proj_model, img_model, ldproj,
+                         generator: Optional[torch.Generator],
+                         convertor: Optional[Convertor] = None,
+                         sharpen_num: int = 42, device=None) -> torch.Tensor:
+    """proj stage → convert → (sharpen) → img stage (denoiser.py:744-765)
+    for a caller that holds the models. ldproj: NHWC [B, na, nr, 1]. The
+    convertor defaults to the one the options name
+    (:func:`make_convertor`). With ``normal`` the sinogram is
+    Gaussianised here, as the engine does when it loads a sample. Returns
+    the denoised image NHWC [B, n, n, 1] in f32."""
+    dev = resolve_device(device)
+    trans = None
+    if _opt(opt, "normal"):
+        x = ldproj.cpu().numpy() if torch.is_tensor(ldproj) else ldproj
+        ldproj, trans = yeo_johnson_transform(np.asarray(x, np.float32))
+    result, noise_strength = proj_iterations(opt, proj_model, ldproj,
+                                             generator, device=dev,
+                                             trans=trans)
+    img = convert_iterations(opt, result, convertor)[-1]
+    x, trans_img = _sharpen_and_normalise(opt, img, sharpen_num)
+    return img_iterations(opt, img_model, x, generator, noise_strength,
+                          device=dev, trans=trans_img)[-1].permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# The engine class
+# ---------------------------------------------------------------------------
+
+
+class DotDict(dict):
+    """Attr-access dict (reference train_test_utils.py:30-43)."""
+
+    __setattr__ = dict.__setitem__
+    __delattr__ = dict.__delitem__
+
+    def __getattr__(self, item):
+        try:
+            value = self[item]
+        except KeyError as e:
+            raise AttributeError(item) from e
+        if isinstance(value, dict) and not isinstance(value, DotDict):
+            value = DotDict(value)
+        return value
+
+
+class ResultTempDict(DotDict):
+    """Ordered iter_N result store with int indexing
+    (reference train_test_utils.py:45-56)."""
+
+    def __getitem__(self, item):
+        if isinstance(item, int):
+            if item == -1:
+                return self[f"iter_{len(self)}"]
+            return self[f"iter_{item}"]
+        return super().__getitem__(item)
+
+
+# -- recursive mean/std aggregation (reference train_test_utils.py:59-118) --
+
+def dict_add(d1, d2, d):
+    for key in d2.keys():
+        if isinstance(d2[key], dict):
+            if key not in d1:
+                d1[key] = dict()
+                d[key] = dict()
+            dict_add(d1[key], d2[key], d[key])
+        else:
+            if key not in d1:
+                d1[key] = 0
+                d[key] = 0
+            d1[key] += d2[key]
+            d[key] += 1
+
+
+def dict_mean(d1, d):
+    for key in d1.keys():
+        if isinstance(d1[key], dict):
+            dict_mean(d1[key], d[key])
+        else:
+            d1[key] /= d[key]
+
+
+def dict_value_minus_mean_square(d1, d_mean, d):
+    for key in d1.keys():
+        if isinstance(d1[key], dict):
+            if key not in d:
+                d[key] = dict()
+            dict_value_minus_mean_square(d1[key], d_mean[key], d[key])
+        else:
+            if key + "_std" not in d_mean:
+                d_mean[key + "_std"] = 0
+                d[key + "_std"] = 0
+            d_mean[key + "_std"] += (d1[key] - d_mean[key]) ** 2
+            d[key + "_std"] += 1
+
+
+def dict_std(d1, d):
+    for key in d1.keys():
+        if isinstance(d1[key], dict):
+            dict_std(d1[key], d[key])
+        else:
+            if "std" in key:
+                d1[key] = (d1[key] / d[key]) ** 0.5 if d[key] >= 1 else 0
+    return d1
+
+
+def _nchw_numpy(x: torch.Tensor, nhwc: bool = False) -> np.ndarray:
+    """A device tensor → host NCHW [B, 1, H, W] numpy (artifact layout)."""
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    return x.float().cpu().numpy()
+
+
+_TEST_MODES = ("test_proj", "test_img", "test_prog")
+
+
+class ProgressiveDomainDenoiser:
+    """The test engine. Construct with an IPDMConfig; call .fit()."""
+
+    def __init__(self, opt: IPDMConfig,
+                 result_save_path: Optional[str] = None):
+        if opt.mode not in _TEST_MODES:
+            raise NotImplementedError(
+                f"mode {opt.mode!r}: training is ported with the training "
+                f"slice; this engine runs {_TEST_MODES}")
+        self.device = resolve_device(opt.device)
+        self.trans_ldproj = None
+        self.trans_ldimg = None
+        self.opt = opt
+        self.opt_temp = copy.deepcopy(opt)
+        timestamp = "{0:%Y-%m-%dT%H-%M-%S}".format(datetime.now())
+        if result_save_path is None:
+            save_root = osp.join(os.getcwd(), "ModelTrainLog",
+                                 f"{opt.model_name}_{opt.run_name}", timestamp)
+        else:
+            save_root = osp.join(result_save_path,
+                                 f"{opt.model_name}_{opt.run_name}")
+        self.save_root = save_root
+        self.logger = LoggerX(save_root, opt)
+        self.ckpt = CheckpointManager(self.logger.models_save_dir)
+        self.logger.save_option(self.opt)
+        # the samplers' noise; the models' initial weights come from the
+        # same seed without touching the process's default generators
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            opt.seed)
+
+        # Section: models per mode (train_test_utils.py:146-168)
+        self.proj_model = None
+        self.img_model = None
+        if opt.mode in ("test_proj", "test_prog"):
+            self.init_proj_model()
+        self.init_convertor(opt.convertor)
+        if opt.mode in ("test_img", "test_prog"):
+            self.init_img_model()
+        self.load_model()
+
+        # Section: data
+        self.init_data_loader()
+        self.fdct = None
+        self.fdproj = None
+        self.ldct = None
+        self.ldct_np = None
+        self.ldproj = None
+        self.ldproj_np = None
+
+        # Section: result temps
+        self.proj_denoise_result = ResultTempDict()
+        self.proj_denoise_convert2img_result = ResultTempDict()
+        self.img_denoise_result = ResultTempDict()
+        self.progressive_denoise_result = ResultTempDict()
+        self.noise_strength = None
+        # Section: λ curves
+        self.img_lambda_curve = curve_init()
+        self.proj_lambda_curve = proj_curve_init()
+        # Section: metrics
+        self.metric_clear()
+        self.metric_total = DotDict()
+        self.metric_each_sample = []
+
+        self.save_root_path = osp.join(save_root, "save_test_results")
+        os.makedirs(self.save_root_path, exist_ok=True)
+        # per-phase wall-clock profiling (absent upstream)
+        self.timer = PhaseTimer()
+
+    # -- config mutation (train_test_utils.py:202-211) ----------------------
+
+    def update_opt(self, ultra_cfg=None):
+        """Merge ``ultra_cfg`` into the options and write option.json
+        anew. The convertor is built anew when the update names any
+        option it is built from (:data:`CONVERTOR_KEYS`), so the running
+        convertor never lags the options."""
+        if ultra_cfg is not None:
+            cfg_load(ultra_cfg, self.opt.__dict__)
+            self.logger.save_option(self.opt)
+            if CONVERTOR_KEYS & set(ultra_cfg):
+                self.init_convertor(self.opt.convertor)
+
+    def reset_opt(self):
+        self.opt = copy.deepcopy(self.opt_temp)
+
+    # -- model/convertor init ----------------------------------------------
+
+    def _build_model(self, domain: str):
+        cuda = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=cuda):
+            torch.manual_seed(self.opt.seed + (domain == "proj"))
+            return build_unet(self.opt, domain, device=self.device).eval()
+
+    def init_img_model(self):
+        self.img_model = self._build_model("img")
+        self.img_gaussian_diffusion = diffusion_for(self.opt, "img",
+                                                    self.device)
+
+    def init_proj_model(self):
+        self.proj_model = self._build_model("proj")
+        self.proj_gaussian_diffusion = diffusion_for(self.opt, "proj",
+                                                     self.device)
+
+    def init_convertor(self, convertor: str):
+        self.convertor = make_convertor(self.opt, convertor)
+
+    # -- checkpoints (train_test_utils.py:247-251; loggerx.py:62-80) --------
+
+    def load_model(self):
+        """Load ``{img,proj}_model-{resume_epochs}`` from the configured
+        directories into the models this mode built; a checkpoint that is
+        not there leaves the seeded initial weights."""
+        opt = self.opt
+        if (opt.resume_epochs_img > 0 and opt.load_img_model_path is not None
+                and self.img_model is not None):
+            self.ckpt.load("img_model", opt.resume_epochs_img,
+                           self.img_model, load_dir=opt.load_img_model_path)
+        if (opt.resume_epochs_proj > 0
+                and opt.load_proj_model_path is not None
+                and self.proj_model is not None):
+            self.ckpt.load("proj_model", opt.resume_epochs_proj,
+                           self.proj_model,
+                           load_dir=opt.load_proj_model_path)
+
+    def checkpoints(self, epoch: int):
+        if self.proj_model is not None:
+            self.ckpt.save("proj_model", epoch, self.proj_model)
+        if self.img_model is not None:
+            self.ckpt.save("img_model", epoch, self.img_model)
+
+    # -- data ---------------------------------------------------------------
+
+    def init_data_loader(self):
+        opt = self.opt
+        self.test_dataset = SiemensDatasetNpz(
+            ldimg_path=opt.test_dataset_path_LD_img,
+            fdimg_path=opt.test_dataset_path_FD_img,
+            ldproj_path=opt.test_dataset_path_LD_proj,
+            fdproj_path=opt.test_dataset_path_FD_proj,
+            proj_clip=opt.clip_proj, img_clip=opt.clip_img,
+            data_type=opt.data_type, patch=None, patch_per_image=None)
+
+    # -- temp clears (train_test_utils.py:397-419) --------------------------
+
+    def temp_clear(self):
+        self.proj_temp_clear()
+        self.img_temp_clear()
+        self.metric_clear()
+        self.noise_strength = None
+
+    def metric_clear(self):
+        self.metric_instance = DotDict(LDCT=DotDict(), deProj=DotDict(),
+                                       deImg=DotDict(), deProg=DotDict(),
+                                       deProj2img=DotDict())
+
+    def proj_temp_clear(self):
+        self.proj_denoise_convert2img_result = ResultTempDict()
+        self.proj_denoise_result = ResultTempDict()
+
+    def img_temp_clear(self):
+        self.img_denoise_result = ResultTempDict()
+        self.progressive_denoise_result = ResultTempDict()
+
+    # -- run ----------------------------------------------------------------
+
+    def fit(self):
+        self.test(0)
+
+    # -- evaluation (train_test_utils.py:274-324) ----------------------------
+
+    def test(self, epoch: int):
+        opt = self.opt
+        if opt.test_numbers <= 0:
+            opt.test_numbers = len(self.test_dataset)
+        np.random.seed(9527)  # the reference's fixed eval-sample seed
+        random_test_id = np.sort(np.random.choice(
+            len(self.test_dataset), opt.test_numbers, replace=False))
+        self.metric_each_sample = []
+        only_metric = not opt.display_result
+        for idx in range(opt.test_numbers):
+            tid = int(random_test_id[idx])
+            with self.timer.phase("load"):
+                ld_img, fd_proj, fd_img, ld_proj = self.test_dataset[tid]
+                ld_img = None if ld_img is None else ld_img[None]
+                fd_img = None if fd_img is None else fd_img[None]
+                ld_proj = None if ld_proj is None else ld_proj[None]
+                self.temp_clear()
+                self.save_path_load(epoch,
+                                    self.test_dataset.patient_name[tid],
+                                    self.test_dataset.slice_name[tid])
+                self.data_sample_load(ldct=ld_img, ldproj=ld_proj,
+                                      fdproj=fd_proj, fdct=fd_img)
+            if opt.mode == "test_proj":
+                self.proj_denoiser(self.ldproj)
+                figure_mode = "dproj2img"
+            elif opt.mode == "test_img":
+                self.img_denoiser(self.ldct, mode="img_only")
+                figure_mode = "dimg"
+            else:
+                self.progressive_denoiser()
+                figure_mode = "progressive"
+            with self.timer.phase("metrics"):
+                self.result_figure_save(mode=figure_mode, display=False,
+                                        only_metric=only_metric)
+            with self.timer.phase("save"):
+                self.result_data_save(data_save=opt.test_result_data_save)
+            self.metric_update()
+        self.metric_total_save(epoch)
+        if self.timer.totals:
+            print("[phases]", self.timer.report())
+
+    # -- denoisers (train_test_utils.py:421-567) ----------------------------
+
+    def proj_denoiser(self, x, convert=True, save_state=True,
+                      save_proj_state=False, return_idx=-1):
+        """x: NHWC [B, na, nr, 1]. Returns (image NHWC or proj NHWC,
+        noise_strength) like the reference (train_test_utils.py:421-480);
+        with ``save_state`` every kept iteration goes to the result
+        stores, else only the returned one."""
+        opt = self.opt
+        result, self.noise_strength = proj_iterations(
+            opt, self.proj_model, x, self.generator, device=self.device,
+            trans=self.trans_ldproj, gd=self.proj_gaussian_diffusion,
+            curve=self.proj_lambda_curve)
+        self.proj_temp_clear()
+        if save_proj_state:
+            for i, r in enumerate(result):
+                self.proj_denoise_result[f"iter_{i + 1}"] = _nchw_numpy(r)
+        chosen = result[return_idx]
+        if not save_state:
+            result = [chosen]
+        if convert:
+            imgs = convert_iterations(opt, result, self.convertor)
+            for i, img in enumerate(imgs):
+                self.proj_denoise_convert2img_result[f"iter_{i + 1}"] = \
+                    _nchw_numpy(img, nhwc=True)
+            return imgs[-1], self.noise_strength
+        for i, r in enumerate(result):
+            self.proj_denoise_result[f"iter_{i + 1}"] = _nchw_numpy(r)
+        return chosen.permute(0, 2, 3, 1), self.noise_strength
+
+    def img_denoiser(self, x, return_idx=-1, noise_strength=None,
+                     mode="progressive", save_state=True):
+        """x: NHWC [B, H, W, 1] (train_test_utils.py:482-550). Returns the
+        ``return_idx`` iteration, NHWC; the store is the progressive one
+        or, for any other ``mode``, the image-only one."""
+        result = img_iterations(
+            self.opt, self.img_model, x, self.generator, noise_strength,
+            device=self.device, trans=self.trans_ldimg,
+            gd=self.img_gaussian_diffusion, curve=self.img_lambda_curve)
+        self.img_temp_clear()
+        store = (self.progressive_denoise_result if mode == "progressive"
+                 else self.img_denoise_result)
+        if save_state:
+            for i, r in enumerate(result):
+                store[f"iter_{i + 1}"] = _nchw_numpy(r)
+        else:
+            store["iter_1"] = _nchw_numpy(result[return_idx])
+        return result[return_idx].permute(0, 2, 3, 1)
+
+    def progressive_denoiser(self, save_proj_state=False, convert=True,
+                             sharpen_num=42):
+        """proj stage → (sharpen) → img stage
+        (train_test_utils.py:552-567)."""
+        opt = self.opt
+        with self.timer.phase("proj_stage+convert"):
+            result, n_s = self.proj_denoiser(
+                self.ldproj, save_state=opt.save_it_state_proj,
+                save_proj_state=save_proj_state, convert=convert)
+        x, trans = _sharpen_and_normalise(opt, result, sharpen_num)
+        if trans is not None:
+            self.trans_ldimg = trans
+        with self.timer.phase("img_stage"):
+            return self.img_denoiser(x, noise_strength=n_s,
+                                     save_state=opt.save_it_state_img)
+
+    # -- sample staging (train_test_utils.py:569-594) ------------------------
+
+    def _stage(self, arr: np.ndarray):
+        """A host sample → (device tensor, its Yeo-Johnson fit or None)."""
+        trans = None
+        if self.opt.normal:
+            arr, trans = yeo_johnson_transform(arr)
+        return (torch.as_tensor(arr, dtype=torch.float32,
+                                device=self.device), trans)
+
+    def data_sample_load(self, ldct=None, ldproj=None, fdproj=None,
+                         fdct=None):
+        """All inputs host NHWC numpy: ldct/fdct [1,512,512,1] μ maps,
+        ldproj/fdproj [1,2000,912,1] sinograms."""
+        if ldct is not None:
+            ldct = np.asarray(ldct, np.float32)
+            self.ldct, self.trans_ldimg = self._stage(ldct)
+            self.ldct_np = miu2pixel(np.squeeze(ldct))
+        if ldproj is not None:
+            ldproj = np.asarray(ldproj, np.float32)
+            self.ldproj, self.trans_ldproj = self._stage(ldproj)
+            self.ldproj_np = np.squeeze(ldproj)
+        if fdct is not None:
+            self.fdct = np.squeeze(miu2pixel(np.asarray(fdct, np.float32)))
+        if fdproj is not None:
+            self.fdproj = np.squeeze(np.asarray(fdproj, np.float32))
+
+    # -- artifacts (train_test_utils.py:596-828) -----------------------------
+
+    def save_path_load(self, epoch, patient_name, slice_name):
+        self.save_path = osp.join(self.save_root_path, f"Save_Iter_{epoch}",
+                                  str(patient_name), str(slice_name))
+        os.makedirs(self.save_path, exist_ok=True)
+
+    def result_figure_save(self, mode="progressive", display=True,
+                           only_metric=False):
+        """The metrics of every stored iteration against the full-dose
+        image, with the reference's figure modes. The annotated PNG grids
+        (``only_metric=False``, and the sinogram-residual mode "dproj")
+        are ported with a later slice."""
+        if mode not in ("progressive", "dimg", "dproj", "dproj2img"):
+            raise ValueError('mode should be one of: "progressive", '
+                             '"dimg", "dproj", "dproj2img"')
+        if not only_metric or mode == "dproj":
+            raise NotImplementedError(
+                "the PNG result grids (display_result) are ported with a "
+                "later slice; run with only_metric=True")
+        store, metric_mode = {
+            "dproj2img": (self.proj_denoise_convert2img_result,
+                          "deProj2img"),
+            "dimg": (self.img_denoise_result, "deImg"),
+            "progressive": (self.progressive_denoise_result, "deProg"),
+        }[mode]
+        self.metric_calculate(mode="LDCT", it=0, denoise_result=self.ldct_np)
+        if mode == "progressive":
+            for i in range(1, len(self.proj_denoise_convert2img_result) + 1):
+                dr = miu2pixel(
+                    self.proj_denoise_convert2img_result[f"iter_{i}"][0, 0])
+                self.metric_calculate(mode="deProj", it=i, denoise_result=dr)
+        for i in range(1, len(store) + 1):
+            dr = miu2pixel(store[f"iter_{i}"][0, 0])
+            self.metric_calculate(mode=metric_mode, it=i, denoise_result=dr)
+
+    def result_data_save(self, data_save=True):
+        os.makedirs(self.save_path, exist_ok=True)
+        if data_save:
+            for ftype, fdata in zip(
+                    ["prog_denoise_result", "proj_denoise_result",
+                     "img_denoise_result", "proj_denoise_result_2img"],
+                    [self.progressive_denoise_result,
+                     self.proj_denoise_result, self.img_denoise_result,
+                     self.proj_denoise_convert2img_result]):
+                if len(fdata) > 0:
+                    np.savez_compressed(
+                        osp.join(self.save_path, f"{ftype}.npz"), **fdata)
+        with open(osp.join(self.save_path, "metric.json"), "w") as f:
+            f.write(json.dumps(self.metric_instance, sort_keys=False,
+                               indent=4, separators=(",", ": ")))
+
+    # -- metrics (train_test_utils.py:789-828) -------------------------------
+
+    def metric_calculate(self, mode="LDCT", **kwargs):
+        from ipdm_tpu_torch.metrics import fsim, nqm, psnr, ssim, vif_p
+        i = kwargs["it"]
+        ld = np.array(kwargs["denoise_result"], np.float64)
+        ld[np.isnan(ld)] = 0.5  # NaN guard (train_test_utils.py:792)
+        fd = np.asarray(self.fdct, np.float64)
+        mi = self.metric_instance[mode]
+        if "psnr" in self.opt.metrics:
+            mi[f"psnr_iter_{i}"] = float(psnr(fd, ld, data_range=1))
+        if "ssim" in self.opt.metrics:
+            mi[f"ssim_iter_{i}"] = float(ssim(fd, ld, win_size=11,
+                                              data_range=1))
+        if "fsim" in self.opt.metrics:
+            mi[f"fsim_iter_{i}"] = float(fsim(fd, ld, data_range=1))
+        if "vif" in self.opt.metrics:
+            mi[f"vif_iter_{i}"] = float(vif_p(fd, ld, data_range=1))
+        if "nqm" in self.opt.metrics:
+            mi[f"nqm_iter_{i}"] = float(nqm(fd, ld))
+
+    def metric_update(self):
+        self.metric_each_sample.append(self.metric_instance)
+
+    def metric_total_save(self, epoch):
+        d = DotDict()
+        metric_mean = DotDict()
+        for m in self.metric_each_sample:
+            dict_add(metric_mean, m, d)
+        dict_mean(metric_mean, d)
+        d = DotDict()
+        for m in self.metric_each_sample:
+            dict_value_minus_mean_square(m, metric_mean, d)
+        dict_std(metric_mean, d)
+        self.metric_total = metric_mean
+        print(self.metric_total)
+        out_dir = osp.join(self.save_root_path, f"Save_Iter_{epoch}")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(osp.join(out_dir, "metric.json"), "w") as f:
+            f.write(json.dumps(self.metric_total, sort_keys=False, indent=4,
+                               separators=(",", ": ")))
+
+
+# reference-compatible alias (main.py uses the snake_case name)
+progressive_domain_denoiser = ProgressiveDomainDenoiser

@@ -5,12 +5,19 @@ kernels of ipdm_tpu/ops/pallas/shift.py):
   backprojection accumulate
   ``out[b,y,j] = Σ_v (1−f[v,y])·Q[v,b,s0[v,y]+j] + f[v,y]·Q[v,b,s1[v,y]+j]``
   (``csrc/bp_shift.cu``);
+* :func:`bp_shift_accumulate` (shift.py:193), the same sum for one signal
+  per view, Q2 [V,L] → [n,n] (``csrc/bp_shift.cu``, its own entry);
 * :func:`fp_plane_deposit` (shift.py:279), its adjoint, the two-tap row
   deposit ``out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j]``
   (``csrc/fp_deposit.cu``);
+* :func:`fp_shift_deposit_batched` (shift.py:354) and
+  :func:`fp_shift_deposit` (shift.py:625), the same deposit contract for
+  rows [n,B,W] and for one image's rows [n,W] → [V,L]
+  (``csrc/fp_shift_deposit.cu``);
 * :func:`os_sart_sweep` (shift.py:544 ``os_sart_sweep_mm``), one OS-SART
   sweep over a drive axis's subsets: deposit FP, ratio correction, BP,
-  relaxed update, clamp (``csrc/os_sart_sweep.cu``);
+  relaxed update, clamp, with f32 or bf16-rounded product operands
+  (``csrc/os_sart_sweep.cu``);
 * :func:`anterp_taps` (shift.py:702), the windowed multi-tap resample
   ``out[v,:,d] = Σ_k W[v,k,d]·P[v,:,qi0[v,d]+k]`` (``csrc/anterp_taps.cu``).
 
@@ -123,6 +130,34 @@ def bp_shift_accumulate_batched(Q, s0, s1, frac, n: int):
     return out
 
 
+def bp_shift_accumulate(Q2, s0, s1, frac, n: int):
+    """Σ_v two-tap row shifts of one signal per view, Q2 [V,L] (f32), at
+    starts s0, s1 [V,n] (int32) with weights frac [V,n] (f32); returns
+    [n,n] f32. Requires 0 ≤ s and s + n ≤ L (checked). Any view count: the
+    TPU kernel's multiple of 8 is its block size."""
+    name = "bp_shift_accumulate"
+    if Q2.dim() != 2:
+        raise ValueError(f"{name}: Q2 {tuple(Q2.shape)} must be [V, L]")
+    V, L = Q2.shape
+    _check_shapes(name, [(a, t, (V, n)) for a, t in
+                         (("s0", s0), ("s1", s1), ("frac", frac))])
+    if V:
+        _check_windows(s0, s1, n, L, name)
+    if _device_of(name, Q2) == "cpu":
+        return bp_shift_accumulate_plain(Q2[:, None, :], s0, s1, frac, n)[0]
+    _check_cuda(name, Q2.device, [("Q2", Q2, torch.float32),
+                                  ("s0", s0, torch.int32),
+                                  ("s1", s1, torch.int32),
+                                  ("frac", frac, torch.float32)])
+    out = torch.empty((n, n), dtype=torch.float32, device=Q2.device)
+    code = _build.library().bp_shift_single_launch(
+        Q2.data_ptr(), s0.data_ptr(), s1.data_ptr(), frac.data_ptr(),
+        out.data_ptr(), V, L, n, _build.stream_ptr(Q2))
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Two-tap plane deposit (the fast SART's forward projection)
 # ---------------------------------------------------------------------------
@@ -179,6 +214,78 @@ def fp_plane_deposit(rows, s0, s1, w0, w1, L: int):
     return out
 
 
+def _deposit_operands(name: str, rows, s0, s1, w0, w1, W: int, L: int):
+    """Shape and window checks shared by the two shift deposits; returns
+    V. The TPU kernels' 128-multiples of W and L and their start limit
+    L − W − 128 come from their aligned windows; here 0 ≤ s and
+    s + W ≤ L is the whole contract."""
+    if s0.dim() != 2:
+        raise ValueError(f"{name}: s0 must be [V,n]")
+    V, n = s0.shape[0], rows.shape[0]
+    _check_shapes(name, [(a, t, (V, n)) for a, t in
+                         (("s0", s0), ("s1", s1), ("w0", w0), ("w1", w1))])
+    _check_windows(s0, s1, W, L, name)
+    return V
+
+
+def _deposit_cuda(name: str, rows, s0, s1, w0, w1) -> None:
+    f32, i32 = torch.float32, torch.int32
+    _check_cuda(name, rows.device, [("rows", rows, f32), ("s0", s0, i32),
+                                    ("s1", s1, i32), ("w0", w0, f32),
+                                    ("w1", w1, f32)])
+
+
+def fp_shift_deposit_batched(rows, s0, s1, w0, w1, L: int):
+    """out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j] for t ∈ {0,1}:
+    :func:`fp_plane_deposit`'s contract through the kernel that serves a
+    whole batch per block. rows [n,B,W] f32; s0, s1 [V,n] int32 with 0 ≤ s
+    and s + W ≤ L (checked); w0, w1 [V,n] f32. Returns [V,B,L] f32."""
+    name = "fp_shift_deposit_batched"
+    if rows.dim() != 3:
+        raise ValueError(f"{name}: rows must be [n,B,W]")
+    n, B, W = rows.shape
+    V = _deposit_operands(name, rows, s0, s1, w0, w1, W, L)
+    if _device_of(name, rows) == "cpu":
+        return fp_plane_deposit_plain(rows, s0, s1, w0, w1, L)
+    _deposit_cuda(name, rows, s0, s1, w0, w1)
+    out = torch.empty((V, B, L), dtype=torch.float32, device=rows.device)
+    code = _build.library().fp_shift_deposit_batched_launch(
+        rows.data_ptr(), s0.data_ptr(), s1.data_ptr(), w0.data_ptr(),
+        w1.data_ptr(), out.data_ptr(), V, B, W, L, n,
+        _build.stream_ptr(rows))
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def fp_shift_deposit_plain(rows, s0, s1, w0, w1, L: int):
+    """The plain PyTorch version of :func:`fp_shift_deposit`: the batched
+    scatter-add at B = 1. rows [n,W]; returns [V,L] f32."""
+    return fp_plane_deposit_plain(rows[:, None, :], s0, s1, w0, w1, L)[:, 0]
+
+
+def fp_shift_deposit(rows, s0, s1, w0, w1, L: int):
+    """out[v,s_t[v,y]+j] += w_t[v,y]·rows[y,j] for t ∈ {0,1}: one image's
+    rows [n,W] f32 (W the deposit width) into per-view signals [V,L] f32.
+    s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L (checked); w0, w1 [V,n]
+    f32. Any view count."""
+    name = "fp_shift_deposit"
+    if rows.dim() != 2:
+        raise ValueError(f"{name}: rows must be [n,W]")
+    n, W = rows.shape
+    V = _deposit_operands(name, rows, s0, s1, w0, w1, W, L)
+    if _device_of(name, rows) == "cpu":
+        return fp_shift_deposit_plain(rows, s0, s1, w0, w1, L)
+    _deposit_cuda(name, rows, s0, s1, w0, w1)
+    out = torch.empty((V, L), dtype=torch.float32, device=rows.device)
+    code = _build.library().fp_shift_deposit_launch(
+        rows.data_ptr(), s0.data_ptr(), s1.data_ptr(), w0.data_ptr(),
+        w1.data_ptr(), out.data_ptr(), V, W, L, n, _build.stream_ptr(rows))
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # One OS-SART sweep over a drive axis's subsets
 # ---------------------------------------------------------------------------
@@ -196,27 +303,55 @@ def _sweep_shapes(x, rf, inv2, frac, s0, nrmi):
     return S, Vp, B, n, L
 
 
-def os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam: float):
+def _bf16_round(t):
+    """t rounded to bf16 (nearest even) and back to f32: the value a bf16
+    matmul operand carries."""
+    return t.to(torch.bfloat16).float()
+
+
+def os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam: float,
+                        bf16: bool = False):
     """The plain PyTorch version: per subset, the deposit FP
-    (:func:`fp_plane_deposit_plain`), the ratio correction, the BP
-    (:func:`bp_shift_accumulate_plain`), the relaxed update and the clamp.
-    Returns the updated [B,n,n] image (x is not changed)."""
+    (:func:`fp_plane_deposit_plain`), the ratio correction, the BP, the
+    relaxed update and the clamp. With ``bf16`` the tap weights (1−f, f),
+    the image (FP) and the correction (BP) are rounded to bf16 before
+    their products and the products summed in f32, which is what the TPU
+    kernel's bf16 matmul against its two-hot tap matrix computes. Returns
+    the updated [B,n,n] image (x is not changed)."""
     S, Vp, B, n, L = _sweep_shapes(x, rf, inv2, frac, s0, nrmi)
+    rnd = _bf16_round if bf16 else (lambda t: t)
     x = x.float()
+    iota = torch.arange(n, device=x.device)
     for s in range(S):
         s1 = s0[s] + 1
-        T = fp_plane_deposit_plain(x.transpose(0, 1), s0[s], s1,
-                                   1 - frac[s], frac[s], L)
-        corr = rf[s] - T * inv2[s][:, None, :]
-        bp = bp_shift_accumulate_plain(corr, s0[s], s1, frac[s], n)
+        w0, w1 = rnd(1 - frac[s]), rnd(frac[s])
+        T = fp_plane_deposit_plain(rnd(x).transpose(0, 1), s0[s], s1,
+                                   w0, w1, L)
+        corr = rnd(rf[s] - T * inv2[s][:, None, :])
+        # BP with the two tap weights as given (bp_shift_accumulate_plain
+        # forms 1 − f itself, which the bf16 mode rounds first)
+        bp = torch.zeros_like(x)
+        for v0 in range(0, Vp, _PLAIN_VIEW_CHUNK):
+            sl = slice(v0, min(Vp, v0 + _PLAIN_VIEW_CHUNK))
+            nv = sl.stop - v0
+
+            def taps(st):
+                idx = (st[sl].long()[:, :, None] + iota).reshape(nv, 1, -1)
+                return torch.gather(corr[sl], 2, idx.expand(-1, B, -1)
+                                    ).reshape(nv, B, n, n)
+
+            bp += (w0[sl, None, :, None] * taps(s0[s])
+                   + w1[sl, None, :, None] * taps(s1)).sum(dim=0)
         x = (x + lam * nrmi[s] * bp).clamp_min(0.0)
     return x
 
 
 def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
-                  s0_bounds=None):
-    """One OS-SART sweep over a drive axis's subsets, in order (the f32
-    mode of shift.py:544 os_sart_sweep_mm). x: [B,n,n] drive-frame image;
+                  s0_bounds=None, bf16: bool = False):
+    """One OS-SART sweep over a drive axis's subsets, in order
+    (shift.py:544 os_sart_sweep_mm; ``bf16`` is its bf16 operand mode: tap
+    weights, image and correction rounded to bf16 before each product, f32
+    sums). x: [B,n,n] drive-frame image;
     rf: [S,Vp,B,L] masked measured ratios on the fine grid; inv2:
     [S,Vp,L] masked scale/n_fine; frac, s0: [S,Vp,n] tap fractions and
     int32 starts (the second tap starts at s0 + 1; 0 ≤ s0 and
@@ -229,7 +364,8 @@ def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
     S, Vp, B, n, L = _sweep_shapes(x, rf, inv2, frac, s0, nrmi)
     _check_windows(s0, s0, n + 1, L, name, s0_bounds)
     if _device_of(name, x) == "cpu":
-        return os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam)
+        return os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam,
+                                   bf16=bf16)
     f32 = torch.float32
     _check_cuda(name, x.device, [
         ("x", x, f32), ("rf", rf, f32), ("inv2", inv2, f32),
@@ -239,9 +375,9 @@ def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
     code = _build.library().os_sart_sweep_launch(
         out.data_ptr(), rf.data_ptr(), inv2.data_ptr(), frac.data_ptr(),
         s0.data_ptr(), nrmi.data_ptr(), T.data_ptr(), S, Vp, B, n, L,
-        float(lam), _build.stream_ptr(x))
+        float(lam), int(bool(bf16)), _build.stream_ptr(x))
     _build.check(code, name)
-    _build.LAUNCHES["os_sart_sweep"] += 1
+    _build.LAUNCHES["os_sart_sweep_bf16" if bf16 else "os_sart_sweep"] += 1
     return out
 
 

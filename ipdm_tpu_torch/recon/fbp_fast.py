@@ -13,7 +13,9 @@ backprojection (port of ipdm_tpu/recon/fbp_fast.py).
    affine in j along the view's drive axis, so each filtered row is
    resampled once onto a fine grid (``_prep_group``) and every image row
    becomes a contiguous window of it at a per-row start with a per-row
-   lerp: the ``bp_shift_accumulate_batched`` kernel (ops/cuda/shift.py).
+   lerp: the ``bp_shift_accumulate_batched`` kernel (ops/cuda/shift.py),
+   or for a single sinogram its one-signal-per-view entry
+   ``bp_shift_accumulate``.
    Views split into an x-driven and a y-driven group; the y-driven group
    accumulates into the transposed image.
 
@@ -27,7 +29,8 @@ import math
 import numpy as np
 import torch
 
-from ipdm_tpu_torch.ops.cuda.shift import bp_shift_accumulate_batched
+from ipdm_tpu_torch.ops.cuda.shift import (bp_shift_accumulate,
+                                           bp_shift_accumulate_batched)
 from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP, FBPGeometry
 
 
@@ -204,7 +207,11 @@ def _bp_group(Pf, p: _FastPlan, view_idx: np.ndarray, xdrive: bool):
     """Backproject one view group (fbp_fast.py:248-292). Pf: [B, M, Nt].
     Returns [B, n, n] in standard row/col orientation."""
     T2, start0, start1, o_frac = _prep_group(Pf, p, view_idx, xdrive)
-    acc = bp_shift_accumulate_batched(T2, start0, start1, o_frac, p.n)
+    if T2.shape[1] == 1:    # one sinogram: one signal per view
+        acc = bp_shift_accumulate(T2[:, 0].contiguous(), start0, start1,
+                                  o_frac, p.n)[None]
+    else:
+        acc = bp_shift_accumulate_batched(T2, start0, start1, o_frac, p.n)
     return acc if xdrive else acc.transpose(1, 2)
 
 

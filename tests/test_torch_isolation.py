@@ -1,6 +1,7 @@
-"""The port stands alone: importing ipdm_tpu_torch and every submodule
-loads neither JAX nor the JAX package, and its entry points run on CUDA
-unless the caller passes device="cpu"."""
+"""The port stands alone: importing ipdm_tpu_torch and every submodule,
+its entry script main_torch.py, its example and chip_smoke.py loads
+neither JAX nor the JAX package, and its entry points run on CUDA unless
+the caller passes device="cpu"."""
 
 import json
 import subprocess
@@ -19,6 +20,12 @@ names = [m.name for m in pkgutil.walk_packages(ipdm_tpu_torch.__path__,
                                                 "ipdm_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import runpy
+for script in ("main_torch.py", "examples/synthetic_e2e_torch.py",
+               "chip_smoke.py"):
+    runpy.run_path(script, run_name="imported")  # its imports, not its main
+names += ["main_torch.py", "examples/synthetic_e2e_torch.py",
+          "chip_smoke.py"]
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ipdm_tpu"))}))
@@ -34,9 +41,36 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ipdm_tpu_torch.engine.denoiser",
                  "ipdm_tpu_torch.recon.fbp_fast",
                  "ipdm_tpu_torch.ops.cuda.shift",
-                 "ipdm_tpu_torch.utils.torch_import"):
+                 "ipdm_tpu_torch.utils.torch_import",
+                 "ipdm_tpu_torch.config.config",
+                 "ipdm_tpu_torch.metrics.fsim",
+                 "ipdm_tpu_torch.data.dataset",
+                 "ipdm_tpu_torch.recon.simulate",
+                 "ipdm_tpu_torch.engine.checkpoint",
+                 "main_torch.py", "examples/synthetic_e2e_torch.py",
+                 "chip_smoke.py"):
         assert name in out["modules"]
     assert out["loaded"] == []
+
+
+@pytest.mark.parametrize("path", ["main_torch.py",
+                                  "examples/synthetic_e2e_torch.py",
+                                  "chip_smoke.py"])
+def test_scripts_name_no_jax_module(path):
+    """No import statement of the port's scripts names jax or the JAX
+    package, wherever in the file it stands (function-level ones too)."""
+    import ast
+    tree = ast.parse((ROOT / path).read_text())
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    assert mods
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "ipdm_tpu")]
+    assert bad == []
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -53,3 +87,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     opt = dict(convertor="FBP", timesteps_proj=10, schedule_power_proj=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         progressive_denoiser(opt, None, None, torch.zeros(1, 8, 8, 1), None)
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProgressiveDomainDenoiser(IPDMConfig(mode="test_prog"))

@@ -44,7 +44,7 @@ def test_resample_to_fine_matches_both_jax_branches():
     branch and its take_along_axis branch, on the live fine rays (the
     tail past Lq is masked by the caller)."""
     jsp = jax_sf._splan_for(JaxGeometry(**SMALL), 6, fold=True, kf=1)
-    sp = sart_fast._splan_for(FBPGeometry(**SMALL), 6, fold=True)
+    sp = sart_fast._splan_for(FBPGeometry(**SMALL), 6, fold=True, kf=1)
     R = np.random.default_rng(1).random(
         (2, len(sp.view_ids), sp.p.Nt)).astype(np.float32)
     for jgrp, grp in ((jsp.gx_all, sp.gx_all), (jsp.gy_all, sp.gy_all)):
@@ -68,7 +68,7 @@ def test_siemens_plan_matches_jax_and_stays_in_its_windows():
     package's drive subsets, and every sweep window stays inside L (the
     bound the sweep wrapper checks: 0 <= s0, s0 + n < L)."""
     jsp = jax_sf._splan_for(JaxGeometry(), 40, fold=True, kf=1)
-    sp = sart_fast._splan_for(SIEMENS_FBP, 40, fold=True)
+    sp = sart_fast._splan_for(SIEMENS_FBP, 40, fold=True, kf=1)
     assert len(sp.view_ids) == 1000 and sp.p.Nt == 912
     for key in ("x", "y"):
         S, Vp, idx = sp.dsub[key]
