@@ -16,7 +16,14 @@ exits non-zero without a result line:
    inputs (max |diff| within the stated tolerance), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
    the same function, that call; and the least time the card could take
-   (bytes over 3.35 TB/s or operations over the peak rate of their type);
+   (bytes over 3.35 TB/s or operations over the peak rate of their type:
+   planar_unit's f32 multiply-adds at the f32 rate in both dtypes). Flash
+   prints one line per recorded shape (T = 7125 from the proj UNet,
+   T = 4096 from the img UNet) with its time, SDPA's and the bound, and
+   its row carries them under ``shapes``; then flash at three ragged token
+   counts (4097, 4159, 7125) on seeded inputs where an unmasked key past T
+   would dominate, beside a planted unmasked control that must fail; and
+   planar_unit at ragged widths, O > 16 and misaligned views, both dtypes;
 5. reference — the whole FBP-mode pipeline at a small size, f32, zero
    noise, on the card (kernels) against the CPU (plain versions);
 6. slice   — the FBP-mode progressive denoise of one slice with bench.py's
@@ -272,8 +279,12 @@ def phase_kernels(calls, reps):
     with torch.inference_mode():
         # planar_unit: bf16 within one bf16 rounding of the plain version
         # (both sum in f32, in another order), f32 to 1e-4 (f32 units run
-        # in the reference phase)
+        # in the reference phase). Its operations are f32 multiply-adds in
+        # either dtype (on the TPU and on the card), so the bound counts
+        # them at the f32 rate; the same count at the bf16 tensor-core
+        # rate is printed once beside it, for comparison with older logs
         stats = []
+        bf16_rate_ms = []
         for args, kw in pu_calls:
             x, a, bb, w, bias, skip = args
             act = kw.get("act", True)
@@ -288,8 +299,9 @@ def phase_kernels(calls, reps):
             es = x.element_size()
             nbytes = es * B * H * W * (C + O * (2 if skip is not None else 1))
             flops = 2 * 9 * C * O * B * H * W
-            s = dict(err=err, **bound_ms(nbytes, flops,
-                                         BF16_FLOPS if bf16 else F32_FLOPS),
+            bf16_rate_ms.append(max(bound_ms(nbytes, flops,
+                                             BF16_FLOPS).values()))
+            s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
                      ms=cuda_ms(lambda: planar.planar_unit(
                          x, a, bb, w, bias, skip, act=act), reps),
                      plain_ms=cuda_ms(lambda: planar.planar_unit_plain(
@@ -306,6 +318,10 @@ def phase_kernels(calls, reps):
         summarise(rows, "kernels", "planar_unit",
                   "ipdm_tpu_torch/csrc/planar_unit.cu",
                   "ipdm_tpu/ops/pallas/planar.py:190", stats, False)
+        log(f"kernels: planar_unit: bound at the f32 rate "
+            f"{rows[-1]['bound_ms']:.4f} ms (at the bf16 tensor-core rate, "
+            f"as counted before: {sum(bf16_rate_ms) / len(stats):.4f} ms)")
+        planar_ragged()
 
         # flash attention: bf16 outputs of an f32 softmax; the two round
         # the weights at different points (normalised vs not)
@@ -346,6 +362,14 @@ def phase_kernels(calls, reps):
         summarise(rows, "kernels", "flash_attn",
                   "ipdm_tpu_torch/csrc/flash_attn.cu",
                   "ipdm_tpu/models/unet.py:601", stats, True)
+        # the row's means weigh each shape by its launches; per shape:
+        rows[-1]["shapes"] = [
+            dict(T=k[1], launches_per_record=sum(
+                tuple(a[0].shape) == k for a, _ in fa_calls),
+                 ms=v["ms"], library_ms=v["library_ms"],
+                 bound_ms=max(v["bytes_ms"], v["ops_ms"]),
+                 max_abs_err=v["err"]) for k, v in seen.items()]
+        flash_ragged(reps)
 
         # BP: f32 sums over ~500 views in another order
         stats = []
@@ -375,6 +399,111 @@ def phase_kernels(calls, reps):
         summarise(rows, "kernels", "bp_shift", "ipdm_tpu_torch/csrc/bp_shift.cu",
                   "ipdm_tpu/ops/pallas/shift.py:119", stats, False)
     return rows
+
+
+def flash_ragged(reps):
+    """The flash kernel at ragged token counts against the plain version
+    at the main path's tolerance, on inputs where a key that escaped the
+    mask would dominate: q ≈ +1 and k ≈ −1 plus noise, so every live score
+    q·k·scale² is about −8, and v of head h has mean h + 1. A key row past
+    T that TMA zero-filled would score 0, outweigh all the live keys
+    together and pull the output toward 0. A planted control, the plain
+    version on K and V zero-padded to whole 64-key tiles (what the kernel
+    computes without its mask), must fail the same check. T = 4097 leaves
+    one live key in the last key tile and one query in the last query
+    tile (a stray write of that tile's dead rows would land on the next
+    head's first rows, whose values differ by 1); T = 4159 (64·64 + 63) a
+    last key tile one short of full; T = 7125 is the proj UNet's count
+    (43 dead keys in the last tile)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
+    hd = attention.HEAD_DIM
+    for T in (4097, 4159, 7125):
+        def rnd(mean, sd):
+            return (mean + sd * torch.randn((4, T, hd), generator=gen,
+                                            device="cuda")
+                    ).to(torch.bfloat16)
+        q, k = rnd(1.0, 0.25), rnd(-1.0, 0.25)
+        v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1), 0.5)
+        got = attention.flash_attention(q, k, v, scale)
+        want = attention.attention_plain(q, k, v, scale)
+        pad = torch.zeros((4, -T % 64, hd), dtype=q.dtype, device="cuda")
+        unmasked = attention.attention_plain(
+            q, torch.cat([k, pad], 1), torch.cat([v, pad], 1), scale)
+        torch.cuda.synchronize()
+        ok, err = _within(got, want, 2e-2, 2e-2)
+        ctrl_ok, ctrl_err = _within(unmasked, want, 2e-2, 2e-2)
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale), reps)
+        size = float(want.float().abs().mean())
+        log(f"kernels: flash_attn ragged [4,{T},64] bf16 (live scores ≈ "
+            f"−8, {-T % 64} dead keys): max |diff| {err:.3e} (tol 2e-2 + "
+            f"2e-2·|plain|, mean |plain| {size:.3f}) {ms:.4f} ms; planted control without the mask: max |diff| "
+            f"{ctrl_err:.3e}, {'passes' if ctrl_ok else 'fails'}")
+        if not ok:
+            raise AssertionError(f"flash attention disagrees at T={T}: "
+                                 f"max |diff| {err}")
+        if ctrl_ok:
+            raise AssertionError(f"the unmasked control passes at T={T}: "
+                                 "the check cannot see a missing mask")
+
+
+# planar_unit off the main path's shapes, (C, O, H, W, act, skip): W % 8
+# != 0 takes the element-by-element staging and the strips' short tails,
+# O > 16 the output-channel chunks; the main path's widths are all
+# multiples of 8
+PLANAR_RAGGED = ((1, 4, 13, 37, False, False), (8, 8, 13, 37, True, True),
+                 (8, 16, 17, 13, True, False), (16, 8, 33, 70, True, True),
+                 (12, 8, 33, 70, True, False), (8, 1, 17, 13, True, False),
+                 (5, 20, 33, 70, True, True))
+
+
+def planar_ragged():
+    """planar_unit against its plain version at :data:`PLANAR_RAGGED` and
+    at one width that is a multiple of 8 but with x and skip views that
+    start one element past a 16-byte boundary (the kernel must fall back
+    to element copies there), in f32 and bf16, seeded random inputs, at
+    the main path's tolerances. Not timed and not in the row's means."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import planar
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(shape, dtype=torch.float32, offset=0):
+        t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=dtype, device="cuda")
+        return buf[offset:].view(shape).copy_(t)
+
+    cases = [c + (0,) for c in PLANAR_RAGGED] + [(8, 8, 40, 64, True, True,
+                                                  1)]
+    for C, O, H, W, act, sk, off in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd((1, C, H, W), dtype, off)
+            a = 1 + 0.2 * rnd((1, C))
+            bb = 0.2 * rnd((1, C))
+            w = 0.3 * rnd((3, 3, C, O))
+            bias = 0.2 * rnd((1, O))
+            skip = rnd((1, O, H, W), dtype, off) if sk else None
+            bf16 = dtype == torch.bfloat16
+            rtol, atol = (2.0 ** -7, 1e-2) if bf16 else (1e-4, 1e-4)
+            got = planar.planar_unit(x, a, bb, w, bias, skip, act=act)
+            want = planar.planar_unit_plain(x, a, bb, w, bias, skip,
+                                            act=act)
+            torch.cuda.synchronize()
+            ok, err = _within(got, want, rtol, atol)
+            log(f"kernels: planar_unit ragged {str(dtype)[6:]} C={C} O={O} "
+                f"{H}x{W} act={int(act)} skip={int(sk)}"
+                + (f" (views {off} element past 16 B)" if off else "")
+                + f": max |diff| {err:.3e} (tol {atol:g} + "
+                f"{rtol:g}·|plain|)")
+            if not ok:
+                raise AssertionError(
+                    f"planar_unit disagrees at C={C} O={O} {H}x{W} "
+                    f"{dtype} offset {off}: max |diff| {err}")
 
 
 def phase_reference(seed: int) -> None:

@@ -16,9 +16,9 @@ from ipdm_tpu_torch.ops.cuda import _build
 from ipdm_tpu_torch.ops.cuda.attention import FLASH_MIN_SEQ
 
 
-def _run_both(C, heads, H, W, seed):
+def _run_both(C, heads, H, W, seed, B=2):
     rng = np.random.default_rng(seed)
-    x = rng.normal(0, 1, (2, H, W, C)).astype(np.float32)
+    x = rng.normal(0, 1, (B, H, W, C)).astype(np.float32)
     fl = FlaxAttention(C, heads)
     shapes = jax.tree_util.tree_map(
         lambda a: a.shape,
@@ -54,5 +54,17 @@ def test_attention_block_long_sequence_routes_to_flash_wrapper():
     assert 64 * 64 >= FLASH_MIN_SEQ
     before = _build.LAUNCHES["flash_attn"]
     got, want = _run_both(8, 1, 64, 64, seed=5)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert _build.LAUNCHES["flash_attn"] == before
+
+
+def test_attention_block_ragged_long_sequence_head_dim_64():
+    """65×65 = 4225 tokens at head dimension 64 (C=64, one head, B=1): the
+    flash route at a token count that leaves a ragged last key tile of the
+    kernel (4225 = 66·64 + 1); on a CPU tensor the plain formula, no
+    launch counted."""
+    assert 65 * 65 >= FLASH_MIN_SEQ and (65 * 65) % 64
+    before = _build.LAUNCHES["flash_attn"]
+    got, want = _run_both(64, 1, 65, 65, seed=11, B=1)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     assert _build.LAUNCHES["flash_attn"] == before
