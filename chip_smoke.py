@@ -38,7 +38,13 @@ exits non-zero without a result line:
    os_sart_sweep, anterp_taps, fp_plane_deposit and bp_shift; the
    once-per-plan launches; the convert's device time with the plan built;
 8. kernels-ART — each new kernel against its plain version on those
-   inputs (the sweep on the last sweep of each drive, where x ≠ 0);
+   inputs (the sweep on the last sweep of each drive, where x ≠ 0), each
+   launched twice on the same inputs (the results must be bit-equal);
+   beside the sweep two planted faults its tolerance must see (its last
+   subset dropped; one tile's row range cut short by one live row), and
+   its profile split: device µs per launch of the FP and the BP kernel and
+   the idle time between its launches; bp_shift on the OS-SART norms'
+   calls (V=16, B=1), timed into bp_shift's row;
 9. reference-ART — the ART-mode pipeline at a small size (per-pixel proj
    λ, OS-SART, ultra pass), f32, card against CPU: with the same noise on
    both; with zero noise, where the convert's output is held to 1e-3 of
@@ -63,7 +69,7 @@ exits non-zero without a result line:
    (one item) and fp_plane_deposit against the plain deposit and against
    each other, and anterp_taps at Wt = 6; the bf16 mode of os_sart_sweep
    on the last sweep of each drive against its plain version, with its
-   distance from the f32 sweep;
+   distance from the f32 sweep, the repeat check and its profile split;
 13. reference-FP — at 64², ``project_fast`` on the card against the CPU,
    both anterpolation forms, then ``sart_fast_convert`` of that sinogram
    back to an image, f32 and bf16 sweeps, with its PSNR against the
@@ -77,10 +83,13 @@ exits non-zero without a result line:
    kernel of the path launched, metric.json per slice and in aggregate,
    the engine's phase times; then one more slice through ``update_opt``:
    FBP with one converted iteration, which backprojects a single sinogram
-   through bp_shift_accumulate, with that wrapper's inputs recorded;
-15. kernels-BP1 — bp_shift_accumulate on those inputs (V=500, n=512)
-   against its plain version and the batched kernel at B=1, and beside
-   the row on two of the OS-SART norms' calls (V=16);
+   through bp_shift_accumulate, with that wrapper's inputs recorded; the
+   corpus's os_sart_sweep calls are recorded too;
+15. kernels-corpus — os_sart_sweep on the corpus's last sweep of each drive
+   (B = 1) against its plain version, with the repeat check;
+   kernels-BP1 — bp_shift_accumulate on the recorded inputs (V=500,
+   n=512) against its plain version and the batched kernel at B=1, and
+   beside the row on two of the OS-SART norms' calls (V=16);
 16. the ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -371,11 +380,14 @@ def phase_kernels(calls, reps):
                  max_abs_err=v["err"]) for k, v in seen.items()]
         flash_ragged(reps)
 
-        # BP: f32 sums over ~500 views in another order
+        # BP: f32 sums over ~500 views in another order; two launches on
+        # the same inputs must give the same bits
         stats = []
         for args, kw in bp_calls:
             Q, s0, s1, fr, n = args
-            got = shift.bp_shift_accumulate_batched(Q, s0, s1, fr, n)
+            got = shift.bp_shift_accumulate_batched(*args, **kw)
+            repeat_check("bp_shift", got,
+                         shift.bp_shift_accumulate_batched(*args, **kw))
             want = shift.bp_shift_accumulate_plain(Q, s0, s1, fr, n)
             torch.cuda.synchronize()
             atol = 1e-5 * float(want.abs().max())
@@ -385,12 +397,16 @@ def phase_kernels(calls, reps):
             flops = 4 * V * B * n * n
             s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
                      ms=cuda_ms(lambda: shift.bp_shift_accumulate_batched(
-                         Q, s0, s1, fr, n), reps),
+                         *args, **kw), reps),
+                     device_ms=queued_ms(
+                         lambda: shift.bp_shift_accumulate_batched(
+                             *args, **kw), reps),
                      plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
                          Q, s0, s1, fr, n), max(2, reps // 4)))
             log(f"kernels: bp_shift V={V} B={B} L={L} n={n}: max |diff| "
-                f"{err:.3e} (tol {atol:.2e} + 1e-4·|plain|) {s['ms']:.4f} "
-                f"ms, plain {s['plain_ms']:.4f} ms, bound "
+                f"{err:.3e} (tol {atol:.2e} + 1e-4·|plain|); two launches "
+                f"bit-equal; {s['ms']:.4f} ms (kernel {s['device_ms']:.4f} "
+                f"ms on the device), plain {s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
             if not ok:
                 raise AssertionError(f"bp_shift disagrees at V={V}: "
@@ -398,7 +414,33 @@ def phase_kernels(calls, reps):
             stats.append(s)
         summarise(rows, "kernels", "bp_shift", "ipdm_tpu_torch/csrc/bp_shift.cu",
                   "ipdm_tpu/ops/pallas/shift.py:119", stats, False)
+        # the row's means are the FBP slice's calls; kernels-ART adds the
+        # OS-SART norms' shape (V=16, B=1) beside them
+        rows[-1]["shapes"] = [shape_entry(stats, V=V, B=B)]
     return rows
+
+
+def repeat_check(label, got, again) -> None:
+    """Two launches of a kernel on the same inputs give the same bits (the
+    kernels sum in a fixed order, with no atomics)."""
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        diff = float((got - again).abs().max())
+        raise AssertionError(f"{label}: two launches on the same inputs "
+                             f"differ by {diff}")
+
+
+def shape_entry(stats, **shape) -> dict:
+    """One shape's means for a row's ``shapes`` list."""
+    n = len(stats)
+    extra = ({} if "device_ms" not in stats[0] else
+             dict(device_ms=sum(s["device_ms"] for s in stats) / n))
+    return dict(shape, calls=n, ms=sum(s["ms"] for s in stats) / n, **extra,
+                plain_ms=sum(s["plain_ms"] for s in stats) / n,
+                bound_ms=sum(max(s["bytes_ms"], s["ops_ms"])
+                             for s in stats) / n,
+                max_abs_err=max(s["err"] for s in stats))
 
 
 def flash_ragged(reps):
@@ -719,10 +761,12 @@ def phase_record_art(ld_proj):
     return {nm: r.calls for nm, r in zip(names, recs)}, first
 
 
-def phase_kernels_art(calls, reps):
+def phase_kernels_art(calls, reps, bp_row):
     """The three SART kernels against their plain versions on the
-    recorded inputs, with their times and bounds; bp_shift on a few of
-    the norms' calls. Returns the rows of the kernels JSON line."""
+    recorded inputs, with their times and bounds; the sweep's repeat
+    check, its planted row-range control and its profile split; bp_shift
+    on a few of the norms' calls, timed into ``bp_row``'s shapes. Returns
+    the rows of the kernels JSON line."""
     import torch
     from ipdm_tpu_torch.ops.cuda import shift
 
@@ -806,17 +850,16 @@ def phase_kernels_art(calls, reps):
             if not float(x.abs().max()) > 0:
                 raise AssertionError("os_sart_sweep held on x = 0")
             want = shift.os_sart_sweep_plain(*args)
-            err, msg = check("os_sart_sweep",
-                             shift.os_sart_sweep(*args, **kw), want, 1e-4,
-                             1e-5)
+            got = shift.os_sart_sweep(*args, **kw)
+            repeat_check("os_sart_sweep", got, shift.os_sart_sweep(*args, **kw))
+            err, msg = check("os_sart_sweep", got, want, 1e-4, 1e-5)
             short = shift.os_sart_sweep_plain(
                 x, *(a[:-1] for a in (rf, inv2, frac, s0, nrmi)), lam)
-            over = float(((short - want).abs()
-                          / (1e-5 * float(want.abs().max())
-                             + 1e-4 * want.abs())).max())
+            over = sweep_over(short, want)
             log(f"kernels-ART: os_sart_sweep with its last subset dropped: "
                 f"max |diff| {float((short - want).abs().max()):.3e}, "
                 f"{over:.1f}× the tolerance at its worst pixel")
+            row_range_control(args, kw, want)
             S, Vp, B, L = rf.shape
             n = x.shape[-1]
             live = int((inv2 != 0).any(dim=2).sum())
@@ -833,26 +876,186 @@ def phase_kernels_art(calls, reps):
                 f"{float(x.abs().max()):.4f}: {msg} {s['ms']:.4f} ms, plain "
                 f"{s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms "
-                f"(bytes {s['bytes_ms']:.4f}, operations {s['ops_ms']:.4f})")
+                f"(bytes {s['bytes_ms']:.4f}, operations {s['ops_ms']:.4f}); "
+                f"two launches bit-equal")
             stats.append(s)
         row("os_sart_sweep", "ipdm_tpu_torch/csrc/os_sart_sweep.cu",
             "ipdm_tpu/ops/pallas/shift.py:544", stats)
+        rows[-1]["shapes"] = [shape_entry(stats, S=S, Vp=Vp, B=B)]
+        args, kw = sweeps[-1]
+        sweep_profile("kernels-ART", lambda: shift.os_sart_sweep(*args, **kw),
+                      args[1].shape[0])
 
         # bp_shift on the norms' calls (V=16, B=1): the first and the last
-        # of each drive
+        # of each drive, timed into the bp_shift row's shapes
         bp = calls["bp_shift_accumulate_batched"]
         half = len(bp) // 2
+        stats = []
         for args, kw in (bp[0], bp[half - 1], bp[half], bp[-1]):
             Q, s0, s1, fr, n = args
-            err, msg = check("bp_shift (norms)",
-                             shift.bp_shift_accumulate_batched(*args),
+            got = shift.bp_shift_accumulate_batched(*args, **kw)
+            repeat_check("bp_shift (norms)", got,
+                         shift.bp_shift_accumulate_batched(*args, **kw))
+            err, msg = check("bp_shift (norms)", got,
                              shift.bp_shift_accumulate_plain(*args), 1e-4,
                              1e-5)
-            ms = cuda_ms(lambda: shift.bp_shift_accumulate_batched(*args),
-                         reps)
-            log(f"kernels-ART: bp_shift (norms) V={Q.shape[0]} "
-                f"B={Q.shape[1]} L={Q.shape[2]} n={n}: {msg} {ms:.4f} ms")
+            V, B, L = Q.shape
+            s = dict(err=err, **bound_ms(
+                4 * (V * B * L + 3 * V * n + B * n * n), 4 * V * B * n * n,
+                F32_FLOPS),
+                ms=cuda_ms(lambda: shift.bp_shift_accumulate_batched(
+                    *args, **kw), reps),
+                device_ms=queued_ms(lambda: shift.bp_shift_accumulate_batched(
+                    *args, **kw), reps),
+                plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
+                    *args), 5))
+            log(f"kernels-ART: bp_shift (norms) V={V} B={B} L={L} n={n}: "
+                f"{msg}; two launches bit-equal; {s['ms']:.4f} ms (kernel "
+                f"{s['device_ms']:.4f} ms on the device), plain "
+                f"{s['plain_ms']:.4f} ms, bound "
+                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
+            stats.append(s)
+        bp_row["shapes"].append(shape_entry(stats, V=V, B=B))
     return rows
+
+
+def sweep_over(got, want) -> float:
+    """max |got − want| over the f32 sweep's tolerance, 1e-5·max|want| +
+    1e-4·|want|, at the worst pixel."""
+    tol = 1e-5 * float(want.abs().max()) + 1e-4 * want.abs()
+    return float(((got - want).abs() / tol).max())
+
+
+def row_range_control(args, kw, want) -> None:
+    """A planted fault the sweep's tolerance has to see: the kernel rerun
+    with one tile's row range cut short by one live row (a row whose taps
+    land in the tile), in the last subset, whose update reaches the output
+    directly. The cut is the first or the last row of a range (only those
+    can go while the range stays a range); it is placed where the row's
+    taps weigh most against the ray sum they join (|taps|·inv2 over the
+    tile's bins, on the sweep's input image), and the three heaviest
+    candidates are run. The best must miss the tolerance."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    x, rf, inv2, frac, s0, nrmi, lam = args
+    S, Vp, B, L = rf.shape
+    n = x.shape[-1]
+    rows = kw["row_ranges"]
+    s = S - 1
+    r = rows[s].long()                                   # [Vp, nt, 2]
+    nt = r.shape[1]
+    t = (torch.arange(nt, device=x.device)[:, None] * shift.SWEEP_TILE
+         + torch.arange(shift.SWEEP_TILE, device=x.device))   # [nt, tile]
+    w_inv = torch.where(t < L, inv2[s][:, t.clamp_max(L - 1)],
+                        torch.zeros((), device=x.device))     # [Vp, nt, T]
+    cands = []
+    for end, y in ((0, r[..., 0]), (1, r[..., 1] - 1)):
+        live = r[..., 1] > r[..., 0]
+        y = y.clamp(0, n - 1)
+        sy = s0[s].long().gather(1, y)                       # [Vp, nt]
+        f = frac[s].gather(1, y)
+        u = t[None] - sy[..., None]                          # [Vp, nt, T]
+
+        def val(uu):
+            ok = (uu >= 0) & (uu < n)
+            g = x[:, y[..., None], uu.clamp(0, n - 1)]       # [B, Vp, nt, T]
+            return torch.where(ok, g, torch.zeros((), device=x.device))
+
+        taps = (1 - f)[..., None] * val(u) + f[..., None] * val(u - 1)
+        score = (taps.abs() * w_inv).amax(dim=(0, 3)) * live
+        cands += [(float(score[v, k]), end, int(v), int(k))
+                  for v, k in zip(*torch.nonzero(score > 0, as_tuple=True))]
+    cands.sort(reverse=True)
+    best = None
+    for _, end, v, k in cands[:3]:
+        cut = rows.clone()
+        if end == 0:
+            cut[s, v, k, 0] += 1
+        else:
+            cut[s, v, k, 1] -= 1
+        got = shift.os_sart_sweep(*args, **dict(kw, row_ranges=cut))
+        over = sweep_over(got, want)
+        if best is None or over > best[0]:
+            best = (over, (end, v, k, tuple(rows[s, v, k].tolist())))
+    over, (end, v, k, rng) = best
+    log(f"kernels-ART: os_sart_sweep with one tile's row range cut short by "
+        f"one live row (subset {s}, view {v}, tile {k}, range {rng}, its "
+        f"{'first' if end == 0 else 'last'} row dropped; the heaviest of 3 "
+        f"tried): {over:.1f}× the tolerance at its worst pixel")
+    if not over > 1.0:
+        raise AssertionError(f"the sweep's tolerance does not see a row "
+                             f"dropped from a tile ({over})")
+
+
+def device_times(fn, calls: int) -> dict:
+    """Device time of each kernel that ``calls`` calls of fn() launch,
+    under torch.profiler: {kernel name: (total ms, launches)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    return {e.key: (dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms per call of fn() with the stream kept busy: a spin kernel
+    (~10 ms) holds the queue while the host enqueues all ``reps`` calls,
+    so the events time the device's own work back to back, without the
+    wrapper's host time between launches (which cuda_ms includes where it
+    is longer than the kernel)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def sweep_profile(tag, fn, S) -> None:
+    """The sweep's device time per launch of its FP and BP kernels (the
+    means over the launches torch.profiler records in 3 calls; it can drop
+    some in a long process, so the count is printed) and the idle time
+    between its launches: a call's device time with the queue kept busy
+    (queued_ms) less S launches of each half and the wrapper's copy of x,
+    over the 2·S gaps between its 2·S + 1 launches."""
+    calls = 3
+    call_ms = queued_ms(fn, calls)
+    kern = device_times(fn, calls)
+    per = {}
+    for key in ("sweep_fp_kernel", "sweep_bp_kernel", "Memcpy"):
+        es = [v for k, v in kern.items() if key in k]
+        n = sum(c for _, c in es)
+        per[key] = (sum(t for t, _ in es) / n if n else None, n)
+    (fp, n_fp), (bp, n_bp), (cp, _) = per.values()
+    if fp is None or bp is None:
+        log(f"{tag} profile: os_sart_sweep S={S}: {call_ms:.4f} ms per call "
+            f"on the device; the FP / BP split not measured (the profiler "
+            f"recorded {n_fp} / {n_bp} of {S * calls} launches each)")
+        return
+    idle = call_ms - S * (fp + bp) - (cp or 0.0)
+    log(f"{tag} profile: os_sart_sweep S={S}: {call_ms:.4f} ms per call on "
+        f"the device (queue kept busy); FP {fp * 1e3:.2f} us per launch, BP "
+        f"{bp * 1e3:.2f} us per launch (means over the {n_fp} / {n_bp} of "
+        f"{S * calls} launches the profiler recorded), the copy of x "
+        f"{(cp or 0.0) * 1e3:.2f} us; idle between launches {idle:.4f} ms a "
+        f"call = {idle / (2 * S) * 1e3:.2f} us per gap, "
+        f"{100 * idle / call_ms:.1f}% of the call")
 
 
 def phase_reference_art(seed: int) -> None:
@@ -1205,7 +1408,8 @@ def phase_kernels_fp(fp_calls, art_calls, reps):
             kw = dict(kw, bf16=True)
             want = shift.os_sart_sweep_plain(*args, bf16=True)
             got = shift.os_sart_sweep(*args, **kw)
-            torch.cuda.synchronize()
+            repeat_check("os_sart_sweep bf16", got,
+                         shift.os_sart_sweep(*args, **kw))
             top = float(want.abs().max())
             ok, err = _within(got, want, 2e-5, 2e-6 * top)
             f32 = shift.os_sart_sweep_plain(*args)
@@ -1234,7 +1438,8 @@ def phase_kernels_fp(fp_calls, art_calls, reps):
                 f"views) B={B} n={n} L={L} max|x|={float(x.abs().max()):.4f}"
                 f": max |diff| {err:.3e} (tol {2e-6 * top:.2e} + "
                 f"2e-5·|plain|); the f32 sweep lies {gap:.3e} away, "
-                f"{over:.1f}× the tolerance at its worst pixel; "
+                f"{over:.1f}× the tolerance at its worst pixel; two "
+                f"launches bit-equal; "
                 f"{s['ms']:.4f} ms (the f32 sweep {f32_ms:.4f} ms), plain "
                 f"{s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms (bytes "
@@ -1248,6 +1453,9 @@ def phase_kernels_fp(fp_calls, art_calls, reps):
             stats.append(s)
         row("os_sart_sweep_bf16", "ipdm_tpu_torch/csrc/os_sart_sweep.cu",
             "ipdm_tpu/ops/pallas/shift.py:441", stats)
+        args, kw = art_calls["os_sart_sweep"][-1]
+        sweep_profile(tag + " (bf16)", lambda: shift.os_sart_sweep(
+            *args, **dict(kw, bf16=True)), args[1].shape[0])
     return rows
 
 
@@ -1348,7 +1556,8 @@ def phase_engine(seed: int):
     """The example's steps at full width from files on disk: corpus,
     checkpoints, ``ProgressiveDomainDenoiser(...).fit()`` in test_prog
     mode. Returns the launches of that run, those of the FBP slice that
-    follows through update_opt, and bp_shift_accumulate's calls in it."""
+    follows through update_opt, bp_shift_accumulate's calls in it, and
+    the corpus's os_sart_sweep calls (one image each)."""
     import torch
     from ipdm_tpu_torch.config.config import IPDMConfig
     from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
@@ -1364,7 +1573,8 @@ def phase_engine(seed: int):
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         t0 = time.perf_counter()
-        ex.build_dataset(out, n_slices, 512, DOSE, seed=seed)
+        with Recorder(sart_fast, "os_sart_sweep") as corpus:
+            ex.build_dataset(out, n_slices, 512, DOSE, seed=seed)
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
         cfg = dict(ART_SLICE_OPT, mode="test_prog", run_name="chip_smoke",
@@ -1464,7 +1674,51 @@ def phase_engine(seed: int):
                                  f"bp_shift_accumulate launched "
                                  f"{fbp_one['bp_shift_accumulate']} times, "
                                  f"{len(bp1.calls)} recorded, PSNR {psnr}")
-    return launches, fbp_one, bp1.calls
+    return launches, fbp_one, bp1.calls, corpus.calls
+
+
+def phase_kernels_corpus(calls, reps, sweep_row):
+    """os_sart_sweep on the engine corpus's own sweeps (B = 1, the last
+    sweep of each drive of the last slice, where x ≠ 0) against its plain
+    version at the f32 sweep's tolerance, with the repeat check; timed
+    into the sweep row's shapes."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    stats = []
+    with torch.inference_mode():
+        for args, kw in calls[-2:]:
+            x, rf, inv2, frac, s0, nrmi, lam = args
+            if not float(x.abs().max()) > 0:
+                raise AssertionError("os_sart_sweep (corpus) held on x = 0")
+            want = shift.os_sart_sweep_plain(*args)
+            got = shift.os_sart_sweep(*args, **kw)
+            repeat_check("os_sart_sweep (corpus)", got,
+                         shift.os_sart_sweep(*args, **kw))
+            over = sweep_over(got, want)
+            err = float((got - want).abs().max())
+            S, Vp, B, L = rf.shape
+            n = x.shape[-1]
+            live = int((inv2 != 0).any(dim=2).sum())
+            s = dict(err=err, **bound_ms(
+                4 * (2 * B * n * n + S * Vp * B * L + S * Vp * L
+                     + 2 * S * Vp * n + S * n * n),
+                8 * live * B * n * n + 2 * S * Vp * B * L + 4 * S * B * n * n,
+                F32_FLOPS),
+                ms=cuda_ms(lambda: shift.os_sart_sweep(*args, **kw), reps),
+                plain_ms=cuda_ms(lambda: shift.os_sart_sweep_plain(*args),
+                                 2, 1))
+            log(f"kernels-corpus: os_sart_sweep S={S} Vp={Vp} ({live} live "
+                f"views) B={B} n={n} L={L} lam={lam:.4f}: max |diff| "
+                f"{err:.3e}, {over:.3f}× the tolerance (1e-5·max|plain| + "
+                f"1e-4·|plain|); two launches bit-equal; {s['ms']:.4f} ms, "
+                f"plain {s['plain_ms']:.4f} ms, bound "
+                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
+            if not over <= 1.0:
+                raise AssertionError(f"os_sart_sweep (corpus) disagrees: "
+                                     f"{over}× the tolerance")
+            stats.append(s)
+    sweep_row["shapes"].append(shape_entry(stats, S=S, Vp=Vp, B=B))
 
 
 def phase_kernels_bp1(calls, norm_calls, reps):
@@ -1483,9 +1737,12 @@ def phase_kernels_bp1(calls, norm_calls, reps):
         for i, (args, kw) in enumerate(list(calls) + norms):
             Q2, s0, s1, fr, n = args
             Q = Q2[:, None].contiguous()
-            got = shift.bp_shift_accumulate(*args)
+            got = shift.bp_shift_accumulate(*args, **kw)
+            repeat_check("bp_shift_accumulate", got,
+                         shift.bp_shift_accumulate(*args, **kw))
             want = shift.bp_shift_accumulate_plain(Q, s0, s1, fr, n)[0]
-            batched = shift.bp_shift_accumulate_batched(Q, s0, s1, fr, n)[0]
+            batched = shift.bp_shift_accumulate_batched(Q, s0, s1, fr, n,
+                                                        **kw)[0]
             torch.cuda.synchronize()
             # f32 sums over the views in another order
             atol = 1e-5 * float(want.abs().max())
@@ -1498,12 +1755,17 @@ def phase_kernels_bp1(calls, norm_calls, reps):
             V, L = Q2.shape
             s = dict(err=err, **bound_ms(
                 4 * (V * L + 3 * V * n + n * n), 4 * V * n * n, F32_FLOPS),
-                ms=cuda_ms(lambda: shift.bp_shift_accumulate(*args), reps),
+                ms=cuda_ms(lambda: shift.bp_shift_accumulate(*args, **kw),
+                           reps),
+                device_ms=queued_ms(lambda: shift.bp_shift_accumulate(
+                    *args, **kw), reps),
                 plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
                     Q, s0, s1, fr, n), 5))
             log(f"{tag}: bp_shift_accumulate V={V} L={L} n={n}: max |diff| "
                 f"{err:.3e} (tol {atol:.2e} + 1e-4·|plain|), from the "
-                f"batched kernel {same:.1e}; {s['ms']:.4f} ms, plain "
+                f"batched kernel {same:.1e}; two launches bit-equal; "
+                f"{s['ms']:.4f} ms (kernel {s['device_ms']:.4f} ms on the "
+                f"device), plain "
                 f"{s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms"
                 + ("" if i < len(calls) else " (a norms call: not in the "
@@ -1542,11 +1804,12 @@ def main() -> int:
                               * 4.0, device="cuda")
 
     rows = phase_kernels(phase_record(models, ld_proj), REPS)
+    bp_row = rows[-1]
     phase_reference(SEED)
     fbp, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
                          FBP_KERNELS, 90, n_timed=1)
     art_calls, per_plan = phase_record_art(ld_proj)
-    rows += phase_kernels_art(art_calls, REPS)
+    rows += phase_kernels_art(art_calls, REPS, bp_row)
     phase_reference_art(SEED)
     art, warm = phase_slice("ART", ART_SLICE_OPT, models, ld_proj, SEED,
                             ART_KERNELS, 105, n_timed=2, fresh_plan=True)
@@ -1554,7 +1817,9 @@ def main() -> int:
     rows += phase_kernels_fp(fp_calls, art_calls, REPS)
     phase_reference_fp(SEED)
     del models
-    eng_run, fbp_one, bp1_calls = phase_engine(SEED)
+    eng_run, fbp_one, bp1_calls, corpus_calls = phase_engine(SEED)
+    phase_kernels_corpus(corpus_calls, REPS, next(
+        r for r in rows if r["name"] == "os_sart_sweep"))
     rows += phase_kernels_bp1(
         bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
     # each path's run had the counters set to 0 just before it and read

@@ -1,6 +1,6 @@
 // The two-tap row deposit of the fast SART forward projection, in gather
 // form: the row loop shared by fp_deposit.cu (plane deposit) and
-// os_sart_sweep.cu (the sweep's FP half).
+// fp_shift_deposit.cu (the two shift deposits).
 //
 // Deposit (the TPU kernels' scatter form):
 //   out[t] += w0[y] * row_y[t - s0[y]]   for 0 <= t - s0[y] < W
@@ -15,16 +15,9 @@
 // the reads are about L/(|a|*n) ~ 1-1.4x those of the scatter form.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ipdm {
-
-// v rounded to bf16 (nearest even) and back: the value a bf16 matmul
-// operand carries
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // one view's per-row starts and weights, staged in shared memory
 struct FpTaps {
@@ -47,10 +40,7 @@ __device__ __forceinline__ FpTaps fp_taps_smem(unsigned char* smem, int n) {
 inline int fp_taps_bytes(int n) { return 16 * n; }
 
 // sum over rows y of the taps that land on bin t; row y starts at
-// rows + y * row_stride and is W wide. With BF16 each row value is rounded
-// to bf16 before its product (the caller stages bf16-rounded weights): a
-// product of two bf16 values is exact in f32, and the sum stays f32.
-template <bool BF16 = false>
+// rows + y * row_stride and is W wide
 __device__ __forceinline__ float fp_gather(const float* __restrict__ rows,
                                            size_t row_stride, int W, int n,
                                            int t, const FpTaps& k) {
@@ -61,11 +51,11 @@ __device__ __forceinline__ float fp_gather(const float* __restrict__ rows,
     const int i1 = t - k.s1[y];
     if ((unsigned)i0 < (unsigned)W) {
       const float v = __ldg(r + i0);
-      acc += k.w0[y] * (BF16 ? round_bf16(v) : v);
+      acc += k.w0[y] * v;
     }
     if ((unsigned)i1 < (unsigned)W) {
       const float v = __ldg(r + i1);
-      acc += k.w1[y] * (BF16 ? round_bf16(v) : v);
+      acc += k.w1[y] * v;
     }
   }
   return acc;

@@ -42,8 +42,9 @@ SIGNATURES = {
     "flash_attn_launch": [P, P, P, P, I, I, ctypes.c_float, P],
     # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
     "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
-    # x, rf, inv2, frac, s0, nrmi, T, S, Vp, B, n, L, lam, bf16, stream
-    "os_sart_sweep_launch": [P, P, P, P, P, P, P, I, I, I, I, I,
+    # x, rf, inv2, frac, s0, rows, nrmi, T, S, Vp, B, n, L, tile, lam,
+    # bf16, stream
+    "os_sart_sweep_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                              ctypes.c_float, I, P],
     # P, qi0, W, out, V, B, Ntp, Lp, Wt, stream
     "anterp_taps_launch": [P, P, P, P, I, I, I, I, I, P],

@@ -17,7 +17,9 @@ kernels of ipdm_tpu/ops/pallas/shift.py):
 * :func:`os_sart_sweep` (shift.py:544 ``os_sart_sweep_mm``), one OS-SART
   sweep over a drive axis's subsets: deposit FP, ratio correction, BP,
   relaxed update, clamp, with f32 or bf16-rounded product operands
-  (``csrc/os_sart_sweep.cu``);
+  (``csrc/os_sart_sweep.cu``); its FP visits, per tile of
+  :data:`SWEEP_TILE` bins, only the rows that :func:`sweep_row_ranges`
+  finds for that tile;
 * :func:`anterp_taps` (shift.py:702), the windowed multi-tap resample
   ``out[v,:,d] = Σ_k W[v,k,d]·P[v,:,qi0[v,d]+k]`` (``csrc/anterp_taps.cu``).
 
@@ -65,8 +67,9 @@ def _check_windows(s0, s1, n: int, L: int,
                    name: str = "bp_shift_accumulate", bounds=None) -> None:
     # JAX clamps out-of-range gather indices silently; neither torch
     # indexing nor the kernel does, so the window bound is checked here:
-    # on ``bounds`` = (min, max) of the starts where the caller read them
-    # once from a static table's host copy, else with one host read
+    # on ``bounds`` = a (low, high) of the starts where the caller knows
+    # one on the host (a static table's host copy, or the clamp that made
+    # the starts), else with one host read
     if bounds is not None:
         lo, hi = bounds
     else:
@@ -102,10 +105,12 @@ def _device_of(name: str, t):
     return t.device.type
 
 
-def bp_shift_accumulate_batched(Q, s0, s1, frac, n: int):
+def bp_shift_accumulate_batched(Q, s0, s1, frac, n: int, bounds=None):
     """Σ_v two-tap row shifts of the per-view signals Q [V,B,L] (f32) at
     starts s0, s1 [V,n] (int32) with weights frac [V,n] (f32); returns
-    [B,n,n] f32. Requires 0 ≤ s and s + n ≤ L (checked)."""
+    [B,n,n] f32. Requires 0 ≤ s and s + n ≤ L (checked, on ``bounds`` =
+    a (low, high) of the starts when the caller knows one, else with one
+    device read)."""
     name = "bp_shift_accumulate"
     if Q.dim() != 3:
         raise ValueError(f"{name}: Q {tuple(Q.shape)} must be [V, B, L]")
@@ -113,7 +118,7 @@ def bp_shift_accumulate_batched(Q, s0, s1, frac, n: int):
     _check_shapes(name, [(a, t, (V, n)) for a, t in
                          (("s0", s0), ("s1", s1), ("frac", frac))])
     if V:
-        _check_windows(s0, s1, n, L)
+        _check_windows(s0, s1, n, L, bounds=bounds)
     if _device_of(name, Q) == "cpu":
         return bp_shift_accumulate_plain(Q, s0, s1, frac, n)
     _check_cuda(name, Q.device, [("Q", Q, torch.float32),
@@ -130,11 +135,12 @@ def bp_shift_accumulate_batched(Q, s0, s1, frac, n: int):
     return out
 
 
-def bp_shift_accumulate(Q2, s0, s1, frac, n: int):
+def bp_shift_accumulate(Q2, s0, s1, frac, n: int, bounds=None):
     """Σ_v two-tap row shifts of one signal per view, Q2 [V,L] (f32), at
     starts s0, s1 [V,n] (int32) with weights frac [V,n] (f32); returns
-    [n,n] f32. Requires 0 ≤ s and s + n ≤ L (checked). Any view count: the
-    TPU kernel's multiple of 8 is its block size."""
+    [n,n] f32. Requires 0 ≤ s and s + n ≤ L (checked, on ``bounds`` as in
+    :func:`bp_shift_accumulate_batched`). Any view count: the TPU kernel's
+    multiple of 8 is its block size."""
     name = "bp_shift_accumulate"
     if Q2.dim() != 2:
         raise ValueError(f"{name}: Q2 {tuple(Q2.shape)} must be [V, L]")
@@ -142,7 +148,7 @@ def bp_shift_accumulate(Q2, s0, s1, frac, n: int):
     _check_shapes(name, [(a, t, (V, n)) for a, t in
                          (("s0", s0), ("s1", s1), ("frac", frac))])
     if V:
-        _check_windows(s0, s1, n, L, name)
+        _check_windows(s0, s1, n, L, name, bounds)
     if _device_of(name, Q2) == "cpu":
         return bp_shift_accumulate_plain(Q2[:, None, :], s0, s1, frac, n)[0]
     _check_cuda(name, Q2.device, [("Q2", Q2, torch.float32),
@@ -303,6 +309,44 @@ def _sweep_shapes(x, rf, inv2, frac, s0, nrmi):
     return S, Vp, B, n, L
 
 
+# bins per tile of the sweep's FP blocks (csrc/os_sart_sweep.cu kTile; the
+# launch refuses another value)
+SWEEP_TILE = 64
+
+
+def sweep_row_ranges(s0, n: int, L: int, tile: int = SWEEP_TILE):
+    """The rows whose taps can land in each tile of ``tile`` bins: s0
+    [..., V, n] int starts (row y's two taps cover bins [s0, s0 + n]) →
+    [..., V, ceil(L/tile), 2] int32 (first row, one past the last row);
+    a tile no row meets gets (0, 0). Exact for any table: rows inside a
+    range that miss the tile are allowed (the kernel tests each window)."""
+    nt = -(-L // tile)
+    t0 = torch.arange(nt, device=s0.device)[:, None] * tile
+    s = s0.long()[..., None, :]                           # [..., V, 1, n]
+    meet = (s <= t0 + tile - 1) & (s + n >= t0)           # [..., V, nt, n]
+    hit = meet.any(-1)
+    first = meet.int().argmax(-1)
+    end = n - meet.flip(-1).int().argmax(-1)
+    zero = torch.zeros((), dtype=first.dtype, device=s0.device)
+    return torch.stack([torch.where(hit, first, zero),
+                        torch.where(hit, end, zero)], -1).int().contiguous()
+
+
+def _check_row_ranges(rows, S: int, Vp: int, n: int, L: int, bounds=None):
+    """Shape of a row-range table and its rows within [0, n] (the end is
+    one past the last row), on ``bounds`` = (min, max) where the caller
+    read them once from a static table's host copy, else with one read."""
+    name = "os_sart_sweep"
+    _check_shapes(name, [("row_ranges", rows,
+                          (S, Vp, -(-L // SWEEP_TILE), 2))])
+    if bounds is None:
+        bounds = tuple(torch.stack([rows.min(), rows.max()]).tolist())
+    lo, hi = bounds
+    if lo < 0 or hi > n:
+        raise ValueError(f"{name}: row ranges span [{lo}, {hi}], need rows "
+                         f"in [0, {n})")
+
+
 def _bf16_round(t):
     """t rounded to bf16 (nearest even) and back to f32: the value a bf16
     matmul operand carries."""
@@ -347,7 +391,8 @@ def os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam: float,
 
 
 def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
-                  s0_bounds=None, bf16: bool = False):
+                  s0_bounds=None, bf16: bool = False, row_ranges=None,
+                  row_ranges_bounds=None):
     """One OS-SART sweep over a drive axis's subsets, in order
     (shift.py:544 os_sart_sweep_mm; ``bf16`` is its bf16 operand mode: tap
     weights, image and correction rounded to bf16 before each product, f32
@@ -358,24 +403,34 @@ def os_sart_sweep(x, rf, inv2, frac, s0, nrmi, lam: float,
     s0 + n < L, checked); nrmi: [S,n,n] per-subset 1/BP-norm; lam: the
     relaxation; s0_bounds: (min, max) of s0 when the caller knows them
     (a plan table), which spares the device read of the window check.
+    row_ranges: :func:`sweep_row_ranges` of s0, [S,Vp,ceil(L/64),2]
+    int32, which the kernel's FP visits (computed on the device when not
+    given; checked for shape and for rows in [0, n], on
+    row_ranges_bounds = its (min, max) when the caller knows them).
     Returns a new [B,n,n] image; on the card one call is 2·S kernel
     launches on one stream, counted as one."""
     name = "os_sart_sweep"
     S, Vp, B, n, L = _sweep_shapes(x, rf, inv2, frac, s0, nrmi)
     _check_windows(s0, s0, n + 1, L, name, s0_bounds)
+    if row_ranges is not None:
+        _check_row_ranges(row_ranges, S, Vp, n, L, row_ranges_bounds)
     if _device_of(name, x) == "cpu":
         return os_sart_sweep_plain(x, rf, inv2, frac, s0, nrmi, lam,
                                    bf16=bf16)
+    if row_ranges is None:
+        row_ranges = sweep_row_ranges(s0, n, L)
     f32 = torch.float32
     _check_cuda(name, x.device, [
         ("x", x, f32), ("rf", rf, f32), ("inv2", inv2, f32),
-        ("frac", frac, f32), ("s0", s0, torch.int32), ("nrmi", nrmi, f32)])
+        ("frac", frac, f32), ("s0", s0, torch.int32), ("nrmi", nrmi, f32),
+        ("row_ranges", row_ranges, torch.int32)])
     out = x.clone()    # the JAX function returns a new array
     T = torch.empty((Vp, B, L), dtype=f32, device=x.device)
     code = _build.library().os_sart_sweep_launch(
         out.data_ptr(), rf.data_ptr(), inv2.data_ptr(), frac.data_ptr(),
-        s0.data_ptr(), nrmi.data_ptr(), T.data_ptr(), S, Vp, B, n, L,
-        float(lam), int(bool(bf16)), _build.stream_ptr(x))
+        s0.data_ptr(), row_ranges.data_ptr(), nrmi.data_ptr(), T.data_ptr(),
+        S, Vp, B, n, L, SWEEP_TILE, float(lam), int(bool(bf16)),
+        _build.stream_ptr(x))
     _build.check(code, name)
     _build.LAUNCHES["os_sart_sweep_bf16" if bf16 else "os_sart_sweep"] += 1
     return out

@@ -203,15 +203,27 @@ def _prep_group(Pf, p: _FastPlan, view_idx: np.ndarray, xdrive: bool):
             start1.int().contiguous(), o_frac.contiguous())
 
 
+def _start_bounds(p: _FastPlan) -> tuple:
+    """(low, high) of the flat starts _prep_group can make, from its clamp
+    of the fine ray index (0 ≤ o, o + 1 ≤ LqK − n·Kq − 1): the kernel
+    wrapper's window check without a device read."""
+    Lq, Kq = p.Lq, p.Kq
+    top = Lq * Kq - p.n * Kq - 1                # the largest o + 1
+    return 0, max((o % Kq) * Lq + o // Kq
+                  for o in range(max(0, top - Kq + 1), top + 1))
+
+
 def _bp_group(Pf, p: _FastPlan, view_idx: np.ndarray, xdrive: bool):
     """Backproject one view group (fbp_fast.py:248-292). Pf: [B, M, Nt].
     Returns [B, n, n] in standard row/col orientation."""
     T2, start0, start1, o_frac = _prep_group(Pf, p, view_idx, xdrive)
+    bounds = _start_bounds(p)
     if T2.shape[1] == 1:    # one sinogram: one signal per view
         acc = bp_shift_accumulate(T2[:, 0].contiguous(), start0, start1,
-                                  o_frac, p.n)[None]
+                                  o_frac, p.n, bounds=bounds)[None]
     else:
-        acc = bp_shift_accumulate_batched(T2, start0, start1, o_frac, p.n)
+        acc = bp_shift_accumulate_batched(T2, start0, start1, o_frac, p.n,
+                                          bounds=bounds)
     return acc if xdrive else acc.transpose(1, 2)
 
 

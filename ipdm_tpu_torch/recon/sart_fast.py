@@ -47,7 +47,7 @@ from ipdm_tpu_torch.ops.cuda.shift import (anterp_taps,
                                            bp_shift_accumulate_batched,
                                            fp_plane_deposit, fp_shift_deposit,
                                            fp_shift_deposit_batched,
-                                           os_sart_sweep)
+                                           os_sart_sweep, sweep_row_ranges)
 from ipdm_tpu_torch.recon.fbp import FBPGeometry
 from ipdm_tpu_torch.recon.fbp_fast import _FastPlan, _plan_for, _rebin
 from ipdm_tpu_torch.recon.sart import nsl0_tv_grad
@@ -406,6 +406,10 @@ def _compute_norms_fused(sp: _SartFastPlan, device):
         nrmi  [S, n, n]  — per-subset 1/BP(valid), drive frame
         s0, frac [S, Vp, n] — the sweep's row tables
         s0_bounds        — (min, max) of s0, read from its host copy
+        rows [S, Vp, nTiles, 2] — per tile of the sweep's FP, the rows
+                           whose taps can land in it (sweep_row_ranges of
+                           the host copy of s0), and rows_bounds its
+                           (min, max)
     """
     p = sp.p
     n = p.n
@@ -427,20 +431,25 @@ def _compute_norms_fused(sp: _SartFastPlan, device):
         inv2_rows = torch.where(valid > 0, scale / nf.clamp_min(_EPS), zero)
         s0, s1, frac = sp.fused_tables(key, device)
         vsub = sp.subset_take(key, valid)                      # [S, Vp, L]
+        # the starts' range from the host tables (pad entries hold 0)
+        bounds = (0, max(grp.bounds("s0")[1], grp.bounds("s1")[1]))
         nrm = []
         for s in range(S):
             bpn = bp_shift_accumulate_batched(
                 vsub[s][:, None, :].contiguous(), s0[s], s1[s], frac[s],
-                n)[0]
+                n, bounds=bounds)[0]
             nrm.append(torch.where(bpn > _EPS, 1.0 / bpn.clamp_min(_EPS),
                                    zero))
         s0_host = sp.subset_take(key, grp.tables("cpu")["s0"])
+        rows = sweep_row_ranges(s0_host, n, grp.L)
         per_drive[key] = dict(valid=valid,
                               inv2=sp.subset_take(key, inv2_rows).contiguous(),
                               nrmi=torch.stack(nrm).contiguous(),
                               s0=s0, frac=frac,
                               s0_bounds=(int(s0_host.min()),
-                                         int(s0_host.max())))
+                                         int(s0_host.max())),
+                              rows=rows.to(device),
+                              rows_bounds=(int(rows.min()), int(rows.max())))
     return nt_full, per_drive
 
 
@@ -482,7 +491,9 @@ def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
         for key, d in per_drive.items():
             args = (rf[key], d["inv2"], d["frac"], d["s0"], d["nrmi"],
                     float(lam))
-            kw = dict(s0_bounds=d["s0_bounds"], bf16=mm_bf16)
+            kw = dict(s0_bounds=d["s0_bounds"], bf16=mm_bf16,
+                      row_ranges=d["rows"],
+                      row_ranges_bounds=d["rows_bounds"])
             if key == "x":
                 x = os_sart_sweep(x.contiguous(), *args, **kw)
             else:   # the y-driven views run on the transposed image

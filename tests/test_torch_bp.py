@@ -56,3 +56,29 @@ def test_bp_rejects_windows_past_the_signal():
     s0[0, 0] = -1
     with pytest.raises(ValueError, match="window"):
         bp_shift_accumulate_batched(Q, s0, s1, fr, n)
+
+
+@pytest.mark.parametrize("geom", ["siemens", "small"])
+def test_fbp_start_bounds_cover_its_starts(geom):
+    """The fast FBP hands the BP wrappers a (low, high) of its starts
+    computed on the host from the clamp that makes them, in place of a
+    device read: every start of both view groups lies inside it, and the
+    windows it allows stay inside the signal."""
+    from ipdm_tpu_torch.recon import fbp_fast
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP, FBPGeometry
+
+    g = SIEMENS_FBP if geom == "siemens" else FBPGeometry(
+        n_det=128, n_views=360, grid_n=64, grid_l=21.0,
+        da=0.0010125 * 912 / 128, det_offset=3.75, view_step_deg=1.0)
+    p = fbp_fast._plan_for(g)
+    lo, hi = fbp_fast._start_bounds(p)
+    assert lo == 0 and hi + p.n <= p.Lq * p.Kq
+    M = g.M // 2 if g.M % 2 == 0 else g.M
+    Pf = torch.rand((1, M, p.Nt))
+    xdm = p.group_xdrive[:M]
+    for xdrive in (True, False):
+        ids = np.nonzero(xdm if xdrive else ~xdm)[0]
+        T2, s0, s1, _ = fbp_fast._prep_group(Pf, p, ids, xdrive)
+        assert T2.shape[2] == p.Lq * p.Kq
+        for s in (s0, s1):
+            assert int(s.min()) >= lo and int(s.max()) <= hi

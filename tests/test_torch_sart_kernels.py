@@ -87,6 +87,12 @@ def test_os_sart_sweep_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     via = _via_wrapper("os_sart_sweep", shift.os_sart_sweep, *args)
     torch.testing.assert_close(via, got, rtol=0, atol=0)
+    # with the FP tiles' row ranges the CUDA kernel takes (checked, then
+    # not needed by the plain version)
+    rows = shift.sweep_row_ranges(args[4], x0.shape[2], rf.shape[3])
+    via = _via_wrapper("os_sart_sweep", lambda *a: shift.os_sart_sweep(
+        *a, row_ranges=rows), *args)
+    torch.testing.assert_close(via, got, rtol=0, atol=0)
     np.testing.assert_array_equal(args[0].numpy(), x0)  # x is not changed
 
 
