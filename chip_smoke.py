@@ -24,6 +24,13 @@ exits non-zero without a result line:
    counts (4097, 4159, 7125) on seeded inputs where an unmasked key past T
    would dominate, beside a planted unmasked control that must fail; and
    planar_unit at ragged widths, O > 16 and misaligned views, both dtypes;
+   grad — one proj UNet eval (2000×912) and one img UNet eval (512²) at
+   B = 1, bf16 activations, then loss.backward(): every parameter gets a
+   finite gradient through planar_unit's and flash_attention's
+   autograd.Functions (their count upstream of a kernel call printed);
+   a planted control with the kernels called outside the Functions must
+   leave parameters without one; a small f32 UNet's gradients on the card
+   against the CPU's; forward + backward time beside the forward;
 5. reference — the whole FBP-mode pipeline at a small size, f32, zero
    noise, on the card (kernels) against the CPU (plain versions);
 6. slice   — the FBP-mode progressive denoise of one slice with bench.py's
@@ -40,6 +47,9 @@ exits non-zero without a result line:
 8. kernels-ART — each new kernel against its plain version on those
    inputs (the sweep on the last sweep of each drive, where x ≠ 0), each
    launched twice on the same inputs (the results must be bit-equal);
+   the deposit through all three of its wrappers (bit-equal) with one
+   row dropped from one band as a planted fault, anterp_taps with its
+   last tap dropped, each timed on the device and through its wrapper;
    beside the sweep two planted faults its tolerance must see (its last
    subset dropped; one tile's row range cut short by one live row), and
    its profile split: device µs per launch of the FP and the BP kernel and
@@ -66,8 +76,9 @@ exits non-zero without a result line:
    (those two and their low-dose versions; nstart=10, 40 subsets) with
    its launches, beside the f32 convert of the same four;
 12. kernels-FP — on those inputs fp_shift_deposit_batched, fp_shift_deposit
-   (one item) and fp_plane_deposit against the plain deposit and against
-   each other, and anterp_taps at Wt = 6; the bf16 mode of os_sart_sweep
+   (each item) and fp_plane_deposit against the plain deposit and against
+   each other, with the planted dropped row, and anterp_taps at Wt = 6
+   with its planted dropped tap; the bf16 mode of os_sart_sweep
    on the last sweep of each drive against its plain version, with its
    distance from the f32 sweep, the repeat check and its profile split;
 13. reference-FP — at 64², ``project_fast`` on the card against the CPU,
@@ -265,6 +276,8 @@ def summarise(rows, tag, name, source, replaces, stats, library):
                bound_by=bound_by,
                library_ms=(None if not library else
                            sum(s["library_ms"] for s in stats) / n))
+    if all("device_ms" in s for s in stats):
+        row["device_ms"] = sum(s["device_ms"] for s in stats) / n
     rows.append(row)
     log(f"{tag}: {name}: {n} main-path calls, mean per launch "
         f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
@@ -548,6 +561,167 @@ def planar_ragged():
                     f"{dtype} offset {off}: max |diff| {err}")
 
 
+def _kernel_params(out, model) -> set:
+    """Names of the parameters upstream of a kernel call: those that the
+    autograd graph behind ``out`` reaches from an input of a planar_unit
+    or flash_attention Function node."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    kinds = ("_PlanarUnitBackward", "_FlashAttentionBackward")
+    seen, todo, starts = set(), [out.grad_fn], []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if type(fn).__name__ in kinds:
+            starts.append(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    up, seen = set(), set()
+    todo = [f for fn in starts for f, _ in fn.next_functions]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None and id(var) in names:
+            up.add(names[id(var)])
+        todo.extend(f for f, _ in fn.next_functions)
+    return up
+
+
+def _grad_check(model, x, t, r):
+    """One eval and loss.backward() with grad on: (parameters with no
+    gradient, with a non-finite one, upstream of a kernel call, launches
+    of the two kernels in the eval)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    model.zero_grad(set_to_none=True)
+    before = dict(_build.LAUNCHES)
+    out = model(x, t)
+    launches = {k: _build.LAUNCHES[k] - before[k]
+                for k in ("planar_unit", "flash_attn")}
+    up = _kernel_params(out, model)
+    loss = (out.float() * r).sum()
+    if loss.requires_grad:   # else no path reaches any parameter
+        loss.backward()
+    torch.cuda.synchronize()
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    return missing, bad, up, launches
+
+
+def phase_grad(models, ld_proj, seed: int) -> None:
+    """Gradients through the hand kernels: one proj UNet eval (2000×912)
+    and one img UNet eval (512²) at B = 1, bf16 activations, followed by
+    loss.backward(); every parameter must get a finite gradient. Beside
+    it a planted control, the same check with the kernels called outside
+    their autograd.Function (the bare forward), which must find
+    parameters with no gradient; then a small f32 UNet's parameter
+    gradients on the card (kernel forward) against the CPU's (plain); and
+    the time of forward + backward per eval beside the forward alone."""
+    import torch
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import UNetModel
+    from ipdm_tpu_torch.ops.cuda import attention, planar
+
+    proj_model, img_model = models
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = (("proj", proj_model, ld_proj.permute(0, 3, 1, 2).contiguous()),
+             ("img", img_model, torch.rand((1, 1, 512, 512), device="cuda",
+                                           generator=gen)))
+    t = torch.full((1,), 7, dtype=torch.long, device="cuda")
+    for name, model, x in cases:
+        r = torch.randn(x.shape, device="cuda", generator=gen)
+        missing, bad, up, launches = _grad_check(model, x, t, r)
+        nparam = sum(1 for _ in model.parameters())
+        log(f"grad: {name} UNet {tuple(x.shape[2:])} bf16, B=1: "
+            f"{nparam} parameters, {nparam - len(missing)} with a "
+            f"gradient, {len(bad)} non-finite; {len(up)} upstream of a "
+            f"kernel call; launches in the eval {launches}"
+            + (f"; no gradient: {missing[:8]}" if missing else "")
+            + (f"; non-finite: {bad[:8]}" if bad else ""))
+        ran = launches["flash_attn"] and (launches["planar_unit"]
+                                          or name == "img")
+        if missing or bad or not up or not ran:
+            raise AssertionError(f"grad: the {name} UNet's gradients: "
+                                 f"{len(missing)} missing, {len(bad)} "
+                                 f"non-finite, launches {launches}")
+        # the planted control: the kernels outside their Function
+        real = unet.planar_unit, unet.flash_attention
+        unet.planar_unit, unet.flash_attention = (planar._forward,
+                                                  attention._forward)
+        try:
+            cut, _, _, _ = _grad_check(model, x, t, r)
+        finally:
+            unet.planar_unit, unet.flash_attention = real
+        log(f"grad: {name} UNet, control with the kernels called outside "
+            f"their autograd.Function: {len(cut)} parameters with no "
+            f"gradient (the check must see them)")
+        if not cut:
+            raise AssertionError(f"grad: the {name} control found every "
+                                 "gradient: the check cannot see the fault")
+        fwd = cuda_ms(lambda: model(x, t), 3, warmup=1)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            (model(x, t).float() * r).sum().backward()
+
+        both = cuda_ms(step, 3, warmup=1)
+        with torch.inference_mode():
+            infer = cuda_ms(lambda: model(x, t), 3, warmup=1)
+        log(f"grad: {name} UNet eval {infer:.3f} ms under inference_mode, "
+            f"{fwd:.3f} ms with grad on, forward + backward {both:.3f} ms "
+            f"({both / infer:.2f}× the inference eval)")
+        model.zero_grad(set_to_none=True)
+
+    # a small f32 UNet (planar units on its two shallow levels; flash takes
+    # bf16 only, so none here): the card's gradients against the CPU's
+    torch.manual_seed(seed)
+    small = UNetModel(in_channels=1, model_channels=16, out_channels=1,
+                      num_res_blocks=1, attention_resolutions=(4,),
+                      channel_mult=(0.25, 0.5, 1, 2), num_heads=2,
+                      device="cpu")
+    host = np.random.default_rng(seed)
+    xs = torch.as_tensor(host.random((2, 1, 64, 64), np.float32))
+    rs = torch.as_tensor(host.standard_normal((2, 1, 64, 64), np.float32))
+    ts = torch.tensor([3, 40])
+    grads = []
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(small).to(dev)
+        missing, bad, up, launches = _grad_check(
+            m, xs.to(dev), ts.to(dev), rs.to(dev))
+        if missing or bad or not up:
+            raise AssertionError(f"grad: small UNet on {dev}: {missing} "
+                                 f"{bad}")
+        grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+    # f32 sums in another order through the UNet's layers: 1e-4 of each
+    # tensor's largest entry plus 1e-3 of each entry, plus 1e-5 of the
+    # model's largest gradient entry (tests/test_torch_grad.py's rule: an
+    # entry whose exact value is zero, such as a time-embedding weight
+    # feeding a conv whose output one-channel GroupNorm groups re-centre,
+    # carries the rounding of the terms that cancel in it)
+    scale = max(float(g.abs().max()) for g in grads[0].values())
+    worst, where = 0.0, None
+    for n, g in grads[0].items():
+        tol = (1e-4 * float(g.abs().max()) + 1e-3 * g.abs() + 1e-5 * scale)
+        d = (grads[1][n] - g).abs()
+        over = float((d / tol).max())
+        if over > worst:
+            worst = over
+            where = (f"{n} (max |g| {float(g.abs().max()):.3e}, max |diff| "
+                     f"{float(d.max()):.3e})")
+    log(f"grad: small f32 UNet 64², card (kernel forward, {launches}) "
+        f"against the CPU (plain): {len(grads[0])} parameter gradients, "
+        f"largest entry {scale:.3e}; the worst at {worst:.3f} of the "
+        f"tolerance (1e-4·max|g| + 1e-3·|g| + 1e-5·largest), in {where}")
+    if not worst <= 1.0:
+        raise AssertionError(f"grad: small UNet's gradients differ: {worst} "
+                             f"of the tolerance in {where}")
+
+
 def phase_reference(seed: int) -> None:
     """The FBP-mode pipeline at a small size in f32 with zero noise: the
     card (kernels) against the CPU (plain versions)."""
@@ -786,56 +960,33 @@ def phase_kernels_art(calls, reps, bp_row):
 
     with torch.inference_mode():
         # f32 sums over rows (deposit, 2n terms per bin) or taps (anterp,
-        # Wt terms), in another order: the summation error bound
+        # Wt terms), in another order: the summation error bound. The
+        # plan's norms deposit each drive twice on the same inputs: one
+        # check per drive
+        seen = set()
         stats = []
         for args, kw in calls["fp_plane_deposit"]:
-            rows_, s0, s1, w0, w1, L = args
-            err, msg = _sum_bound_check(
-                "fp_plane_deposit", shift.fp_plane_deposit(*args),
-                shift.fp_plane_deposit_plain(*args),
-                shift.fp_plane_deposit_plain(rows_.abs(), s0, s1, w0.abs(),
-                                             w1.abs(), L),
-                2 * rows_.shape[0])
-            n, B, W = rows_.shape
-            V = s0.shape[0]
-            live = int((w0 != 0).any(dim=1).sum())
-            nbytes = 4 * (n * B * W + 4 * V * n + V * B * L)
-            flops = 4 * live * n * B * W
-            s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.fp_plane_deposit(*args), reps),
-                     plain_ms=cuda_ms(
-                         lambda: shift.fp_plane_deposit_plain(*args), 3))
-            log(f"kernels-ART: fp_plane_deposit V={V} ({live} live) B={B} "
-                f"n={n} W={W} L={L}: {msg} {s['ms']:.4f} ms, plain "
-                f"{s['plain_ms']:.4f} ms, bound "
-                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
-            stats.append(s)
+            key = args[1].data_ptr()       # the drive's start table
+            if key not in seen:
+                seen.add(key)
+                stats.append(deposit_checks("kernels-ART", args, kw, reps,
+                                            ("fp_plane_deposit",))[
+                    "fp_plane_deposit"])
         row("fp_plane_deposit", "ipdm_tpu_torch/csrc/fp_deposit.cu",
             "ipdm_tpu/ops/pallas/shift.py:279", stats)
 
-        stats = []
-        for args, kw in calls["anterp_taps"]:
-            P, qi0, W = args
-            err, msg = _sum_bound_check(
-                "anterp_taps", shift.anterp_taps(*args, **kw),
-                shift.anterp_taps_plain(*args),
-                shift.anterp_taps_plain(P.abs(), qi0, W.abs()), W.shape[1])
-            V, B, Ntp = P.shape
-            Wt, Lp = W.shape[1], W.shape[2]
-            nbytes = 4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp)
-            flops = 2 * Wt * V * B * Lp
-            s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.anterp_taps(*args, **kw),
-                                reps),
-                     plain_ms=cuda_ms(lambda: shift.anterp_taps_plain(*args),
-                                      5))
-            log(f"kernels-ART: anterp_taps V={V} B={B} Wt={Wt} Lp={Lp} "
-                f"Ntp={Ntp}: {msg} {s['ms']:.4f} ms, plain "
-                f"{s['plain_ms']:.4f} ms, bound "
-                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
-            stats.append(s)
+        stats = [anterp_checks("kernels-ART", args, kw, reps)
+                 for args, kw in calls["anterp_taps"]]
         row("anterp_taps", "ipdm_tpu_torch/csrc/anterp_taps.cu",
             "ipdm_tpu/ops/pallas/shift.py:702", stats)
+        # per shape: the resample of every convert (B = 4, Wt = 2) and the
+        # plan's anterpolated norms (B = 1)
+        shapes = {}
+        for (args, _), st in zip(calls["anterp_taps"], stats):
+            shapes.setdefault((args[0].shape[1], args[2].shape[1]),
+                              []).append(st)
+        rows[-1]["shapes"] = [shape_entry(v, B=k[0], Wt=k[1])
+                              for k, v in shapes.items()]
 
         # the sweep on the last sweep of each drive (x != 0; the first
         # sweep starts from x = 0 and its FP is all zeros). 2·32 dependent
@@ -1216,6 +1367,128 @@ def _sum_bound_check(label, got, want, absum, nterms):
                  f"(bound 2·{nterms}·2^-24·Σ|terms|)")
 
 
+def deposit_checks(tag, args, kw, reps, timed) -> dict:
+    """The deposit kernel on one recorded input through its three wrappers:
+    fp_plane_deposit against the plain version at the summation-order
+    bound, fp_shift_deposit_batched and fp_shift_deposit (each item) bit-
+    equal to it, every launch repeated bit-equal; a planted fault (one
+    live row dropped from one band: its two weights zeroed in one view)
+    that the bound must see. For each wrapper named in ``timed``, the
+    device time (stream held by a spin kernel), the wrapper's and the
+    plain version's (fp_shift_deposit on the last item). Returns {wrapper:
+    stats}."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    rows_, s0, s1, w0, w1, L = args
+    n, B, W = rows_.shape
+    V = s0.shape[0]
+    want = shift.fp_plane_deposit_plain(*args)
+    absum = shift.fp_plane_deposit_plain(rows_.abs(), s0, s1, w0.abs(),
+                                         w1.abs(), L)
+    plane = shift.fp_plane_deposit(*args, **kw)
+    repeat_check("fp_plane_deposit", plane,
+                 shift.fp_plane_deposit(*args, **kw))
+    err, msg = _sum_bound_check(f"fp_plane_deposit ({tag})", plane, want,
+                                absum, 2 * n)
+    batched = shift.fp_shift_deposit_batched(*args, **kw)
+    repeat_check("fp_shift_deposit_batched", batched,
+                 shift.fp_shift_deposit_batched(*args, **kw))
+    one = (rows_[:, B - 1].contiguous(), s0, s1, w0, w1, L)
+    singles = [shift.fp_shift_deposit(rows_[:, b].contiguous(), *one[1:],
+                                      **kw) for b in range(B)]
+    repeat_check("fp_shift_deposit", singles[-1],
+                 shift.fp_shift_deposit(*one, **kw))
+    torch.cuda.synchronize()
+    d8 = float((batched - plane).abs().max())
+    d9 = max(float((x - plane[:, b]).abs().max())
+             for b, x in enumerate(singles))
+    if d8 != 0.0 or d9 != 0.0:     # one kernel, one sum order
+        raise AssertionError(f"the deposits differ: batched − plane {d8}, "
+                             f"single − plane {d9}")
+    # the planted fault: the middle row of the middle live view
+    live = (w0 != 0).any(dim=1) | (w1 != 0).any(dim=1)
+    v = int(torch.nonzero(live)[int(live.sum()) // 2])
+    y = n // 2
+    cut0, cut1 = w0.clone(), w1.clone()
+    cut0[v, y] = cut1[v, y] = 0.0
+    dropped = shift.fp_plane_deposit(rows_, s0, s1, cut0, cut1, L, **kw)
+    torch.cuda.synchronize()
+    tol = 2 * (2 * n) * 2.0 ** -24 * absum
+    over = float(((dropped - want).abs() / tol.clamp_min(1e-30)).max())
+    if not over > 1.0:
+        raise AssertionError(f"the deposit's bound does not see a dropped "
+                             f"row ({over})")
+    nv = int(live.sum())
+    calls = {"fp_plane_deposit": (lambda: shift.fp_plane_deposit(*args, **kw),
+                                  lambda: shift.fp_plane_deposit_plain(*args),
+                                  B),
+             "fp_shift_deposit_batched": (
+                 lambda: shift.fp_shift_deposit_batched(*args, **kw),
+                 lambda: shift.fp_plane_deposit_plain(*args), B),
+             "fp_shift_deposit": (
+                 lambda: shift.fp_shift_deposit(*one, **kw),
+                 lambda: shift.fp_shift_deposit_plain(*one), 1)}
+    out, times = {}, []
+    for name in timed:
+        fn, plain, b = calls[name]
+        st = dict(err=err, **bound_ms(4 * (n * b * W + 4 * V * n + V * b * L),
+                                      4 * nv * n * b * W, F32_FLOPS),
+                  ms=cuda_ms(fn, reps), device_ms=queued_ms(fn, reps),
+                  plain_ms=cuda_ms(plain, 3))
+        out[name] = st
+        times.append(f"{name} (B={b}) {st['ms']:.4f} ms (kernel "
+                     f"{st['device_ms']:.4f} ms on the device), plain "
+                     f"{st['plain_ms']:.4f} ms, bound "
+                     f"{max(st['bytes_ms'], st['ops_ms']):.4f} ms")
+    log(f"{tag}: deposit V={V} ({nv} live) B={B} n={n} W={W} L={L}: {msg}; "
+        f"fp_shift_deposit_batched and fp_shift_deposit (each item) "
+        f"bit-equal to fp_plane_deposit, every launch repeated bit-equal; "
+        f"view {v} row {y} dropped: {over:.1f}× the bound at its worst bin; "
+        + "; ".join(times))
+    return out
+
+
+def anterp_checks(tag, args, kw, reps) -> dict:
+    """anterp_taps on one recorded input: against the plain version at the
+    summation-order bound, repeated bit-equal; a planted fault (the last
+    tap dropped: its weights zeroed) that the bound must see; the device
+    time and the wrapper's. Returns the call's stats."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    P, qi0, W = args
+    V, B, Ntp = P.shape
+    Wt, Lp = W.shape[1], W.shape[2]
+    want = shift.anterp_taps_plain(*args)
+    absum = shift.anterp_taps_plain(P.abs(), qi0, W.abs())
+    got = shift.anterp_taps(*args, **kw)
+    repeat_check("anterp_taps", got, shift.anterp_taps(*args, **kw))
+    err, msg = _sum_bound_check(f"anterp_taps ({tag})", got, want, absum, Wt)
+    cut = W.clone()
+    cut[:, -1] = 0.0
+    short = shift.anterp_taps(P, qi0, cut, **kw)
+    torch.cuda.synchronize()
+    tol = 2 * Wt * 2.0 ** -24 * absum
+    over = float(((short - want).abs() / tol.clamp_min(1e-30)).max())
+    if not over > 1.0:
+        raise AssertionError(f"anterp_taps' bound does not see its last tap "
+                             f"dropped ({over})")
+    st = dict(err=err, **bound_ms(
+        4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp),
+        2 * Wt * V * B * Lp, F32_FLOPS),
+        ms=cuda_ms(lambda: shift.anterp_taps(*args, **kw), reps),
+        device_ms=queued_ms(lambda: shift.anterp_taps(*args, **kw), reps),
+        plain_ms=cuda_ms(lambda: shift.anterp_taps_plain(*args), 5))
+    log(f"{tag}: anterp_taps V={V} B={B} Wt={Wt} Lp={Lp} Ntp={Ntp}: {msg}; "
+        f"two launches bit-equal; last tap dropped: {over:.1f}× the bound "
+        f"at its worst output; {st['ms']:.4f} ms (kernel "
+        f"{st['device_ms']:.4f} ms on the device), plain "
+        f"{st['plain_ms']:.4f} ms, bound "
+        f"{max(st['bytes_ms'], st['ops_ms']):.4f} ms")
+    return st
+
+
 def phase_record_fp(seed: int):
     """One project_fast of two full-width phantoms, driven as a user
     building a corpus in batches drives it, with the launch counters reset
@@ -1327,71 +1600,20 @@ def phase_kernels_fp(fp_calls, art_calls, reps):
     with torch.inference_mode():
         st8, st9 = [], []
         for args, kw in fp_calls["fp_shift_deposit_batched"]:
-            rows_, s0, s1, w0, w1, L = args
-            n, B, W = rows_.shape
-            V = s0.shape[0]
-            want = shift.fp_plane_deposit_plain(*args)
-            absum = shift.fp_plane_deposit_plain(rows_.abs(), s0, s1,
-                                                 w0.abs(), w1.abs(), L)
-            plane = shift.fp_plane_deposit(*args)
-            batched = shift.fp_shift_deposit_batched(*args)
-            one_rows = rows_[:, B - 1].contiguous()
-            one_args = (one_rows, s0, s1, w0, w1, L)
-            single = shift.fp_shift_deposit(*one_args)
-            single_want = shift.fp_shift_deposit_plain(*one_args)
-            e6, m6 = _sum_bound_check("fp_plane_deposit (project_fast)",
-                                      plane, want, absum, 2 * n)
-            e8, m8 = _sum_bound_check("fp_shift_deposit_batched", batched,
-                                      want, absum, 2 * n)
-            e9, m9 = _sum_bound_check("fp_shift_deposit", single,
-                                      single_want, absum[:, B - 1], 2 * n)
-            d86 = float((batched - plane).abs().max())
-            d96 = float((single - plane[:, B - 1]).abs().max())
-            if d86 != 0.0 or d96 != 0.0:   # same row order, same sums
-                raise AssertionError(f"the shift deposits differ from "
-                                     f"fp_plane_deposit: {d86}, {d96}")
-            live = int((w0 != 0).any(dim=1).sum())
-            t6 = cuda_ms(lambda: shift.fp_plane_deposit(*args), reps)
-            s8 = dict(err=e8, **bound_ms(
-                4 * (n * B * W + 4 * V * n + V * B * L),
-                4 * live * n * B * W, F32_FLOPS),
-                ms=cuda_ms(lambda: shift.fp_shift_deposit_batched(*args),
-                           reps),
-                plain_ms=cuda_ms(
-                    lambda: shift.fp_plane_deposit_plain(*args), 3))
-            s9 = dict(err=e9, **bound_ms(
-                4 * (n * W + 4 * V * n + V * L), 4 * live * n * W,
-                F32_FLOPS),
-                ms=cuda_ms(lambda: shift.fp_shift_deposit(*one_args), reps),
-                plain_ms=cuda_ms(
-                    lambda: shift.fp_shift_deposit_plain(*one_args), 3))
-            log(f"{tag}: deposits V={V} ({live} live) B={B} n={n} W={W} "
-                f"L={L}: fp_shift_deposit_batched {m8} {s8['ms']:.4f} ms, "
-                f"plain {s8['plain_ms']:.4f} ms, bound "
-                f"{max(s8['bytes_ms'], s8['ops_ms']):.4f} ms; "
-                f"fp_shift_deposit (item {B - 1}) {m9} {s9['ms']:.4f} ms, "
-                f"plain {s9['plain_ms']:.4f} ms, bound "
-                f"{max(s9['bytes_ms'], s9['ops_ms']):.4f} ms; "
-                f"fp_plane_deposit {m6} {t6:.4f} ms; batched − plane "
-                f"{d86:.1e}, single − plane {d96:.1e}")
-            st8.append(s8)
-            st9.append(s9)
-        row("fp_shift_deposit_batched",
-            "ipdm_tpu_torch/csrc/fp_shift_deposit.cu",
+            st = deposit_checks(tag, args, kw, reps,
+                                ("fp_shift_deposit_batched",
+                                 "fp_shift_deposit"))
+            st8.append(st["fp_shift_deposit_batched"])
+            st9.append(st["fp_shift_deposit"])
+        row("fp_shift_deposit_batched", "ipdm_tpu_torch/csrc/fp_deposit.cu",
             "ipdm_tpu/ops/pallas/shift.py:354", st8)
-        row("fp_shift_deposit", "ipdm_tpu_torch/csrc/fp_shift_deposit.cu",
+        row("fp_shift_deposit", "ipdm_tpu_torch/csrc/fp_deposit.cu",
             "ipdm_tpu/ops/pallas/shift.py:625", st9)
 
+        # anterp_taps in project_fast's form (Wt = 6), outside the row's
+        # means (the row is the ART path's)
         for args, kw in fp_calls["anterp_taps"]:
-            P, qi0, W = args
-            err, msg = _sum_bound_check(
-                "anterp_taps (project_fast)", shift.anterp_taps(*args, **kw),
-                shift.anterp_taps_plain(*args),
-                shift.anterp_taps_plain(P.abs(), qi0, W.abs()), W.shape[1])
-            ms = cuda_ms(lambda: shift.anterp_taps(*args, **kw), reps)
-            log(f"{tag}: anterp_taps (project_fast) V={P.shape[0]} "
-                f"B={P.shape[1]} Wt={W.shape[1]} Lp={W.shape[2]} "
-                f"Ntp={P.shape[2]}: {msg} {ms:.4f} ms")
+            anterp_checks(tag + " (project_fast)", args, kw, reps)
 
         # the bf16 sweep on the last sweep of each drive, against the
         # plain version with the same bf16-rounded operands: the two sum
@@ -1805,6 +2027,7 @@ def main() -> int:
 
     rows = phase_kernels(phase_record(models, ld_proj), REPS)
     bp_row = rows[-1]
+    phase_grad(models, ld_proj, SEED)
     phase_reference(SEED)
     fbp, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
                          FBP_KERNELS, 90, n_timed=1)

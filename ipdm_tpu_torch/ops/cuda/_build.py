@@ -50,10 +50,6 @@ SIGNATURES = {
     "anterp_taps_launch": [P, P, P, P, I, I, I, I, I, P],
     # Q2, s0, s1, frac, out, V, L, n, stream
     "bp_shift_single_launch": [P, P, P, P, P, I, I, I, P],
-    # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
-    "fp_shift_deposit_batched_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
-    # rows, s0, s1, w0, w1, out, V, W, L, n, stream
-    "fp_shift_deposit_launch": [P, P, P, P, P, P, I, I, I, I, P],
 }
 
 # launches per kernel since the last reset_launches(); each wrapper adds

@@ -7,6 +7,12 @@ On a CUDA tensor :func:`flash_attention` launches the kernel of
 ``csrc/flash_attn.cu``; on a CPU tensor it runs :func:`attention_plain`,
 the einsum formula of unet.py:659-662. Shorter sequences take
 :func:`attention_plain` on every device, as the JAX package does.
+
+Where grad mode is on and q, k or v requires a gradient, the call goes
+through an ``autograd.Function`` whose forward is that same dispatch and
+whose backward recomputes :func:`attention_plain` on the saved q, k, v
+and takes its vector-Jacobian product. Under ``no_grad`` nothing is saved
+and the call is the bare dispatch.
 """
 
 from __future__ import annotations
@@ -34,7 +40,40 @@ def attention_plain(q, k, v, scale):
 def flash_attention(q, k, v, scale):
     """The same function as :func:`attention_plain`. The kernel applies
     scale² once to the f32 score instead of scale to each operand, and
-    takes bf16 [BH, T, 64] contiguous tensors."""
+    takes bf16 [BH, T, 64] contiguous tensors. Differentiable in q, k
+    and v (backward by recomputing the plain version)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with a backward: forward is :func:`_forward` (the kernel
+    on the card), backward the VJP of :func:`attention_plain` recomputed
+    on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = attention_plain(*leaves, ctx.scale)
+            wrt = [t for t, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def _forward(q, k, v, scale):
+    """Attention's forward: :func:`attention_plain` for CPU tensors, the
+    kernel for CUDA tensors (or raise)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     if q.device.type != "cuda":

@@ -7,6 +7,13 @@ the unit takes the per-(batch, channel) affine a, bb with
 silu(a·x + bb) == silu(GN(x)). On a CUDA tensor :func:`planar_unit`
 launches the kernel of ``csrc/planar_unit.cu``; on a CPU tensor it runs
 :func:`planar_unit_plain`.
+
+Where grad mode is on and an input requires a gradient, the call goes
+through an ``autograd.Function`` whose forward is that same dispatch and
+whose backward recomputes :func:`planar_unit_plain` on the saved inputs
+and takes its vector-Jacobian product (the TPU package has no backward
+kernel either: JAX differentiates the Pallas unit's reference). Under
+``no_grad`` nothing is saved and the call is the bare dispatch.
 """
 
 from __future__ import annotations
@@ -52,7 +59,42 @@ def _check(name, t, shape, dtype, device):
 def planar_unit(x, a, bb, w, bias, skip=None, act=True):
     """conv3x3_pad1(act(a·x + bb)) + bias [+ skip], accumulated in f32 and
     returned in x.dtype (f32 or bf16). Shapes as in
-    :func:`planar_unit_plain`; C·O ≤ :data:`MAX_CO`."""
+    :func:`planar_unit_plain`; C·O ≤ :data:`MAX_CO`. Differentiable in
+    every tensor input (backward by recomputing the plain version)."""
+    inputs = (x, a, bb, w, bias, skip)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _PlanarUnit.apply(x, a, bb, w, bias, skip, act)
+    return _forward(x, a, bb, w, bias, skip, act)
+
+
+class _PlanarUnit(torch.autograd.Function):
+    """The unit with a backward: forward is :func:`_forward` (the kernel
+    on the card), backward the VJP of :func:`planar_unit_plain`
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a, bb, w, bias, skip, act):
+        ctx.act = act
+        ctx.save_for_backward(x, a, bb, w, bias, skip)
+        return _forward(x, a, bb, w, bias, skip, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            out = planar_unit_plain(*leaves, act=ctx.act)
+            wrt = [t for t, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def _forward(x, a, bb, w, bias, skip, act):
+    """The unit's forward: :func:`planar_unit_plain` for CPU tensors, the
+    kernel for CUDA tensors (or raise)."""
     if x.device.type == "cpu":
         return planar_unit_plain(x, a, bb, w, bias, skip, act)
     if x.device.type != "cuda":

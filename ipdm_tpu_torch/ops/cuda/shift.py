@@ -8,12 +8,12 @@ kernels of ipdm_tpu/ops/pallas/shift.py):
 * :func:`bp_shift_accumulate` (shift.py:193), the same sum for one signal
   per view, Q2 [V,L] → [n,n] (``csrc/bp_shift.cu``, its own entry);
 * :func:`fp_plane_deposit` (shift.py:279), its adjoint, the two-tap row
-  deposit ``out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j]``
-  (``csrc/fp_deposit.cu``);
+  deposit ``out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j]``;
 * :func:`fp_shift_deposit_batched` (shift.py:354) and
   :func:`fp_shift_deposit` (shift.py:625), the same deposit contract for
-  rows [n,B,W] and for one image's rows [n,W] → [V,L]
-  (``csrc/fp_shift_deposit.cu``);
+  rows [n,B,W] and for one image's rows [n,W] → [V,L]; the three
+  deposits launch one kernel (``csrc/fp_deposit.cu``), so they agree bit
+  for bit on the same item;
 * :func:`os_sart_sweep` (shift.py:544 ``os_sart_sweep_mm``), one OS-SART
   sweep over a drive axis's subsets: deposit FP, ratio correction, BP,
   relaxed update, clamp, with f32 or bf16-rounded product operands
@@ -192,18 +192,20 @@ def fp_plane_deposit_plain(rows, s0, s1, w0, w1, L: int):
     return out.view(V, B, L)
 
 
-def fp_plane_deposit(rows, s0, s1, w0, w1, L: int):
-    """out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j] for t ∈ {0,1}. rows
-    [n,B,W] f32; s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L (checked);
-    w0, w1 [V,n] f32. Returns [V,B,L] f32."""
-    name = "fp_plane_deposit"
+def _deposit(name: str, rows, s0, s1, w0, w1, L: int, bounds):
+    """The deposit kernel on rows [n,B,W] (checks, launch, count) →
+    [V,B,L]; the plain version for CPU tensors. The TPU kernels'
+    128-multiples of W and L and their start limit L − W − 128 come from
+    their aligned windows; here 0 ≤ s and s + W ≤ L is the whole
+    contract, checked on ``bounds`` = a (low, high) of both start tables
+    where the caller knows one, else with one device read."""
     if rows.dim() != 3 or s0.dim() != 2:
         raise ValueError(f"{name}: rows must be [n,B,W] and s0 [V,n]")
     n, B, W = rows.shape
     V = s0.shape[0]
     _check_shapes(name, [(a, t, (V, n)) for a, t in
                          (("s0", s0), ("s1", s1), ("w0", w0), ("w1", w1))])
-    _check_windows(s0, s1, W, L, name)
+    _check_windows(s0, s1, W, L, name, bounds)
     if _device_of(name, rows) == "cpu":
         return fp_plane_deposit_plain(rows, s0, s1, w0, w1, L)
     f32, i32 = torch.float32, torch.int32
@@ -216,52 +218,26 @@ def fp_plane_deposit(rows, s0, s1, w0, w1, L: int):
         w1.data_ptr(), out.data_ptr(), V, B, W, L, n,
         _build.stream_ptr(rows))
     _build.check(code, name)
-    _build.LAUNCHES["fp_plane_deposit"] += 1
-    return out
-
-
-def _deposit_operands(name: str, rows, s0, s1, w0, w1, W: int, L: int):
-    """Shape and window checks shared by the two shift deposits; returns
-    V. The TPU kernels' 128-multiples of W and L and their start limit
-    L − W − 128 come from their aligned windows; here 0 ≤ s and
-    s + W ≤ L is the whole contract."""
-    if s0.dim() != 2:
-        raise ValueError(f"{name}: s0 must be [V,n]")
-    V, n = s0.shape[0], rows.shape[0]
-    _check_shapes(name, [(a, t, (V, n)) for a, t in
-                         (("s0", s0), ("s1", s1), ("w0", w0), ("w1", w1))])
-    _check_windows(s0, s1, W, L, name)
-    return V
-
-
-def _deposit_cuda(name: str, rows, s0, s1, w0, w1) -> None:
-    f32, i32 = torch.float32, torch.int32
-    _check_cuda(name, rows.device, [("rows", rows, f32), ("s0", s0, i32),
-                                    ("s1", s1, i32), ("w0", w0, f32),
-                                    ("w1", w1, f32)])
-
-
-def fp_shift_deposit_batched(rows, s0, s1, w0, w1, L: int):
-    """out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j] for t ∈ {0,1}:
-    :func:`fp_plane_deposit`'s contract through the kernel that serves a
-    whole batch per block. rows [n,B,W] f32; s0, s1 [V,n] int32 with 0 ≤ s
-    and s + W ≤ L (checked); w0, w1 [V,n] f32. Returns [V,B,L] f32."""
-    name = "fp_shift_deposit_batched"
-    if rows.dim() != 3:
-        raise ValueError(f"{name}: rows must be [n,B,W]")
-    n, B, W = rows.shape
-    V = _deposit_operands(name, rows, s0, s1, w0, w1, W, L)
-    if _device_of(name, rows) == "cpu":
-        return fp_plane_deposit_plain(rows, s0, s1, w0, w1, L)
-    _deposit_cuda(name, rows, s0, s1, w0, w1)
-    out = torch.empty((V, B, L), dtype=torch.float32, device=rows.device)
-    code = _build.library().fp_shift_deposit_batched_launch(
-        rows.data_ptr(), s0.data_ptr(), s1.data_ptr(), w0.data_ptr(),
-        w1.data_ptr(), out.data_ptr(), V, B, W, L, n,
-        _build.stream_ptr(rows))
-    _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return out
+
+
+def fp_plane_deposit(rows, s0, s1, w0, w1, L: int, bounds=None):
+    """out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j] for t ∈ {0,1}. rows
+    [n,B,W] f32; s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L (checked, on
+    ``bounds`` = a (low, high) of both tables when the caller knows one,
+    else with one device read); w0, w1 [V,n] f32. Returns [V,B,L] f32."""
+    return _deposit("fp_plane_deposit", rows, s0, s1, w0, w1, L, bounds)
+
+
+def fp_shift_deposit_batched(rows, s0, s1, w0, w1, L: int, bounds=None):
+    """out[v,b,s_t[v,y]+j] += w_t[v,y]·rows[y,b,j] for t ∈ {0,1}:
+    :func:`fp_plane_deposit`'s contract for the fast projector's batch.
+    rows [n,B,W] f32; s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L
+    (checked as in :func:`fp_plane_deposit`); w0, w1 [V,n] f32. Returns
+    [V,B,L] f32."""
+    return _deposit("fp_shift_deposit_batched", rows, s0, s1, w0, w1, L,
+                    bounds)
 
 
 def fp_shift_deposit_plain(rows, s0, s1, w0, w1, L: int):
@@ -270,26 +246,15 @@ def fp_shift_deposit_plain(rows, s0, s1, w0, w1, L: int):
     return fp_plane_deposit_plain(rows[:, None, :], s0, s1, w0, w1, L)[:, 0]
 
 
-def fp_shift_deposit(rows, s0, s1, w0, w1, L: int):
+def fp_shift_deposit(rows, s0, s1, w0, w1, L: int, bounds=None):
     """out[v,s_t[v,y]+j] += w_t[v,y]·rows[y,j] for t ∈ {0,1}: one image's
     rows [n,W] f32 (W the deposit width) into per-view signals [V,L] f32.
-    s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L (checked); w0, w1 [V,n]
-    f32. Any view count."""
+    s0, s1 [V,n] int32 with 0 ≤ s and s + W ≤ L (checked as in
+    :func:`fp_plane_deposit`); w0, w1 [V,n] f32. Any view count."""
     name = "fp_shift_deposit"
     if rows.dim() != 2:
         raise ValueError(f"{name}: rows must be [n,W]")
-    n, W = rows.shape
-    V = _deposit_operands(name, rows, s0, s1, w0, w1, W, L)
-    if _device_of(name, rows) == "cpu":
-        return fp_shift_deposit_plain(rows, s0, s1, w0, w1, L)
-    _deposit_cuda(name, rows, s0, s1, w0, w1)
-    out = torch.empty((V, L), dtype=torch.float32, device=rows.device)
-    code = _build.library().fp_shift_deposit_launch(
-        rows.data_ptr(), s0.data_ptr(), s1.data_ptr(), w0.data_ptr(),
-        w1.data_ptr(), out.data_ptr(), V, W, L, n, _build.stream_ptr(rows))
-    _build.check(code, name)
-    _build.LAUNCHES[name] += 1
-    return out
+    return _deposit(name, rows[:, None], s0, s1, w0, w1, L, bounds)[:, 0]
 
 
 # ---------------------------------------------------------------------------

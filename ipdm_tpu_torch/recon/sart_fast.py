@@ -283,7 +283,8 @@ class _SartFastPlan:
         img [B, n, n] (fbp frame). Returns [Vpad, B, L] ray sums in
         deposit units. ``deposit`` is the kernel wrapper that lands the
         rows, :func:`fp_plane_deposit` unless the caller passes another
-        of the same contract."""
+        of the same contract; it gets the starts' bounds from the host
+        tables, so its window check reads nothing from the device."""
         B = img.shape[0]
         if grp.V == 0:
             return img.new_zeros((grp.Vpad, B, grp.L))
@@ -296,7 +297,9 @@ class _SartFastPlan:
                          torch.zeros((), device=img.device))
         w1 = tb["frac"] * scale
         taps = (tb["s0"], tb["s1"], w0.contiguous(), w1.contiguous(), grp.L)
-        return (deposit or fp_plane_deposit)(rows, *taps)
+        (lo0, hi0), (lo1, hi1) = grp.bounds("s0"), grp.bounds("s1")
+        return (deposit or fp_plane_deposit)(
+            rows, *taps, bounds=(min(lo0, lo1), max(hi0, hi1)))
 
     def fp_group(self, img: torch.Tensor, grp: _Group, anterp: bool = True,
                  deposit=None) -> torch.Tensor:
@@ -339,7 +342,8 @@ class _SartFastPlan:
             W = ((1.0 - (qpos - d[:, None]).abs()).clamp_min(0.0)
                  * (midx < Mfine))
             Tp = F.pad(Tm, (0, Wt)).contiguous()  # the last window's room
-            out = anterp_taps(Tp, qi0.contiguous(), W.contiguous())
+            out = anterp_taps(Tp, qi0.contiguous(), W.contiguous(),
+                              qi0_bounds=(0, max(Mfine - 1, 0)))
             return out.transpose(0, 1)                         # [B, V, Nt]
         out = img.new_zeros((grp.V, B, p.Nt))
         for k in range(Wt):
@@ -575,14 +579,14 @@ def _inverse_rebin(par: torch.Tensor, p: _FastPlan, n_det: int, nda0: float,
     return fan.transpose(1, 2)                               # [B, M, n_det]
 
 
-def _shift_deposit(rows: torch.Tensor, *taps) -> torch.Tensor:
-    """:func:`fp_plane_deposit`'s contract through the shift deposits,
-    which stage a view's taps once for the whole batch: rows [n, B, W]
-    through :func:`fp_shift_deposit_batched`, one image through
-    :func:`fp_shift_deposit`."""
+def _shift_deposit(rows: torch.Tensor, *taps, bounds=None) -> torch.Tensor:
+    """:func:`fp_plane_deposit`'s contract through the shift deposits:
+    rows [n, B, W] through :func:`fp_shift_deposit_batched`, one image
+    through :func:`fp_shift_deposit`."""
     if rows.shape[1] == 1:
-        return fp_shift_deposit(rows[:, 0].contiguous(), *taps)[:, None]
-    return fp_shift_deposit_batched(rows, *taps)
+        return fp_shift_deposit(rows[:, 0].contiguous(), *taps,
+                                bounds=bounds)[:, None]
+    return fp_shift_deposit_batched(rows, *taps, bounds=bounds)
 
 
 def project_fast(volume: torch.Tensor, g: FBPGeometry, n_det: int,

@@ -1,0 +1,297 @@
+#!/usr/bin/env python3
+"""Time the port's deposit and anterp_taps kernels against a parent
+commit's, on one NVIDIA GPU, in one process.
+
+    python3 scripts/torch_kernels_ab.py --parent DIR [--reps 20] [--out F]
+
+DIR is a checkout of the parent commit (``git archive <commit> | tar -x
+-C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
+nvcc flags into its own library, drives this tree's main paths once to
+record the inputs the kernels get there (an OS-SART convert of four
+full-width sinograms with its plan built anew: the norms' deposits #6 and
+anterp_taps; ``project_fast`` of two 512² phantoms: the batched deposit
+#8, the single deposit #9 on one of its items, anterp_taps at Wt = 6),
+and on each input:
+
+* holds this tree's kernel (through its wrapper) against the plain
+  version with chip_smoke.py's summation-order bound, and prints the
+  parent kernel's distance from it;
+* times the parent's kernel (launched bare) and this tree's (through
+  its wrapper, with the host bounds the main path passes), back to back
+  with the stream held by a spin kernel (device time), in the order
+  parent, new, new, parent; and this tree's wrapper alone, CUDA events
+  around back-to-back calls (host time included where it is longer).
+
+The last line is a JSON object with the times; with ``--out`` it is also
+written to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# the parent's C entry points that this script calls, with their argtypes
+PARENT_SIGNATURES = {
+    # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
+    "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "fp_shift_deposit_batched_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # rows, s0, s1, w0, w1, out, V, W, L, n, stream
+    "fp_shift_deposit_launch": [P, P, P, P, P, P, I, I, I, I, P],
+    # P, qi0, W, out, V, B, Ntp, Lp, Wt, stream
+    "anterp_taps_launch": [P, P, P, P, I, I, I, I, I, P],
+}
+
+
+def build_parent(parent: Path) -> ctypes.CDLL:
+    """nvcc of the parent's csrc/*.cu (one process per source, all at
+    once) with this tree's flags, linked into one library."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    src = parent / "ipdm_tpu_torch" / "csrc"
+    out = Path(tempfile.mkdtemp(prefix="ab-parent-", dir=parent))
+    nvcc = _build._nvcc()
+    procs = []
+    for cu in sorted(src.glob("*.cu")):
+        obj = out / (cu.stem + ".o")
+        procs.append((cu, obj, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(src), "-c", str(cu), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for cu, _obj, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {cu.name}:\n{log.decode()}")
+    lib_path = out / "libparent.so"
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    *[str(o) for _c, o, _p in procs]], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in PARENT_SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:   # a tree whose deposits share one launcher
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def record_inputs(seed: int):
+    """The deposit and anterp wrappers' inputs on the ART plan's build,
+    the ART convert's resample and project_fast."""
+    import numpy as np
+    import torch
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.convertor import Convertor
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP as g
+    from ipdm_tpu_torch.recon.phantom import random_ellipse_phantom
+
+    rng = np.random.default_rng(seed)
+    sino = torch.as_tensor(rng.random((4, 2000, 912), np.float32) * 4.0,
+                           device="cuda")
+    sart_fast._SPLANS.clear()
+    art = [cs.Recorder(sart_fast, nm) for nm in ("fp_plane_deposit",
+                                                 "anterp_taps")]
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        for r in art:
+            stack.enter_context(r)
+        Convertor("ART", nstart=10, nsubsets=40, ntv=0)(sino)
+    vol = torch.as_tensor(np.stack([random_ellipse_phantom(512, rng)
+                                    for _ in range(2)]).astype(np.float32),
+                          device="cuda")
+    fp = [cs.Recorder(sart_fast, nm) for nm in ("fp_shift_deposit_batched",
+                                                "anterp_taps")]
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        for r in fp:
+            stack.enter_context(r)
+        sart_fast.project_fast(vol, g, g.N, float(g.nda[0]), float(g.da))
+    torch.cuda.synchronize()
+    deposits6, anterp_art = art[0].calls, art[1].calls
+    deposits8, anterp_fp = fp[0].calls, fp[1].calls
+    # the plan's norms deposit each drive twice on the same inputs (its
+    # ray-sum denominator and its fine-grid valid mask): one of each
+    return dict(
+        d6=[deposits6[0], deposits6[-1]],
+        d8=deposits8,
+        a_resample=[c for c in anterp_art if c[0][0].shape[1] > 1],
+        a_plan=[c for c in anterp_art if c[0][0].shape[1] == 1],
+        a_fp=anterp_fp)
+
+
+def spin_ms(launch, reps: int) -> float:
+    """Device ms per launch: a spin kernel holds the stream while the host
+    enqueues ``reps`` launches, so they run back to back."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))
+    e0.record()
+    for _ in range(reps):
+        launch()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def abba(parent_launch, new_launch, reps: int) -> dict:
+    order = [("parent", parent_launch), ("new", new_launch),
+             ("new", new_launch), ("parent", parent_launch)]
+    got = {"parent": [], "new": []}
+    for side, fn in order:
+        got[side].append(spin_ms(fn, reps))
+    return got
+
+
+def deposit_case(lib, label, entry, args, kw, reps, single=False):
+    """One deposit input: the new wrapper against the plain version, the
+    parent's kernel against the new, both timed A B B A."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, shift
+
+    rows, s0, s1, w0, w1, L = args
+    if single:
+        rows = rows[:, rows.shape[1] - 1].contiguous()
+        wrap = lambda: shift.fp_shift_deposit(rows, s0, s1, w0, w1, L, **kw)
+        plain = shift.fp_shift_deposit_plain(rows, s0, s1, w0, w1, L)
+        absum = shift.fp_shift_deposit_plain(rows.abs(), s0, s1, w0.abs(),
+                                             w1.abs(), L)
+        n, W = rows.shape
+        B = 1
+    else:
+        wrap = {"fp_plane_deposit": shift.fp_plane_deposit,
+                "fp_shift_deposit_batched": shift.fp_shift_deposit_batched}[
+            label]
+        wrap = (lambda f: lambda: f(rows, s0, s1, w0, w1, L, **kw))(wrap)
+        plain = shift.fp_plane_deposit_plain(rows, s0, s1, w0, w1, L)
+        absum = shift.fp_plane_deposit_plain(rows.abs(), s0, s1, w0.abs(),
+                                             w1.abs(), L)
+        n, B, W = rows.shape
+    V = s0.shape[0]
+    new = wrap()
+    err, msg = cs._sum_bound_check(label, new, plain, absum, 2 * n)
+    out = torch.empty_like(new)
+    if not hasattr(lib, entry):
+        entry, single_dims = "fp_deposit_launch", False
+    else:
+        single_dims = single
+    fn = getattr(lib, entry)
+    stream = _build.stream_ptr(rows)
+    ptrs = [t.data_ptr() for t in (rows, s0, s1, w0, w1, out)]
+    dims = [V, W, L, n] if single_dims else [V, B, W, L, n]
+
+    def parent():
+        _build.check(fn(*ptrs, *dims, stream), "parent " + entry)
+
+    parent()
+    torch.cuda.synchronize()
+    gap = float((out - new).abs().max())
+    t = abba(parent, wrap, reps)
+    wrapper_ms = cs.cuda_ms(wrap, reps)
+    live = int((w0 != 0).any(dim=1).sum())
+    bnd = cs.bound_ms(4 * (n * B * W + 4 * V * n + V * B * L),
+                      4 * live * n * B * W, cs.F32_FLOPS)
+    res = dict(kernel=label, V=V, B=B, n=n, W=W, L=L, err=err,
+               parent_gap=gap, parent_ms=t["parent"], new_ms=t["new"],
+               wrapper_ms=wrapper_ms,
+               bound_ms=max(bnd["bytes_ms"], bnd["ops_ms"]))
+    cs.log(f"ab: {label} V={V} B={B} n={n} W={W} L={L}: {msg}; parent − new "
+           f"max |diff| {gap:.3e}; device ms parent {t['parent'][0]:.4f}, "
+           f"new {t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
+           f"{t['parent'][1]:.4f}; new through its wrapper {wrapper_ms:.4f} "
+           f"ms; bound {res['bound_ms']:.4f} ms")
+    return res
+
+
+def anterp_case(lib, label, args, kw, reps):
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, shift
+
+    Pm, qi0, W = args
+    V, B, Ntp = Pm.shape
+    Wt, Lp = W.shape[1], W.shape[2]
+    wrap = lambda: shift.anterp_taps(Pm, qi0, W, **kw)
+    new = wrap()
+    err, msg = cs._sum_bound_check(
+        label, new, shift.anterp_taps_plain(Pm, qi0, W),
+        shift.anterp_taps_plain(Pm.abs(), qi0, W.abs()), Wt)
+    out = torch.empty_like(new)
+    stream = _build.stream_ptr(Pm)
+
+    def parent():
+        _build.check(lib.anterp_taps_launch(
+            Pm.data_ptr(), qi0.data_ptr(), W.data_ptr(), out.data_ptr(), V,
+            B, Ntp, Lp, Wt, stream), "parent anterp_taps")
+
+    parent()
+    torch.cuda.synchronize()
+    gap = float((out - new).abs().max())
+    t = abba(parent, wrap, reps)
+    wrapper_ms = cs.cuda_ms(wrap, reps)
+    bnd = cs.bound_ms(4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp),
+                      2 * Wt * V * B * Lp, cs.F32_FLOPS)
+    res = dict(kernel="anterp_taps", case=label, V=V, B=B, Wt=Wt, Lp=Lp,
+               Ntp=Ntp, err=err, parent_gap=gap, parent_ms=t["parent"],
+               new_ms=t["new"], wrapper_ms=wrapper_ms,
+               bound_ms=max(bnd["bytes_ms"], bnd["ops_ms"]))
+    cs.log(f"ab: anterp_taps ({label}) V={V} B={B} Wt={Wt} Lp={Lp} "
+           f"Ntp={Ntp}: {msg}; parent − new max |diff| {gap:.3e}; device "
+           f"ms parent {t['parent'][0]:.4f}, new {t['new'][0]:.4f}, new "
+           f"{t['new'][1]:.4f}, parent {t['parent'][1]:.4f}; new through its "
+           f"wrapper {wrapper_ms:.4f} ms; bound {res['bound_ms']:.4f} ms")
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path)
+    a = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernels_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    smi = cs.nvidia_smi_line()
+    cs.log(f"ab: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.library()
+    lib = build_parent(a.parent.resolve())
+    calls = record_inputs(a.seed)
+    res = []
+    with torch.inference_mode():
+        for args, kw in calls["d6"]:
+            res.append(deposit_case(lib, "fp_plane_deposit",
+                                    "fp_deposit_launch", args, kw, a.reps))
+        for args, kw in calls["d8"]:
+            res.append(deposit_case(lib, "fp_shift_deposit_batched",
+                                    "fp_shift_deposit_batched_launch", args,
+                                    kw, a.reps))
+            res.append(deposit_case(lib, "fp_shift_deposit",
+                                    "fp_shift_deposit_launch", args, kw,
+                                    a.reps, single=True))
+        for label in ("a_resample", "a_plan", "a_fp"):
+            for args, kw in calls[label]:
+                res.append(anterp_case(lib, label[2:], args, kw, a.reps))
+    line = json.dumps({"device": smi, "ab": res})
+    if a.out:
+        os.makedirs(a.out.parent, exist_ok=True)
+        a.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

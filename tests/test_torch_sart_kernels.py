@@ -121,12 +121,15 @@ def test_fp_plane_deposit_plain_matches_pallas():
 
 
 @pytest.mark.parametrize("kernel", ["anterp", "sweep", "deposit",
-                                    "anterp-bounds", "sweep-bounds"])
+                                    "anterp-bounds", "sweep-bounds",
+                                    "deposit-bounds", "shift-deposit",
+                                    "shift-deposit-bounds",
+                                    "batched-deposit-bounds"])
 def test_wrappers_reject_windows_past_the_signal(kernel):
     """JAX clamps out-of-range indices silently; each wrapper checks its
     windows on the host instead of reading or writing past the signal,
     on the starts themselves or on the (min, max) a caller passes for a
-    static table."""
+    static table (the deposits' bounds cover both start tables)."""
     if kernel.startswith("anterp"):
         P, qi0, W = _anterp_inputs()
         over = P.shape[2] - W.shape[1] + 1
@@ -149,8 +152,23 @@ def test_wrappers_reject_windows_past_the_signal(kernel):
                                            s0_bounds=bounds)
     else:
         rows, s0, s1, w0, w1, L = _deposit_inputs()
-        s0[4, 0] = -1
-        call = lambda: shift.fp_plane_deposit(t(rows), t(s0), t(s1), t(w0),
-                                              t(w1), L)
+        W = rows.shape[2]
+        bounds = None
+        if kernel.endswith("-bounds"):   # the tables fit, the bounds don't
+            bounds = (0, L - W + 1)
+        elif kernel == "deposit":
+            s0[4, 0] = -1
+        else:
+            s1[2, 7] = L - W + 1
+        if kernel.startswith("shift"):
+            call = lambda: shift.fp_shift_deposit(
+                t(rows[:, 0].copy()), t(s0), t(s1), t(w0), t(w1), L,
+                bounds=bounds)
+        elif kernel.startswith("batched"):
+            call = lambda: shift.fp_shift_deposit_batched(
+                t(rows), t(s0), t(s1), t(w0), t(w1), L, bounds=bounds)
+        else:
+            call = lambda: shift.fp_plane_deposit(
+                t(rows), t(s0), t(s1), t(w0), t(w1), L, bounds=bounds)
     with pytest.raises(ValueError, match="window"):
         call()
