@@ -27,10 +27,13 @@ exits non-zero without a result line:
    grad — one proj UNet eval (2000×912) and one img UNet eval (512²) at
    B = 1, bf16 activations, then loss.backward(): every parameter gets a
    finite gradient through planar_unit's and flash_attention's
-   autograd.Functions (their count upstream of a kernel call printed);
-   a planted control with the kernels called outside the Functions must
-   leave parameters without one; a small f32 UNet's gradients on the card
-   against the CPU's; forward + backward time beside the forward;
+   autograd.Functions (their count upstream of a kernel call printed),
+   flash's backward launching the flash_bwd_dq / flash_bwd_dkv kernels
+   (their inputs recorded for kernels-train); a planted control with the
+   kernels called outside the Functions must leave parameters without
+   one; a small f32 UNet's gradients on the card against the CPU's;
+   forward + backward time beside the forward, and beside forward + the
+   recomputed plain backward that the kernels replace;
 5. reference — the whole FBP-mode pipeline at a small size, f32, zero
    noise, on the card (kernels) against the CPU (plain versions);
 6. slice   — the FBP-mode progressive denoise of one slice with bench.py's
@@ -74,7 +77,10 @@ exits non-zero without a result line:
    inputs recorded, its launches, its device time; then one
    ``sart_fast_convert(..., mm_bf16=True)`` of four full-width sinograms
    (those two and their low-dose versions; nstart=10, 40 subsets) with
-   its launches, beside the f32 convert of the same four;
+   its launches, beside the f32 convert of the same four; the f32
+   convert's PSNR against the phantoms scored both ways (peak = max μ,
+   and the engine's miu2pixel with data_range 1), also for the engine
+   corpus's 4 sweeps of 18 subsets;
 12. kernels-FP — on those inputs fp_shift_deposit_batched, fp_shift_deposit
    (each item) and fp_plane_deposit against the plain deposit and against
    each other, with the planted dropped row, and anterp_taps at Wt = 6
@@ -101,7 +107,32 @@ exits non-zero without a result line:
    kernels-BP1 — bp_shift_accumulate on the recorded inputs (V=500,
    n=512) against its plain version and the batched kernel at B=1, and
    beside the row on two of the OS-SART norms' calls (V=16);
-16. the ``kernels`` JSON line, the nvidia-smi line, and the last line
+16. train — ``ProgressiveDomainDenoiser(...).fit()`` in train_img and
+   then train_proj mode at the shipped train presets' widths and dtype
+   (f32) on the engine phase's corpus: 10 steps each, checkpoints and
+   test(it) every 5 steps on one slice; each step's loss (finite), warm
+   s/step, peak memory of a step, the kernels' launches per step (f32
+   flash forward, both flash backward kernels, planar_unit in the proj
+   UNet: each > 0), the checkpoint files and scalars.jsonl lines; a
+   resume from optimizer-1 whose Adam state must equal the file's;
+17. kernels-train — the f32 flash forward on the train runs' recorded
+   q, k, v (T = 4096, 7125) against the plain version in f32, with f32
+   ragged checks and the unmasked control; flash_bwd_dq and
+   flash_bwd_dkv on the recorded backward inputs (f32 from the train
+   runs, bf16 from the grad phase) against attention_bwd_plain (f32 on
+   the plain forward's out and lse, bf16 on the kernel's; bf16:
+   2e-2·max|plain| + 2e-2·|plain| per tensor; f32: 1e-4·max|plain| +
+   1e-3·|plain|), two launches bit-equal, beside a planted control with
+   D dropped from dS that must fail; the forward kernel's out and lse on
+   those inputs against the plain forward's (out at the forward's rule;
+   lse to a per-row bound from the rounding of the scores, beside a
+   planted control with the lse in log2 units that must fail); the
+   ragged T = 7125 backward
+   and lse in both dtypes (f32 against the plain version in f64, with the
+   f32 plain as a second witness) beside a planted control with the last
+   key tile unmasked; the kernels' ms, the plain backward's, the
+   recomputed backward's and SDPA forward + backward's;
+18. the ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when no CUDA device is present. It imports nothing of
@@ -115,6 +146,7 @@ import copy
 import importlib.util
 import json
 import math
+import os
 import os.path as osp
 import subprocess
 import sys
@@ -184,12 +216,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 class Recorder:
     """Replaces ``module.name`` by a wrapper that records each call's
-    arguments, for as long as the ``with`` block runs."""
+    arguments (the first ``limit`` calls, all by default), for as long as
+    the ``with`` block runs."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, limit=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = []
+        self.limit = limit
 
     def __enter__(self):
         setattr(self.module, self.name, self._record)
@@ -199,7 +233,8 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
     def _record(self, *args, **kw):
-        self.calls.append((args, kw))
+        if self.limit is None or len(self.calls) < self.limit:
+            self.calls.append((args, kw))
         return self.fn(*args, **kw)
 
 
@@ -456,7 +491,23 @@ def shape_entry(stats, **shape) -> dict:
                 max_abs_err=max(s["err"] for s in stats))
 
 
-def flash_ragged(reps):
+# flash attention's tolerance per activation dtype, (rtol, atol as a share
+# of max|plain|): bf16 outputs of an f32 softmax round the weights at
+# different points (normalised vs not); f32 sums over T terms in another
+# order (the grad phase's f32 rule)
+FLASH_TOL = {"bfloat16": (2e-2, None), "float32": (1e-3, 1e-4)}
+SHORT = {"bfloat16": "bf16", "float32": "f32"}
+
+
+def flash_tol(want, dtype_name):
+    """(rtol, atol) of :data:`FLASH_TOL` for a plain output ``want``: the
+    bf16 rule's atol is the absolute 2e-2 of the main-path checks."""
+    rtol, share = FLASH_TOL[dtype_name]
+    return rtol, (2e-2 if share is None else
+                  share * float(want.float().abs().max()))
+
+
+def flash_ragged(reps, dtype_name="bfloat16", counts=(4097, 4159, 7125)):
     """The flash kernel at ragged token counts against the plain version
     at the main path's tolerance, on inputs where a key that escaped the
     mask would dominate: q ≈ +1 and k ≈ −1 plus noise, so every live score
@@ -473,14 +524,14 @@ def flash_ragged(reps):
     import torch
     from ipdm_tpu_torch.ops.cuda import attention
 
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
     hd = attention.HEAD_DIM
-    for T in (4097, 4159, 7125):
+    for T in counts:
         def rnd(mean, sd):
             return (mean + sd * torch.randn((4, T, hd), generator=gen,
-                                            device="cuda")
-                    ).to(torch.bfloat16)
+                                            device="cuda")).to(dtype)
         q, k = rnd(1.0, 0.25), rnd(-1.0, 0.25)
         v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1), 0.5)
         got = attention.flash_attention(q, k, v, scale)
@@ -489,14 +540,17 @@ def flash_ragged(reps):
         unmasked = attention.attention_plain(
             q, torch.cat([k, pad], 1), torch.cat([v, pad], 1), scale)
         torch.cuda.synchronize()
-        ok, err = _within(got, want, 2e-2, 2e-2)
-        ctrl_ok, ctrl_err = _within(unmasked, want, 2e-2, 2e-2)
+        rtol, atol = flash_tol(want, dtype_name)
+        ok, err = _within(got, want, rtol, atol)
+        ctrl_ok, ctrl_err = _within(unmasked, want, rtol, atol)
         ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale), reps)
         size = float(want.float().abs().mean())
-        log(f"kernels: flash_attn ragged [4,{T},64] bf16 (live scores ≈ "
-            f"−8, {-T % 64} dead keys): max |diff| {err:.3e} (tol 2e-2 + "
-            f"2e-2·|plain|, mean |plain| {size:.3f}) {ms:.4f} ms; planted control without the mask: max |diff| "
-            f"{ctrl_err:.3e}, {'passes' if ctrl_ok else 'fails'}")
+        log(f"kernels: flash_attn ragged [4,{T},64] {SHORT[dtype_name]} "
+            f"(live scores ≈ −8, {-T % 64} dead keys): max |diff| "
+            f"{err:.3e} (tol {atol:.2e} + {rtol:g}·|plain|, mean |plain| "
+            f"{size:.3f}) {ms:.4f} ms; planted control without the mask: "
+            f"max |diff| {ctrl_err:.3e}, "
+            f"{'passes' if ctrl_ok else 'fails'}")
         if not ok:
             raise AssertionError(f"flash attention disagrees at T={T}: "
                                  f"max |diff| {err}")
@@ -593,35 +647,54 @@ def _kernel_params(out, model) -> set:
 def _grad_check(model, x, t, r):
     """One eval and loss.backward() with grad on: (parameters with no
     gradient, with a non-finite one, upstream of a kernel call, launches
-    of the two kernels in the eval)."""
+    of the kernels in the eval and its backward)."""
     import torch
     from ipdm_tpu_torch.ops.cuda import _build
 
     model.zero_grad(set_to_none=True)
     before = dict(_build.LAUNCHES)
     out = model(x, t)
-    launches = {k: _build.LAUNCHES[k] - before[k]
-                for k in ("planar_unit", "flash_attn")}
     up = _kernel_params(out, model)
     loss = (out.float() * r).sum()
     if loss.requires_grad:   # else no path reaches any parameter
         loss.backward()
     torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] - before[k] for k in
+                ("planar_unit", "flash_attn", "flash_attn_f32",
+                 "flash_bwd_dq", "flash_bwd_dkv")}
     missing = [n for n, p in model.named_parameters() if p.grad is None]
     bad = [n for n, p in model.named_parameters()
            if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
     return missing, bad, up, launches
 
 
-def phase_grad(models, ld_proj, seed: int) -> None:
+def recompute_backward(ctx, grad_out):
+    """The flash Function's former backward, the plain path the backward
+    kernels replace: recompute attention_plain on the saved q, k, v and
+    take its vector-Jacobian product. Timed beside the kernels."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    q, k, v = ctx.saved_tensors[:3]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention.attention_plain(*leaves, ctx.scale)
+        grads = torch.autograd.grad(out, leaves, grad_out)
+    return (*grads, None)
+
+
+def phase_grad(models, ld_proj, seed: int):
     """Gradients through the hand kernels: one proj UNet eval (2000×912)
     and one img UNet eval (512²) at B = 1, bf16 activations, followed by
-    loss.backward(); every parameter must get a finite gradient. Beside
-    it a planted control, the same check with the kernels called outside
-    their autograd.Function (the bare forward), which must find
-    parameters with no gradient; then a small f32 UNet's parameter
-    gradients on the card (kernel forward) against the CPU's (plain); and
-    the time of forward + backward per eval beside the forward alone."""
+    loss.backward() through the flash backward kernels; every parameter
+    must get a finite gradient. Beside it a planted control, the same
+    check with the kernels called outside their autograd.Function (the
+    bare forward), which must find parameters with no gradient; then a
+    small f32 UNet's parameter gradients on the card (kernel forward)
+    against the CPU's (plain); and the time of forward + backward per eval
+    beside the forward alone and beside forward + the recomputed backward
+    (in the same call). Returns the flash backward's recorded
+    inputs, one call per UNet (T = 7125 and 4096, bf16)."""
     import torch
     from ipdm_tpu_torch.models import unet
     from ipdm_tpu_torch.models.unet import UNetModel
@@ -633,18 +706,23 @@ def phase_grad(models, ld_proj, seed: int) -> None:
              ("img", img_model, torch.rand((1, 1, 512, 512), device="cuda",
                                            generator=gen)))
     t = torch.full((1,), 7, dtype=torch.long, device="cuda")
+    bwd_calls = []
     for name, model, x in cases:
         r = torch.randn(x.shape, device="cuda", generator=gen)
-        missing, bad, up, launches = _grad_check(model, x, t, r)
+        with Recorder(attention, "flash_bwd_dq", limit=1) as rec:
+            missing, bad, up, launches = _grad_check(model, x, t, r)
+        bwd_calls += rec.calls
         nparam = sum(1 for _ in model.parameters())
         log(f"grad: {name} UNet {tuple(x.shape[2:])} bf16, B=1: "
             f"{nparam} parameters, {nparam - len(missing)} with a "
             f"gradient, {len(bad)} non-finite; {len(up)} upstream of a "
-            f"kernel call; launches in the eval {launches}"
+            f"kernel call; launches in the eval and its backward "
+            f"{launches}"
             + (f"; no gradient: {missing[:8]}" if missing else "")
             + (f"; non-finite: {bad[:8]}" if bad else ""))
-        ran = launches["flash_attn"] and (launches["planar_unit"]
-                                          or name == "img")
+        ran = (launches["flash_attn"] and launches["flash_bwd_dq"]
+               and launches["flash_bwd_dkv"]
+               and (launches["planar_unit"] or name == "img"))
         if missing or bad or not up or not ran:
             raise AssertionError(f"grad: the {name} UNet's gradients: "
                                  f"{len(missing)} missing, {len(bad)} "
@@ -670,15 +748,25 @@ def phase_grad(models, ld_proj, seed: int) -> None:
             (model(x, t).float() * r).sum().backward()
 
         both = cuda_ms(step, 3, warmup=1)
+        kernel_bwd = attention._FlashAttention.backward
+        attention._FlashAttention.backward = staticmethod(recompute_backward)
+        try:
+            both_recompute = cuda_ms(step, 3, warmup=1)
+        finally:
+            attention._FlashAttention.backward = kernel_bwd
         with torch.inference_mode():
             infer = cuda_ms(lambda: model(x, t), 3, warmup=1)
         log(f"grad: {name} UNet eval {infer:.3f} ms under inference_mode, "
             f"{fwd:.3f} ms with grad on, forward + backward {both:.3f} ms "
-            f"({both / infer:.2f}× the inference eval)")
+            f"({both / infer:.2f}× the inference eval) with the flash "
+            f"backward kernels, {both_recompute:.3f} ms "
+            f"({both_recompute / infer:.2f}×) with the recomputed "
+            f"backward")
         model.zero_grad(set_to_none=True)
 
-    # a small f32 UNet (planar units on its two shallow levels; flash takes
-    # bf16 only, so none here): the card's gradients against the CPU's
+    # a small f32 UNet (planar units on its two shallow levels; its
+    # attention is short, so no flash): the card's gradients against the
+    # CPU's
     torch.manual_seed(seed)
     small = UNetModel(in_channels=1, model_channels=16, out_channels=1,
                       num_res_blocks=1, attention_resolutions=(4,),
@@ -720,6 +808,7 @@ def phase_grad(models, ld_proj, seed: int) -> None:
     if not worst <= 1.0:
         raise AssertionError(f"grad: small UNet's gradients differ: {worst} "
                              f"of the tolerance in {where}")
+    return bwd_calls
 
 
 def phase_reference(seed: int) -> None:
@@ -1581,7 +1670,34 @@ def _convert_bf16(vol, fan, seed: int):
                              f"bf16 − f32 {gap}, PSNR {psnr(bf16)}")
     if launches["os_sart_sweep_bf16"] <= 0 or launches["os_sart_sweep"]:
         raise AssertionError(f"the bf16 convert's sweeps: {launches}")
+    _psnr_two_ways(pj, f32, ref, g)
     return launches
+
+
+def _psnr_two_ways(pj, f32, ref, g) -> None:
+    """The OS-SART convert's PSNR against the phantoms scored both ways
+    (a measurement, ROADMAP Queue 3): with peak = max μ over μ, as above,
+    and as the engine scores (miu2pixel images, data_range = 1), for this
+    phase's convert (10 sweeps of 40 subsets) and for the engine corpus's
+    (4 sweeps of 18 subsets) of the same four sinograms."""
+    import torch
+    from ipdm_tpu_torch.data.units import miu2pixel
+    from ipdm_tpu_torch.metrics import psnr
+    from ipdm_tpu_torch.recon import sart_fast
+
+    with torch.inference_mode():
+        corpus = sart_fast.sart_fast_convert(pj, g, nstart=4, nsubsets=18)
+    refs = [r.cpu().numpy().astype(np.float64) for r in ref]
+    for label, conv in (("10 sweeps of 40 subsets", f32),
+                        ("4 sweeps of 18 subsets (the corpus's)", corpus)):
+        imgs = [c.cpu().numpy().astype(np.float64) for c in conv]
+        by_mu = [round(psnr(r, c, data_range=float(r.max())), 4)
+                 for r, c in zip(refs, imgs)]
+        by_px = [round(psnr(miu2pixel(r), miu2pixel(c), data_range=1), 4)
+                 for r, c in zip(refs, imgs)]
+        log(f"record-FP: OS-SART PSNR against the phantoms, {label} (2 "
+            f"full dose, 2 at dose {DOSE}): peak = max μ {by_mu} dB; the "
+            f"engine's miu2pixel, data_range=1: {by_px} dB")
 
 
 def phase_kernels_fp(fp_calls, art_calls, reps):
@@ -1774,12 +1890,12 @@ def _check_metric_file(path, want_counts, names):
     return m
 
 
-def phase_engine(seed: int):
-    """The example's steps at full width from files on disk: corpus,
-    checkpoints, ``ProgressiveDomainDenoiser(...).fit()`` in test_prog
-    mode. Returns the launches of that run, those of the FBP slice that
-    follows through update_opt, bp_shift_accumulate's calls in it, and
-    the corpus's os_sart_sweep calls (one image each)."""
+def phase_engine(seed: int, out: str):
+    """The example's steps at full width from files on disk under
+    ``out``: corpus, checkpoints, ``ProgressiveDomainDenoiser(...).fit()``
+    in test_prog mode. Returns the launches of that run, those of the FBP
+    slice that follows through update_opt, bp_shift_accumulate's calls in
+    it, and the corpus's os_sart_sweep calls (one image each)."""
     import torch
     from ipdm_tpu_torch.config.config import IPDMConfig
     from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
@@ -1790,112 +1906,111 @@ def phase_engine(seed: int):
     ex = _example()
     names = ["psnr", "ssim", "fsim", "vif", "nqm"]
     n_slices = 2
-    with tempfile.TemporaryDirectory(prefix="ipdm_engine_") as out:
-        sart_fast._SPLANS.clear()     # a user's first run builds the plans
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        with Recorder(sart_fast, "os_sart_sweep") as corpus:
-            ex.build_dataset(out, n_slices, 512, DOSE, seed=seed)
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
-        cfg = dict(ART_SLICE_OPT, mode="test_prog", run_name="chip_smoke",
-                   device="cuda", seed=seed, metrics=names, test_numbers=0,
-                   save_it_state_proj=True, save_it_state_img=False,
-                   **ex.dataset_paths(out))
-        ckpt_dir = ex.write_checkpoints(out, IPDMConfig(**cfg), seed=seed)
-        opt = IPDMConfig(resume_epochs_img=1, resume_epochs_proj=1,
-                         load_img_model_path=ckpt_dir,
-                         load_proj_model_path=ckpt_dir, **cfg)
-        t0 = time.perf_counter()
-        eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        for domain, model in (("img", eng.img_model),
-                              ("proj", eng.proj_model)):
-            saved = torch.load(osp.join(ckpt_dir, f"{domain}_model-1"),
-                               weights_only=True)
-            init = build_unet(opt, domain, device="cuda").state_dict()
-            state = model.state_dict()
-            same = all(torch.equal(state[k].cpu(), v)
-                       for k, v in saved.items())
-            fresh = all(torch.equal(state[k], init[k]) for k in state)
-            if not same or fresh or state.keys() != saved.keys():
-                raise AssertionError(f"{domain}_model-1 was not loaded "
-                                     f"(equals the file: {same}, equals a "
-                                     f"new model: {fresh})")
-        t0 = time.perf_counter()
-        eng.fit()
-        torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"engine: corpus of {n_slices} slices 512² (phantom → "
-            f"project_fast → add_noise dose {DOSE} → OS-SART 4 sweeps) "
-            f"{t_build:.3f} s; engine built and 2 checkpoints loaded "
-            f"{t_init:.3f} s; fit() {t_fit:.3f} s; launches {launches}; "
-            f"peak memory {peak:.2f} GiB")
-        missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched by the engine's "
-                                 f"run: {missing}")
-        counts = dict(LDCT=1, deProj=4, deProg=1)
-        root = osp.join(eng.save_root_path, "Save_Iter_0")
-        for i in range(n_slices):
-            m = _check_metric_file(
-                osp.join(root, "P001", f"{i:04d}", "metric.json"), counts,
-                names)
-            log(f"engine: slice {i:04d}: LDCT " + ", ".join(
-                f"{nm} {m['LDCT'][nm + '_iter_0']:.4f}" for nm in names)
-                + f"; deProj iter 4 psnr {m['deProj']['psnr_iter_4']:.4f}; "
-                f"deProg psnr {m['deProg']['psnr_iter_1']:.4f} ssim "
-                f"{m['deProg']['ssim_iter_1']:.4f}")
-        agg = _check_metric_file(osp.join(root, "metric.json"), counts,
-                                 names)
-        ld = agg["LDCT"]["psnr_iter_0"]
-        log(f"engine: aggregate LDCT PSNR {ld:.4f} dB (std "
-            f"{agg['LDCT']['psnr_iter_0_std']:.4f}), deProg PSNR "
-            f"{agg['deProg']['psnr_iter_1']:.4f} dB (random weights: it "
-            f"need not beat the low dose)")
-        if not 15.0 < ld < 60.0:
-            raise AssertionError(f"LDCT PSNR {ld} dB outside 15-60 dB")
-        if not osp.exists(osp.join(eng.logger.models_save_dir,
-                                   "option.json")):
-            raise AssertionError("option.json was not written")
-        tm = eng.timer
-        log(f"engine: [phases] {tm.report()}")
-        per = {k: tm.totals[k] / n_slices for k in tm.totals}
-        denoise = per["proj_stage+convert"] + per["img_stage"]
-        log(f"engine: s/slice of the test loop over {n_slices} slices (the "
-            f"first builds the OS-SART plan): denoise {denoise:.4f} "
-            f"(proj stage + convert {per['proj_stage+convert']:.4f}, img "
-            f"stage {per['img_stage']:.4f}), metrics on the host "
-            f"{per['metrics']:.4f} (6 images × 5 metrics), saving "
-            f"{per['save']:.4f}, loading {per['load']:.4f}; fit() "
-            f"{t_fit / n_slices:.4f}")
+    sart_fast._SPLANS.clear()     # a user's first run builds the plans
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(sart_fast, "os_sart_sweep") as corpus:
+        ex.build_dataset(out, n_slices, 512, DOSE, seed=seed)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    cfg = dict(ART_SLICE_OPT, mode="test_prog", run_name="chip_smoke",
+               device="cuda", seed=seed, metrics=names, test_numbers=0,
+               save_it_state_proj=True, save_it_state_img=False,
+               **ex.dataset_paths(out))
+    ckpt_dir = ex.write_checkpoints(out, IPDMConfig(**cfg), seed=seed)
+    opt = IPDMConfig(resume_epochs_img=1, resume_epochs_proj=1,
+                     load_img_model_path=ckpt_dir,
+                     load_proj_model_path=ckpt_dir, **cfg)
+    t0 = time.perf_counter()
+    eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    for domain, model in (("img", eng.img_model),
+                          ("proj", eng.proj_model)):
+        saved = torch.load(osp.join(ckpt_dir, f"{domain}_model-1"),
+                           weights_only=True)
+        init = build_unet(opt, domain, device="cuda").state_dict()
+        state = model.state_dict()
+        same = all(torch.equal(state[k].cpu(), v)
+                   for k, v in saved.items())
+        fresh = all(torch.equal(state[k], init[k]) for k in state)
+        if not same or fresh or state.keys() != saved.keys():
+            raise AssertionError(f"{domain}_model-1 was not loaded "
+                                 f"(equals the file: {same}, equals a "
+                                 f"new model: {fresh})")
+    t0 = time.perf_counter()
+    eng.fit()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"engine: corpus of {n_slices} slices 512² (phantom → "
+        f"project_fast → add_noise dose {DOSE} → OS-SART 4 sweeps) "
+        f"{t_build:.3f} s; engine built and 2 checkpoints loaded "
+        f"{t_init:.3f} s; fit() {t_fit:.3f} s; launches {launches}; "
+        f"peak memory {peak:.2f} GiB")
+    missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the engine's "
+                             f"run: {missing}")
+    counts = dict(LDCT=1, deProj=4, deProg=1)
+    root = osp.join(eng.save_root_path, "Save_Iter_0")
+    for i in range(n_slices):
+        m = _check_metric_file(
+            osp.join(root, "P001", f"{i:04d}", "metric.json"), counts,
+            names)
+        log(f"engine: slice {i:04d}: LDCT " + ", ".join(
+            f"{nm} {m['LDCT'][nm + '_iter_0']:.4f}" for nm in names)
+            + f"; deProj iter 4 psnr {m['deProj']['psnr_iter_4']:.4f}; "
+            f"deProg psnr {m['deProg']['psnr_iter_1']:.4f} ssim "
+            f"{m['deProg']['ssim_iter_1']:.4f}")
+    agg = _check_metric_file(osp.join(root, "metric.json"), counts,
+                             names)
+    ld = agg["LDCT"]["psnr_iter_0"]
+    log(f"engine: aggregate LDCT PSNR {ld:.4f} dB (std "
+        f"{agg['LDCT']['psnr_iter_0_std']:.4f}), deProg PSNR "
+        f"{agg['deProg']['psnr_iter_1']:.4f} dB (random weights: it "
+        f"need not beat the low dose)")
+    if not 15.0 < ld < 60.0:
+        raise AssertionError(f"LDCT PSNR {ld} dB outside 15-60 dB")
+    if not osp.exists(osp.join(eng.logger.models_save_dir,
+                               "option.json")):
+        raise AssertionError("option.json was not written")
+    tm = eng.timer
+    log(f"engine: [phases] {tm.report()}")
+    per = {k: tm.totals[k] / n_slices for k in tm.totals}
+    denoise = per["proj_stage+convert"] + per["img_stage"]
+    log(f"engine: s/slice of the test loop over {n_slices} slices (the "
+        f"first builds the OS-SART plan): denoise {denoise:.4f} "
+        f"(proj stage + convert {per['proj_stage+convert']:.4f}, img "
+        f"stage {per['img_stage']:.4f}), metrics on the host "
+        f"{per['metrics']:.4f} (6 images × 5 metrics), saving "
+        f"{per['save']:.4f}, loading {per['load']:.4f}; fit() "
+        f"{t_fit / n_slices:.4f}")
 
-        # one more slice through update_opt: FBP with the default
-        # save_it_state_proj=False, so one iteration is converted and the
-        # fast FBP backprojects a single sinogram
-        eng.update_opt(dict(convertor="FBP", save_it_state_proj=False,
-                            ultra_img_denoise=False,
-                            metrics=["psnr", "ssim"], test_numbers=1))
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        with Recorder(fbp_fast, "bp_shift_accumulate") as bp1:
-            eng.test(1)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        fbp_one = dict(_build.LAUNCHES)
-        psnr = eng.metric_total["deProg"]["psnr_iter_1"]
-        log(f"engine: update_opt → FBP, one converted iteration: one slice "
-            f"{dt:.3f} s, deProg PSNR {psnr:.4f} dB, launches {fbp_one}")
-        if (fbp_one["bp_shift_accumulate"] != len(bp1.calls)
-                or not bp1.calls or not math.isfinite(psnr)):
-            raise AssertionError(f"FBP, one converted iteration: "
-                                 f"bp_shift_accumulate launched "
-                                 f"{fbp_one['bp_shift_accumulate']} times, "
-                                 f"{len(bp1.calls)} recorded, PSNR {psnr}")
+    # one more slice through update_opt: FBP with the default
+    # save_it_state_proj=False, so one iteration is converted and the
+    # fast FBP backprojects a single sinogram
+    eng.update_opt(dict(convertor="FBP", save_it_state_proj=False,
+                        ultra_img_denoise=False,
+                        metrics=["psnr", "ssim"], test_numbers=1))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(fbp_fast, "bp_shift_accumulate") as bp1:
+        eng.test(1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fbp_one = dict(_build.LAUNCHES)
+    psnr = eng.metric_total["deProg"]["psnr_iter_1"]
+    log(f"engine: update_opt → FBP, one converted iteration: one slice "
+        f"{dt:.3f} s, deProg PSNR {psnr:.4f} dB, launches {fbp_one}")
+    if (fbp_one["bp_shift_accumulate"] != len(bp1.calls)
+            or not bp1.calls or not math.isfinite(psnr)):
+        raise AssertionError(f"FBP, one converted iteration: "
+                             f"bp_shift_accumulate launched "
+                             f"{fbp_one['bp_shift_accumulate']} times, "
+                             f"{len(bp1.calls)} recorded, PSNR {psnr}")
     return launches, fbp_one, bp1.calls, corpus.calls
 
 
@@ -2000,6 +2115,595 @@ def phase_kernels_bp1(calls, norm_calls, reps):
     return rows
 
 
+TRAIN_STEPS = 10   # per train run: 2 slices × 5 epochs at batch 1
+TRAIN_SAVE_FREQ = 5
+# kernels each train run's main path must launch; planar_unit only in the
+# proj UNet (the img UNet has no planar level)
+TRAIN_KERNELS = {"img": ("flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv"),
+                 "proj": ("flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv",
+                          "planar_unit")}
+
+
+def _train_preset(domain: str) -> dict:
+    """Config/Mayo-Config/train_{domain}_option.json as a dict."""
+    path = osp.join(osp.dirname(osp.abspath(__file__)), "Config",
+                    "Mayo-Config", f"train_{domain}_option.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _train_run(domain: str, out: str, seed: int, paths: dict):
+    """``ProgressiveDomainDenoiser(...).fit()`` in train_{domain} mode on
+    the engine phase's corpus at the preset's widths and dtype, with each
+    train() call timed and its launches and peak memory read; returns
+    (engine, per-step records, the run's launches, s of fit())."""
+    import torch
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    opt = IPDMConfig().merge(_train_preset(domain))
+    opt.merge(dict(device="cuda", seed=seed, display_result=False,
+                   max_epochs=TRAIN_STEPS // 2, save_freq=TRAIN_SAVE_FREQ,
+                   test_numbers=1, metrics=["psnr", "ssim"],
+                   run_name=f"chip_smoke_train_{domain}", **paths))
+    eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
+    steps = []
+    train = eng.train
+
+    def timed(inputs, n_iter, loss_temp):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = train(inputs, n_iter, loss_temp)   # reads the loss back
+        torch.cuda.synchronize()
+        steps.append(dict(
+            s=time.perf_counter() - t0, loss=loss,
+            peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k: _build.LAUNCHES[k] - before[k] for k in before
+                      if _build.LAUNCHES[k] - before[k]}))
+        return loss
+
+    eng.train = timed
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.fit()
+    torch.cuda.synchronize()
+    return eng, steps, dict(_build.LAUNCHES), time.perf_counter() - t0
+
+
+def phase_train(seed: int, out: str):
+    """train_img, then train_proj, through the engine at the shipped train
+    presets' widths and dtype (f32; img mc 64, channel_mult (1, 1, 2, 2,
+    4, 4), attention at 8 / 16, B = 1, 512²; proj 2000×912, 12 planar
+    units and 5 flash blocks per eval), on the engine phase's corpus (its
+    full-dose images and sinograms; both slices are the test set too),
+    10 steps each, checkpoints and test(it) every 5 steps with one test
+    slice, PSNR / SSIM only; the PNG grids (display_result, which
+    train_proj's preset sets) are not ported yet. Each step's loss, warm
+    s/step, peak memory of a step, the kernels' launches per step, the
+    checkpoint files and the scalars.jsonl lines; then a resume from
+    optimizer-1, whose Adam state must equal the file's. Returns the
+    recorded inputs of the f32 flash forward and backward (the first
+    calls of each run: T = 4096, then 7125) and each run's launches."""
+    import torch
+
+    ex = _example()
+    paths = ex.dataset_paths(out)
+    fwd_calls, bwd_calls, runs = [], [], {}
+    log("train: display_result=False: the PNG grids are ported with a "
+        "later slice (ROADMAP Queue 1 item 3); metrics psnr, ssim")
+    # as main_torch.py trains: PyTorch's default precision (convolutions
+    # through cuDNN in TF32, matmuls in f32), which the kernel checks above
+    # turned off
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _train_runs(seed, out, paths, fwd_calls, bwd_calls, runs)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _train_runs(seed, out, paths, fwd_calls, bwd_calls, runs):
+    """:func:`phase_train`'s two runs and their checks."""
+    import torch
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    for domain in ("img", "proj"):
+        with Recorder(attention, "_forward", limit=1) as fwd, \
+                Recorder(attention, "flash_bwd_dq", limit=1) as bwd:
+            eng, steps, launches, t_fit = _train_run(domain, out, seed,
+                                                     paths)
+        fwd_calls += fwd.calls
+        bwd_calls += bwd.calls
+        runs[domain] = launches
+        losses = [st["loss"] for st in steps]
+        warm = [st["s"] for st in steps[1:]]
+        per_step = steps[-1]["launches"]
+        models = eng.logger.models_save_dir
+        files = sorted(os.listdir(models))
+        with open(osp.join(eng.save_root, "trainSummary",
+                           "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        log(f"train: {domain}, {eng.opt.compute_dtype}, "
+            f"{len(steps)} steps: losses "
+            + ", ".join(f"{x:.5f}" for x in losses))
+        log(f"train: {domain}: warm {sum(warm) / len(warm):.4f} s/step "
+            f"(steps 2-{len(steps)}, host clock ended by "
+            f"torch.cuda.synchronize(); first step {steps[0]['s']:.4f} s); "
+            f"peak memory of a step {max(st['peak'] for st in steps):.2f} "
+            f"GiB; launches per step {per_step}; fit() {t_fit:.3f} s "
+            f"(with 2 × test(it) of one slice); launches in the run "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"train: {domain}: checkpoints {files}; scalars.jsonl "
+            f"{len(scalars)} lines, tags "
+            f"{sorted({d['tag'] for d in scalars})}")
+        want_files = {f"{domain}_model-{i}" for i in (1, 2)} | {
+            f"optimizer-{i}" for i in (1, 2)}
+        missing = [k for k in TRAIN_KERNELS[domain] if per_step.get(k, 0)
+                   <= 0]
+        if (len(steps) != TRAIN_STEPS
+                or not all(math.isfinite(x) for x in losses)
+                or not want_files <= set(files) or missing
+                or not any(d["tag"] == "train/loss" for d in scalars)):
+            raise AssertionError(f"train {domain}: {len(steps)} steps, "
+                                 f"losses {losses}, files {files}, "
+                                 f"kernels not launched in a step "
+                                 f"{missing}")
+        mode = "deImg" if domain == "img" else "deProj2img"
+        for it in (1, 2):
+            with open(osp.join(eng.save_root_path, f"Save_Iter_{it}",
+                               "metric.json")) as f:
+                m = json.load(f)
+            vals = [v for k, v in m[mode].items() if k.startswith("psnr")
+                    and not k.endswith("_std")]
+            log(f"train: {domain}: test({it}) on the trained weights: "
+                f"{mode} PSNR {[round(v, 4) for v in vals]} dB, LDCT "
+                f"{m['LDCT']['psnr_iter_0']:.4f} dB")
+            if not vals or not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"train {domain}: test({it}) scored "
+                                     f"{vals}")
+        if domain == "img":
+            # resume from optimizer-1: Adam's state equal to the file's
+            cfg = dict(eng.opt.to_dict(), resume_epochs_img=1,
+                       load_img_model_path=models,
+                       run_name="chip_smoke_resume")
+            eng2 = ProgressiveDomainDenoiser(IPDMConfig(**cfg),
+                                             result_save_path=out)
+            saved = torch.load(osp.join(models, "optimizer-1"),
+                               weights_only=True)["state"]
+            got = eng2.optimizer.state_dict()["state"]
+            same = got.keys() == saved.keys() and all(
+                torch.equal(got[i][k].cpu(), v[k]) for i, v in saved.items()
+                for k in ("step", "exp_avg", "exp_avg_sq"))
+            step = int(saved[0]["step"])
+            log(f"train: img: resume from optimizer-1: Adam's moments and "
+                f"step equal to the file's: {same}; step {step}; resume_iter "
+                f"{eng2.opt.resume_iter}")
+            if not same or step <= 0:
+                raise AssertionError(f"resume: state equal {same}, step "
+                                     f"{step}")
+            del eng2
+        del eng
+    return fwd_calls, bwd_calls, runs
+
+
+def _bwd_stats(dtype_name, q, k, v, out, lse, do, scale, reps):
+    """flash_bwd_dq and flash_bwd_dkv on one recorded input (the forward
+    kernel's out and lse, as the main path hands them) against
+    attention_bwd_plain: per tensor |kernel − plain| over its tolerance
+    (bf16: 2e-2·max|plain| + 2e-2·|plain|; f32: 1e-4·max|plain| +
+    1e-3·|plain|), two launches bit-equal, the planted D-dropped dK. The
+    recorded out and lse are held to the plain forward's (out at the
+    forward's rule, :func:`flash_tol`; lse by :func:`lse_check`, with the
+    forward run again: its lse bit-equal to the recorded one). In f32 the
+    plain backward runs on the plain forward's out and lse; in bf16 on
+    the kernel's, the backward's own inputs: the two bf16 forwards round
+    out at different points (normalised P or not), and D = rowsum(dO∘O)
+    carries that into dq, whose Σ_j dS_ij = 0 cancels (from the plain
+    forward's out and lse, dq misses the rule at T = 4096 on an H100).
+    Also the times of the kernels, the plain backward, the
+    recomputed backward and SDPA forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    _, lse2 = attention._forward(q, k, v, scale, with_lse=True)
+    repeat_check("flash forward lse", lse, lse2)
+    lse_over, lse_ctrl = lse_check(lse, q, k, scale, dtype_name)
+    pout, plse = attention.attention_lse_plain(q, k, v, scale)
+    rtol, atol = flash_tol(pout, dtype_name)
+    ok, out_err = _within(out, pout, rtol, atol)
+    if not ok:
+        raise AssertionError(f"flash forward out at T={q.shape[1]} "
+                             f"{dtype_name}: max |diff| {out_err}")
+    dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+    dq2, D2 = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk2, dv2 = attention.flash_bwd_dkv(q, k, v, lse, do, D2, scale)
+    for name, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        repeat_check(f"flash_bwd {name}", a, b)
+    fwd = (out, lse) if dtype_name == "bfloat16" else (pout, plse)
+    want = attention.attention_bwd_plain(q, k, v, *fwd, do, scale)
+    del pout, plse
+    rel, share = BWD_TOL[dtype_name]
+    over = dict(lse=lse_over)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        tol = share * float(w.float().abs().max()) + rel * w.float().abs()
+        over[name] = float(((g.float() - w.float()).abs() / tol).max())
+    ctrl_dk, _ = attention.flash_bwd_dkv(q, k, v, lse, do,
+                                         torch.zeros_like(D), scale)
+    tol = share * float(want[1].float().abs().max()) + rel * want[1].float(
+        ).abs()
+    ctrl = float(((ctrl_dk.float() - want[1].float()).abs() / tol).max())
+    torch.cuda.synchronize()
+    err = {n: float((g.float() - w.float()).abs().max())
+           for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    BH, T, hd = q.shape
+    slow = max(2, reps // 4)
+    q4, k4, v4 = (t_.detach().view(1, BH, T, hd).requires_grad_()
+                  for t_ in (q, k, v))
+    do4 = do.view(1, BH, T, hd)
+
+    def sdpa():
+        with torch.enable_grad():
+            o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                scale=scale * scale)
+            torch.autograd.grad(o4, (q4, k4, v4), do4)
+
+    def recompute():
+        with torch.enable_grad():
+            leaves = [t_.detach().requires_grad_() for t_ in (q, k, v)]
+            o = attention.attention_plain(*leaves, scale)
+            torch.autograd.grad(o, leaves, do)
+
+    t = dict(dq_ms=cuda_ms(lambda: attention.flash_bwd_dq(
+                 q, k, v, out, lse, do, scale), reps),
+             dkv_ms=cuda_ms(lambda: attention.flash_bwd_dkv(
+                 q, k, v, lse, do, D, scale), reps),
+             plain_ms=cuda_ms(lambda: attention.attention_bwd_plain(
+                 q, k, v, out, lse, do, scale), slow),
+             recompute_ms=cuda_ms(recompute, slow),
+             library_ms=cuda_ms(sdpa, reps))
+    err["out"] = out_err
+    return over, err, dict(dk=ctrl, lse=lse_ctrl), t
+
+
+# the forward's lse against the plain one: |Δ| ≤ ε·R + T·2⁻²³ per row,
+# ε per activation dtype (see lse_check)
+LSE_EPS = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -16}
+
+
+def lse_check(lse, q, k, scale, dtype_name):
+    """The forward kernel's lse against attention_lse_plain's, per row
+    |Δ| ≤ ε·R_i + T·2⁻²³, with R_i = Σ_j P_ij Σ_d |q_id·s|·|k_jd·s| the
+    softmax-weighted size of the scores, which bounds (to first order) how
+    far rounding the scores by a relative ε moves the lse. The plain
+    version rounds q·s and k·s to the activation dtype and the kernel
+    applies s² to the f32 score: 2⁻⁸ apart in bf16, each f32 sum of 64
+    products adds up to 64·2⁻²⁴; ε is twice their sum (:data:`LSE_EPS`).
+    T·2⁻²³: twice the worst rounding of the f32 sum of T exponentials.
+    Returns (the largest |Δ| over its bound, the same for a planted
+    control, the kernel's lse in log2 units), raising if the lse misses
+    its bound or the control meets it."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    s = attention._scores(q, k, scale)
+    plse = torch.logsumexp(s, -1)
+    p = torch.softmax(s, -1)
+    del s
+    acc = attention._acc
+    R = (acc(q * scale).abs()
+         * torch.matmul(p, acc(k * scale).abs())).sum(-1)
+    del p
+    tol = LSE_EPS[dtype_name] * R + q.shape[1] * 2.0 ** -23
+    over = float(((lse - plse).abs() / tol).max())
+    ctrl = float(((lse * math.log2(math.e) - plse).abs() / tol).max())
+    if over > 1.0 or ctrl <= 1.0:
+        raise AssertionError(f"flash forward lse [{tuple(q.shape)}] "
+                             f"{dtype_name}: {over} of its bound, the "
+                             f"log2-units control at {ctrl}")
+    return over, ctrl
+
+
+# flash backward tolerance per dtype, (rtol, atol as a share of the
+# tensor's max|plain|): bf16 as the forward's rule scaled to each
+# tensor's largest entry; f32 the grad phase's rule
+BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-3, 1e-4)}
+
+
+def bwd_ragged(reps):
+    """The backward kernels at T = 7125 on the forward's ragged inputs
+    (q ≈ +1, k ≈ −1: live scores ≈ −8, so a key past T that escaped a
+    mask, score 0, would dominate), in both dtypes, with the forward
+    kernel's out and lse (its lse held to :func:`lse_check`), at the main
+    path's rule (:data:`BWD_TOL`): bf16 against the plain backward on the
+    same inputs, as in :func:`_bwd_stats`. In f32 these inputs make dq a
+    cancellation (Σ_j dS_ij = 0 exactly, and with k_j ≈ −1 the terms'
+    common part cancels), so the f32 reference is the plain forward and
+    backward in f64 on the same q, k, v, dO, and the f32 plain forward
+    and backward is held to it beside the kernels as a second witness
+    (rule: :data:`RAGGED_F32_EPS`). Planted controls that must
+    fail the same check: the plain forward and backward on K and V
+    zero-padded to whole 64-key tiles (the kernels with the last key tile
+    unmasked), and the dK kernel with D dropped from dS."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
+    T, hd = 7125, attention.HEAD_DIM
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+
+        def rnd(mean, sd):
+            return (mean + sd * torch.randn((4, T, hd), generator=gen,
+                                            device="cuda")).to(dtype)
+        q, k, do = rnd(1.0, 0.25), rnd(-1.0, 0.25), rnd(0.0, 1.0)
+        v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1), 0.5)
+        out, lse = attention._forward(q, k, v, scale, with_lse=True)
+        lse_over, lse_ctrl = lse_check(lse, q, k, scale, dtype_name)
+        dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+        dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+        ctrl_dk, _ = attention.flash_bwd_dkv(q, k, v, lse, do,
+                                             torch.zeros_like(D), scale)
+        if dtype_name == "float32":
+            ins = [t_.double() for t_ in (q, k, v, do)]
+            out64, lse64 = attention.attention_lse_plain(*ins[:3], scale)
+            want = attention.attention_bwd_plain(*ins[:3], out64, lse64,
+                                                 ins[3], scale)
+            sizes = _bwd_sizes(*ins, out64, lse64, scale)
+            del out64, lse64
+            plain = attention.attention_bwd_plain(
+                q, k, v, *attention.attention_lse_plain(q, k, v, scale), do,
+                scale)
+            ref = "the f64 plain forward and backward"
+        else:  # on the kernel's out and lse, as in _bwd_stats
+            want = attention.attention_bwd_plain(q, k, v, out, lse, do,
+                                                 scale)
+            ref = "the bf16 plain backward on the kernel's out and lse"
+        pad = torch.zeros((4, -T % 64, hd), dtype=dtype, device="cuda")
+        kp, vp = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
+        # what the kernels compute without the mask: the forward's lse
+        # and out over the dead keys too, then the backward over them
+        got_p = [g[:, :T] for g in attention.attention_bwd_plain(
+            q, kp, vp, *attention.attention_lse_plain(q, kp, vp, scale),
+            do, scale)]
+        want = [w.to(torch.promote_types(w.dtype, torch.float32))
+                for w in want]
+        rel, share = BWD_TOL[dtype_name]
+        rules = [share * float(w.abs().max()) + rel * w.abs() for w in want]
+        tols = rules
+        rule = f"{share:g}·max|ref| + {rel:g}·|ref|"
+        if dtype_name == "float32":
+            tols = [r + RAGGED_F32_EPS * z for r, z in zip(rules, sizes)]
+            rule += " + 2⁻²⁰·Σ|terms before the cancellation|"
+        torch.cuda.synchronize()
+
+        def over(got, i, tol=tols):
+            return float(((got.to(want[i].dtype) - want[i]).abs()
+                          / tol[i]).max())
+
+        res = [over(g, i) for i, g in enumerate((dq, dk, dv))]
+        ctrl = max(over(g, i) for i, g in enumerate(got_p))
+        ctrl_d = over(ctrl_dk, 1)
+        err = [float((g.to(w.dtype) - w).abs().max())
+               for g, w in zip((dq, dk, dv), want)]
+        witness, ctrl_r = "", math.inf
+        if dtype_name == "float32":
+            wit = [over(g, i) for i, g in enumerate(plain)]
+            alone = [over(g, i, rules) for grads in ((dq, dk, dv), plain)
+                     for i, g in enumerate(grads)]
+            ctrl_r = max(over(g, i) for i, g in enumerate(
+                _bwd_rounded_ds(q, k, v, do, scale)))
+            witness = (f"; the f32 plain backward at {wit[0]:.3f} / "
+                       f"{wit[1]:.3f} / {wit[2]:.3f} of the same tolerance; "
+                       f"against the relative rule alone the kernels at "
+                       f"{alone[0]:.3f} / {alone[1]:.3f} / {alone[2]:.3f}, "
+                       f"the f32 plain at {alone[3]:.3f} / {alone[4]:.3f} / "
+                       f"{alone[5]:.3f}; planted control, the f32 plain "
+                       f"with dS rounded to bf16: {ctrl_r:.2f}×")
+        log(f"kernels-train: flash_bwd ragged [4,{T},64] "
+            f"{SHORT[dtype_name]} (live scores ≈ −8, {-T % 64} dead keys; "
+            f"reference {ref}, tolerance {rule}): "
+            f"dq/dk/dv at {res[0]:.3f} / {res[1]:.3f} / {res[2]:.3f} of the "
+            f"tolerance (max |diff| {err[0]:.3e} / {err[1]:.3e} / "
+            f"{err[2]:.3e}){witness}; the forward's lse at {lse_over:.4f} "
+            f"of its bound, in log2 units {lse_ctrl:.1f}×; planted "
+            f"controls: the last key tile unmasked {ctrl:.1f}×, D dropped "
+            f"from dS {ctrl_d:.1f}× the tolerance")
+        if max(res) > 1.0:
+            raise AssertionError(f"flash backward disagrees at ragged T: "
+                                 f"{res}")
+        if ctrl <= 1.0 or ctrl_d <= 1.0 or ctrl_r <= 1.0:
+            raise AssertionError(f"a ragged control passes: unmasked "
+                                 f"{ctrl}, D dropped {ctrl_d}, dS in bf16 "
+                                 f"{ctrl_r}")
+
+
+# the f32 ragged backward's allowance for rounding before the
+# cancellation, per unit of Σ|terms| (:func:`_bwd_sizes`): each term's P
+# comes from exp of a difference of ~16 in magnitude (|S| + |lse|, 16·2⁻²⁴
+# relative), and the row-shared lse and D make the terms' errors add in a
+# line rather than as a random walk
+RAGGED_F32_EPS = 2.0 ** -20
+
+
+def _bwd_sizes(q, k, v, do, out, lse, scale):
+    """Per entry of dq, dk and dv, Σ|terms| of the sum that makes it with
+    each dS term taken before its cancellations, P·(|dO|·|v|ᵀ + Σ|O||dO|)
+    (dP and D as sums of absolute values): dq over the keys of that
+    times |k·s|·s, dk over the queries with |q·s|, dv over the queries of
+    P·|dO|. In q's dtype (f64 for the witness)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    qs, ks, dof = (attention._acc(t_) for t_ in (q * scale, k * scale, do))
+    p = torch.exp(torch.matmul(qs, ks.transpose(1, 2)) - lse[..., None])
+    dv = torch.matmul(p.transpose(1, 2), dof.abs())
+    pre = p * (torch.matmul(dof.abs(), attention._acc(v).abs().transpose(
+        1, 2)) + (attention._acc(out) * dof).abs().sum(-1)[..., None])
+    del p
+    return (torch.matmul(pre, ks.abs()) * scale,
+            torch.matmul(pre.transpose(1, 2), qs.abs()) * scale, dv)
+
+
+def _bwd_rounded_ds(q, k, v, do, scale):
+    """A planted fault: the plain f32 forward and backward with dS rounded
+    to bf16 before the products that make dq and dk."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    qs, ks, dof, p, ds = attention._probs_ds(
+        q, k, v, lse, do, attention._rowsum(out, do), scale)
+    ds = ds.to(torch.bfloat16).float()
+    return (torch.matmul(ds, ks) * scale,
+            torch.matmul(ds.transpose(1, 2), qs) * scale,
+            torch.matmul(p.transpose(1, 2), dof))
+
+
+def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
+    """The f32 flash forward on the train runs' recorded q, k, v (T = 4096
+    and 7125) against attention_plain in f32, with its ragged checks and
+    planted control; the backward kernels on the recorded backward inputs
+    (f32 from the train runs, bf16 from the grad phase) against
+    attention_bwd_plain, bit-equal over two launches, each beside a
+    planted D-dropped control; the ragged backward checks. Returns the
+    rows of the kernels JSON line (flash_attn_f32, flash_bwd_dq,
+    flash_bwd_dkv) with each run's launches."""
+    import torch
+    import torch.nn.functional as F
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    rows, stats = [], []
+    # no_grad, not inference_mode: the timed yardsticks run autograd
+    with torch.no_grad():
+        for args, kw in fwd_calls:
+            q, k, v, scale = args
+            got, lse = attention._forward(q, k, v, scale, with_lse=True)
+            again = attention._forward(q, k, v, scale)
+            repeat_check("flash_attn_f32", got, again)
+            want, plse = attention.attention_lse_plain(q, k, v, scale)
+            torch.cuda.synchronize()
+            rtol, atol = flash_tol(want, "float32")
+            ok, err = _within(got, want, rtol, atol)
+            lse_err = float((lse - plse).abs().max())
+            BH, T, hd = q.shape
+            q4, k4, v4 = (t_.view(1, BH, T, hd) for t_ in (q, k, v))
+            s = dict(err=err, **bound_ms(4 * BH * T * hd * 4,
+                                         4 * BH * T * T * hd, F32_FLOPS),
+                     ms=cuda_ms(lambda: attention.flash_attention(
+                         q, k, v, scale), reps),
+                     plain_ms=cuda_ms(lambda: attention.attention_plain(
+                         q, k, v, scale), max(2, reps // 4)),
+                     library_ms=cuda_ms(
+                         lambda: F.scaled_dot_product_attention(
+                             q4, k4, v4, scale=scale * scale), reps))
+            log(f"kernels-train: flash_attn_f32 [{BH},{T},{hd}] f32 (a "
+                f"train run's recorded q, k, v): max |diff| {err:.3e} (tol "
+                f"{atol:.2e} + {rtol:g}·|plain|), lse max |diff| "
+                f"{lse_err:.3e}; two launches bit-equal; {s['ms']:.4f} ms, "
+                f"plain {s['plain_ms']:.4f} ms, SDPA "
+                f"{s['library_ms']:.4f} ms, bound "
+                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
+            if not ok or lse_err > 1e-4 * float(plse.abs().max()):
+                raise AssertionError(f"flash_attn_f32 disagrees at T={T}: "
+                                     f"{err}, lse {lse_err}")
+            stats.append(dict(s, T=T))
+        summarise(rows, "kernels-train", "flash_attn_f32",
+                  "ipdm_tpu_torch/csrc/flash_attn_f32.cu",
+                  "ipdm_tpu/models/unet.py:601", stats, True)
+        rows[-1]["shapes"] = [dict(T=st["T"], ms=st["ms"],
+                                   library_ms=st["library_ms"],
+                                   plain_ms=st["plain_ms"],
+                                   bound_ms=max(st["bytes_ms"],
+                                                st["ops_ms"]),
+                                   max_abs_err=st["err"]) for st in stats]
+        flash_ragged(reps, "float32", (4097, 7125))
+
+        # the backward kernels: f32 from the train runs, bf16 from grad
+        per = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+        for dtype_name, calls in (("float32", bwd_calls),
+                                  ("bfloat16", grad_calls)):
+            for args, kw in calls:
+                q, k, v, out, lse, do, scale = args
+                over, err, ctrl, t = _bwd_stats(dtype_name, q, k, v, out,
+                                                lse, do, scale, reps)
+                BH, T, hd = q.shape
+                es = q.element_size()
+                rate = F32_FLOPS if dtype_name == "float32" else BF16_FLOPS
+                pair = 10 * BH * T * T * hd
+                b_dq = bound_ms(BH * T * hd * es * 6 + 8 * BH * T,
+                                6 * BH * T * T * hd, rate)
+                b_dkv = bound_ms(BH * T * hd * es * 6 + 8 * BH * T,
+                                 8 * BH * T * T * hd, rate)
+                src = ("the kernel's" if dtype_name == "bfloat16" else
+                       "the plain forward's")
+                log(f"kernels-train: flash_bwd [{BH},{T},{hd}] "
+                    f"{SHORT[dtype_name]} (recorded on the main path; "
+                    f"reference from {src} out and lse): "
+                    f"dq/dk/dv at {over['dq']:.3f} / {over['dk']:.3f} / "
+                    f"{over['dv']:.3f} of the tolerance (max |diff| "
+                    f"{err['dq']:.3e} / {err['dk']:.3e} / {err['dv']:.3e}); "
+                    f"the forward's out max |diff| {err['out']:.3e} (the "
+                    f"forward's rule), its lse at {over['lse']:.4f} of its "
+                    f"bound "
+                    f"(ε = 2^{math.log2(LSE_EPS[dtype_name]):.0f}), "
+                    f"planted control in log2 units {ctrl['lse']:.1f}×; "
+                    f"two launches bit-equal; planted control, D dropped "
+                    f"from dS: dk at {ctrl['dk']:.1f}× the tolerance; dq "
+                    f"{t['dq_ms']:.4f} ms + dkv {t['dkv_ms']:.4f} ms = "
+                    f"{t['dq_ms'] + t['dkv_ms']:.4f} ms (bound of the "
+                    f"pair, 10·T²·64·BH operations: "
+                    f"{pair / rate * 1e3:.4f} ms); plain backward "
+                    f"{t['plain_ms']:.4f} ms; the recomputed backward "
+                    f"{t['recompute_ms']:.4f} ms; SDPA forward + backward "
+                    f"{t['library_ms']:.4f} ms")
+                if max(over.values()) > 1.0 or ctrl["dk"] <= 1.0:
+                    raise AssertionError(f"flash backward at T={T} "
+                                         f"{dtype_name}: {over}, D-dropped "
+                                         f"control {ctrl}")
+                common = dict(plain_ms=t["plain_ms"],
+                              library_ms=t["library_ms"],
+                              recompute_ms=t["recompute_ms"], T=T,
+                              dtype=dtype_name)
+                per["flash_bwd_dq"].append(dict(
+                    common, err=err["dq"], ms=t["dq_ms"], **b_dq))
+                per["flash_bwd_dkv"].append(dict(
+                    common, err=max(err["dk"], err["dv"]),
+                    ms=t["dkv_ms"], **b_dkv))
+        for name, st in per.items():
+            summarise(rows, "kernels-train", name,
+                      "ipdm_tpu_torch/csrc/flash_bwd.cu",
+                      "ipdm_tpu/models/unet.py:601 → jax/experimental/"
+                      "pallas/ops/tpu/flash_attention.py:"
+                      + ("1286" if name.endswith("dq") else "940"),
+                      st, True)
+            rows[-1]["library"] = ("SDPA forward + backward of the same "
+                                   "q, k, v, dO (both kernels' work)")
+            rows[-1]["shapes"] = [dict(
+                T=x["T"], dtype=x["dtype"], ms=x["ms"],
+                plain_ms=x["plain_ms"], recompute_ms=x["recompute_ms"],
+                library_ms=x["library_ms"],
+                bound_ms=max(x["bytes_ms"], x["ops_ms"]),
+                max_abs_err=x["err"]) for x in st]
+        bwd_ragged(reps)
+    for row in rows:
+        name = row["name"]
+        row["launches"] = runs["img"][name] + runs["proj"][name]
+        row["launches_train_img"] = runs["img"][name]
+        row["launches_train_proj"] = runs["proj"][name]
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2027,7 +2731,7 @@ def main() -> int:
 
     rows = phase_kernels(phase_record(models, ld_proj), REPS)
     bp_row = rows[-1]
-    phase_grad(models, ld_proj, SEED)
+    grad_calls = phase_grad(models, ld_proj, SEED)
     phase_reference(SEED)
     fbp, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
                          FBP_KERNELS, 90, n_timed=1)
@@ -2040,11 +2744,15 @@ def main() -> int:
     rows += phase_kernels_fp(fp_calls, art_calls, REPS)
     phase_reference_fp(SEED)
     del models
-    eng_run, fbp_one, bp1_calls, corpus_calls = phase_engine(SEED)
-    phase_kernels_corpus(corpus_calls, REPS, next(
-        r for r in rows if r["name"] == "os_sart_sweep"))
-    rows += phase_kernels_bp1(
-        bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
+    with tempfile.TemporaryDirectory(prefix="ipdm_engine_") as out:
+        eng_run, fbp_one, bp1_calls, corpus_calls = phase_engine(SEED, out)
+        phase_kernels_corpus(corpus_calls, REPS, next(
+            r for r in rows if r["name"] == "os_sart_sweep"))
+        rows += phase_kernels_bp1(
+            bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
+        fwd_calls, bwd_calls, train_runs = phase_train(SEED, out)
+    train_rows = phase_kernels_train(fwd_calls, bwd_calls, grad_calls,
+                                     train_runs, REPS)
     # each path's run had the counters set to 0 just before it and read
     # just after. A kernel's ``launches`` is its count in the ART slice's
     # main-path run (rows of the earlier slices), or in the run of this
@@ -2073,6 +2781,20 @@ def main() -> int:
         if row["launches"] <= 0:
             raise AssertionError(f"{name} was not launched in its "
                                  f"main-path run")
+    # the train phase's kernels: their launches in the two train runs
+    # (each with the counters set to 0 just before fit() and read just
+    # after); planar_unit's and flash_attn's train-run counts beside them
+    for row in rows:
+        if row["name"] in ("planar_unit", "flash_attn"):
+            row["launches_train_proj"] = train_runs["proj"][row["name"]]
+    for row in train_rows:
+        log(f"kernels: {row['name']}: {row['launches']} launches in the "
+            f"train runs (img {row['launches_train_img']}, proj "
+            f"{row['launches_train_proj']})")
+        if row["launches_train_img"] <= 0 or row["launches_train_proj"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched in a "
+                                 f"train run")
+    rows += train_rows
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

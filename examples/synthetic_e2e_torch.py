@@ -1,22 +1,22 @@
-"""End-to-end IPDM test workflow of the PyTorch/CUDA port on a synthetic
-corpus: the twin of ``examples/synthetic_e2e.py`` without its training
-steps.
+"""End-to-end IPDM workflow of the PyTorch/CUDA port on a synthetic
+corpus: the twin of ``examples/synthetic_e2e.py``.
 
 Steps (sizes configurable):
-  1. synthesise random-ellipse μ phantoms (recon.phantom);
-  2. forward-project them (``project_fast``) and simulate the low dose
-     (recon.simulate, the reference's noise model) to build the
-     four-stream dataset layout ``SiemensDatasetNpz`` expects;
-  3. write one checkpoint per domain from seeded random weights (the
-     published weights are not in the repository; training is ported with
-     a later slice);
-  4. run the progressive dual-domain test (mode ``test_prog``) from those
-     files, writing the reference's artifact layout;
-  5. print the aggregate metrics (LDCT baseline, deProj, deProg).
+  1. synthesise random-ellipse μ phantoms (recon.phantom), forward-project
+     them (``project_fast``) and simulate the low dose (recon.simulate, the
+     reference's noise model) to build the four-stream dataset layout
+     ``SiemensDatasetNpz`` expects;
+  2. train the image-domain DDPM (mode ``train_img``) for ``--iters``
+     steps on the full-dose images;
+  3. train the projection-domain DDPM (mode ``train_proj``) on the
+     full-dose sinograms;
+  4. run the progressive dual-domain test (mode ``test_prog``) on those
+     checkpoints, writing the reference's artifact layout, and print the
+     aggregate metrics (LDCT baseline, deProj, deProg).
 
 Usage (the card; ``--size 512`` is the SIEMENS scanner, 2000×912):
     python examples/synthetic_e2e_torch.py --out /tmp/ipdm_synth_torch \\
-        --n 4 --size 512 --full-arch
+        --n 4 --size 512 --full-arch --iters 200
 On the CPU, small:
     python examples/synthetic_e2e_torch.py --device cpu --n 2 --size 64
 """
@@ -63,7 +63,9 @@ def geometry_overrides(size: int):
 
 
 def dataset_paths(out: str) -> dict:
-    return {f"test_dataset_path_{k}": osp.join(out, s)
+    """The corpus as both the training and the test set."""
+    return {f"{m}_dataset_path_{k}": osp.join(out, s)
+            for m in ("train", "test")
             for k, s in (("FD_img", "fd_img"), ("LD_img", "ld_img"),
                          ("FD_proj", "fd_proj"), ("LD_proj", "ld_proj"))}
 
@@ -107,7 +109,8 @@ def build_dataset(out: str, n_slices: int, size: int, dose: float, seed=0,
 def write_checkpoints(out: str, opt, seed: int = 0, device=None) -> str:
     """One ``{img,proj}_model-1`` checkpoint from seeded random weights
     of the models ``opt`` (an IPDMConfig) names, written with the port's
-    CheckpointManager; returns the directory."""
+    CheckpointManager; returns the directory (``chip_smoke.py``'s engine
+    phase tests the engine on these, before its train phase)."""
     import torch
     from ipdm_tpu_torch import resolve_device
     from ipdm_tpu_torch.engine.checkpoint import CheckpointManager
@@ -130,6 +133,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--dose", type=float, default=0.25)
+    ap.add_argument("--iters", type=int, default=20,
+                    help="training steps per domain")
     ap.add_argument("--recon", default="SART", choices=["SART", "FBP"])
     ap.add_argument("--convertor", default="FBP", choices=["FBP", "ART"])
     ap.add_argument("--full-arch", action="store_true",
@@ -144,29 +149,39 @@ def main(argv=None):
     from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
 
     if not args.skip_build:
-        print("[1/3] building synthetic dataset...", flush=True)
+        print("[1/4] building synthetic dataset...", flush=True)
         build_dataset(args.out, args.n, args.size, args.dose,
                       seed=args.seed, recon=args.recon, device=args.device)
 
     common = dict(device=args.device, seed=args.seed, test_numbers=0,
                   geometry=geometry_overrides(args.size),
                   metrics=["psnr", "ssim"], timesteps_img=1000,
-                  timesteps_proj=1000,
+                  timesteps_proj=1000, partial_timesteps_img=50,
+                  partial_timesteps_proj=50, batch_size=1,
+                  patch=None, patch_per_image=None, init_lr=2e-4,
+                  save_freq=max(1, args.iters),
+                  max_epochs=max(1, args.iters // args.n),
                   **(FULL_ARCH if args.full_arch else SMALL_ARCH),
                   **dataset_paths(args.out))
-    print("[2/3] writing checkpoints from seeded weights...", flush=True)
-    ckpt_dir = write_checkpoints(args.out, IPDMConfig(**common),
-                                 seed=args.seed, device=args.device)
+    dirs = {}
+    for step, domain in ((2, "img"), (3, "proj")):
+        print(f"[{step}/4] training the {domain} model...", flush=True)
+        opt = IPDMConfig(mode=f"train_{domain}", run_name=f"synth_{domain}",
+                         **common)
+        eng = ProgressiveDomainDenoiser(opt, result_save_path=args.out)
+        eng.fit()
+        eng.checkpoints(1)
+        dirs[domain] = eng.logger.models_save_dir
 
-    print("[3/3] progressive test...", flush=True)
+    print("[4/4] progressive test...", flush=True)
     opt = IPDMConfig(mode="test_prog", run_name="synth_prog",
                      convertor=args.convertor, fbp_sharpen=False,
                      ultra_img_denoise=False,
                      t_start_img=[10, 10], constant_guidance_img=0.45,
                      t_start_proj=[10, 10], constant_guidance_proj=0.5,
                      resume_epochs_img=1, resume_epochs_proj=1,
-                     load_img_model_path=ckpt_dir,
-                     load_proj_model_path=ckpt_dir, **common)
+                     load_img_model_path=dirs["img"],
+                     load_proj_model_path=dirs["proj"], **common)
     opt.test_numbers = min(args.test_slices, args.n)
     eng = ProgressiveDomainDenoiser(opt, result_save_path=args.out)
     eng.fit()
@@ -178,7 +193,7 @@ def main(argv=None):
     prog = {k: v for k, v in m["deProg"].items()
             if k.startswith("psnr") and not k.endswith("_std")}
     print(f"LDCT PSNR {ldct:.2f} → deProg {max(prog.values()):.2f} "
-          f"(random weights: deProg need not beat LDCT)")
+          f"(after {args.iters} steps: deProg need not beat LDCT)")
     return float(ldct), float(max(prog.values())), m
 
 

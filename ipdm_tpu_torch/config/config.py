@@ -132,6 +132,9 @@ class IPDMConfig:
     exact_art: bool = False  # force the reference-faithful fan-beam
     #   footprint SART instead of the rebinned-parallel OS-SART fast path
     #   (ported with the exact physics)
+    native_loader: bool = True  # C++ prefetching batch loader for training
+    #   (native/libipdm_native.so); without the library, or with
+    #   ``normal``, the engine reads through data.sampler.DataLoader
     seed: int = 0
     max_iter: int = 0  # derived at runtime (train)
     resume_iter: int = 0  # derived at runtime (train)
@@ -167,8 +170,8 @@ class IPDMConfig:
 
 
 # keys of the JAX package's config that steer its accelerator only (the
-# device mesh, the native prefetching loader of its training loop)
-TPU_ONLY_KEYS = ("mesh_shape", "native_loader")
+# device mesh)
+TPU_ONLY_KEYS = ("mesh_shape",)
 
 
 def cfg_load(new_cfg: dict, old_cfg: dict) -> None:
@@ -229,7 +232,8 @@ def default_cfg(argv: Optional[List[str]] = None) -> IPDMConfig:
     --load_option_path JSON override defaults, but flags explicitly passed on
     the command line override the JSON."""
     parser = argparse.ArgumentParser(
-        "IPDM on CUDA: arguments for testing the dual-domain denoiser")
+        "IPDM on CUDA: arguments for training and testing the dual-domain "
+        "denoiser")
     for f in dataclasses.fields(IPDMConfig):
         _add_field_arg(parser, f)
     for key in TPU_ONLY_KEYS:

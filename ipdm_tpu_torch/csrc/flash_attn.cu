@@ -7,7 +7,11 @@
 //
 //   out[bh,t,:] = sum_s softmax_s(scale2 * q[bh,t,:] . k[bh,s,:]) v[bh,s,:]
 //
-// q, k, v, out: [BH, T, 64] bf16, contiguous. The scale is applied ONCE,
+// q, k, v, out: [BH, T, 64] bf16, contiguous. With lse != nullptr (the
+// autograd path asks for it) the kernel also writes the f32 natural-log
+// softmax normaliser lse[bh, t] = log(sum_s exp(scale2 * q.k)) that the
+// backward kernels (flash_bwd.cu) rebuild P from, the counterpart of the
+// TPU kernel's saved l and m residuals. The scale is applied ONCE,
 // to the f32 score: the caller passes scale2 * log2(e) with
 // scale2 = (1/sqrt(sqrt(hd)))^2 = 1/sqrt(hd), the product of the two
 // per-operand scales of the plain formula (unet.py:659-662, which scales
@@ -244,9 +248,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Accumulator layout (m64nN f32): warp w of the group holds rows
 // 16w + lane/4 (registers 4n, 4n+1) and 16w + lane/4 + 8 (4n+2, 4n+3), at
 // columns 8n + 2*(lane%4) + {0, 1}, n = 0..7.
-__device__ __forceinline__ void consume(Smem& sm, int wg, bf16* out, int T,
-                                        float scale_log2, int bh, int q0,
-                                        int nk) {
+__device__ __forceinline__ void consume(Smem& sm, int wg, bf16* out,
+                                        float* lse, int T, float scale_log2,
+                                        int bh, int q0, int nk) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int c2 = (lane % 4) * 2;
   float o[32];
@@ -335,8 +339,14 @@ __device__ __forceinline__ void consume(Smem& sm, int wg, bf16* out, int T,
     if (lane == 0) mbar_arrive(&sm.empty[s]);  // this warp is done with s
   }
 
-  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
   const int r0 = q0 + wg * BM + warp * 16 + lane / 4, r1 = r0 + 8;
+  if (lse != nullptr && lane % 4 == 0) {  // m is in log2 units of the score
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < T) lse[(size_t)bh * T + r0] = (m0 + log2f(sum0)) * LN2;
+    if (r1 < T) lse[(size_t)bh * T + r1] = (m1 + log2f(sum1)) * LN2;
+  }
   bf16* base = out + (size_t)bh * T * HD;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -354,7 +364,8 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     flash_attn_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      bf16* __restrict__ out, int T, float scale_log2) {
+                      bf16* __restrict__ out, float* __restrict__ lse, int T,
+                      float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + SW_ATOM - 1) &
@@ -387,7 +398,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       }
     }
   } else {
-    consume(sm, warp / 4, out, T, scale_log2, bh, q0, nk);
+    consume(sm, warp / 4, out, lse, T, scale_log2, bh, q0, nk);
   }
 }
 
@@ -435,13 +446,14 @@ bool make_map(CUtensorMap* map, const void* base, int BH, int T) {
 
 }  // namespace
 
-// q, k, v, out: [BH, T, 64] bf16, contiguous, 16-byte aligned.
-// scale_log2 = (scale applied to q.k) * log2(e). Returns cudaGetLastError()
+// q, k, v, out: [BH, T, 64] bf16, contiguous, 16-byte aligned; lse: [BH, T]
+// f32 or null. scale_log2 = (scale applied to q.k) * log2(e). Returns
+// cudaGetLastError()
 // (cudaErrorInvalidValue for bad sizes or a tensor map that
 // cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* out, int BH, int T, float scale_log2,
-                                 void* stream) {
+                                 void* out, void* lse, int BH, int T,
+                                 float scale_log2, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;  // the attribute is set once per process
   if (!smem_set) {
@@ -458,6 +470,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   dim3 grid((T + BQ - 1) / BQ, BH);
   flash_attn_kernel<<<grid, NTHREADS, SMEM_BYTES,
                       static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(out), T, scale_log2);
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), T,
+      scale_log2);
   return (int)cudaGetLastError();
 }

@@ -79,7 +79,8 @@ class GaussianDiffusion:
     """Schedule tables on one device plus the reference's q/p methods
     (q_sample, q_sample_inverse, q_posterior_mean_variance,
     predict_start_from_noise, p_mean_variance_condition,
-    p_sample_condition). The guided sampler lives in diffusion/guided.py."""
+    p_sample_condition, train_loss). The guided sampler lives in
+    diffusion/guided.py."""
 
     def __init__(self, timesteps: int = 1000, beta_schedule: str = "linear",
                  schedule_power: float = 1, device=None):
@@ -147,3 +148,13 @@ class GaussianDiffusion:
         nonzero = (t != 0).to(x_t.dtype).reshape(
             (-1,) + (1,) * (x_t.ndim - 1))
         return mean + nonzero * torch.exp(0.5 * log_variance) * noise
+
+    # -- training ------------------------------------------------------------
+
+    def train_loss(self, model_fn, x_start, t, noise):
+        """MSE(ε, ε̂) at the given t and noise (reference train_losses,
+        model.py:645-652; ipdm_tpu diffusion.py:195-201, which draws the
+        noise itself: here the caller draws it)."""
+        x_noisy = self.q_sample(x_start, t, noise)
+        predicted = model_fn(x_noisy, t)
+        return torch.mean((noise - predicted) ** 2)

@@ -1,5 +1,5 @@
-"""Progressive dual-domain denoiser: the test engine (port of the test
-path of ipdm_tpu/engine/denoiser.py).
+"""Progressive dual-domain denoiser: the train/test engine (port of
+ipdm_tpu/engine/denoiser.py).
 
 ``ProgressiveDomainDenoiser(opt).fit()`` with a test mode (``test_prog``,
 ``test_proj``, ``test_img``) builds the UNets and the convertor the config
@@ -8,7 +8,12 @@ denoisers, scores every kept iteration against the full-dose image on the
 host, and writes the reference's artifact layout
 (``save_models/option.json``,
 ``save_test_results/Save_Iter_N/<patient>/<slice>/{metric.json, *.npz}``
-and the aggregate ``Save_Iter_N/metric.json``).
+and the aggregate ``Save_Iter_N/metric.json``). With a train mode
+(``train_img``, ``train_proj``) it trains that domain's UNet (Adam, remat,
+``engine/trainer.py``) over the training stream for ``max_iter`` steps,
+writes the loss to ``trainSummary/scalars.jsonl`` every 10 steps, and
+every ``save_freq`` steps checkpoints the model and the optimizer and runs
+``test`` on the trained module.
 
 The stages are plain functions over the options (an ``IPDMConfig`` or a
 dict with its key names; a key a dict lacks takes IPDMConfig's default):
@@ -23,8 +28,8 @@ metrics and the result stores.
 Tensors at the engine's boundary are NHWC like the JAX engine's
 ([B, na, nr, 1] sinograms, [B, n, n, 1] images); the UNets run NCHW
 inside, and saved result arrays are NCHW [B, 1, H, W] like the
-reference's. Training, the PNG grids and the sparse (DDIM) sampler are
-ported with later slices and raise ``NotImplementedError``.
+reference's. The PNG grids and the sparse (DDIM) sampler are ported with
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,13 +47,16 @@ import torch
 from ipdm_tpu_torch import resolve_device
 from ipdm_tpu_torch.config.config import IPDMConfig, cfg_load
 from ipdm_tpu_torch.data.dataset import SiemensDatasetNpz
+from ipdm_tpu_torch.data.sampler import DataLoader, RandomSampler
 from ipdm_tpu_torch.data.units import miu2pixel
 from ipdm_tpu_torch.diffusion.diffusion import GaussianDiffusion
 from ipdm_tpu_torch.diffusion.guided import guided_reverse_process
 from ipdm_tpu_torch.diffusion.normalize import (yeo_johnson_inverse_transform,
                                                 yeo_johnson_transform)
 from ipdm_tpu_torch.engine.checkpoint import CheckpointManager
-from ipdm_tpu_torch.engine.logging import LoggerX
+from ipdm_tpu_torch.engine.logging import LoggerX, ScalarWriter
+from ipdm_tpu_torch.engine.trainer import (flatten_patches, make_optimizer,
+                                           make_train_step, nhwc_to_nchw)
 from ipdm_tpu_torch.models.unet import build_unet
 from ipdm_tpu_torch.ops.lambda_curve import curve_init, proj_curve_init
 from ipdm_tpu_torch.ops.sharpen import tensor_sharpen
@@ -94,13 +102,6 @@ def diffusion_for(opt, domain: str, device=None) -> GaussianDiffusion:
                              device=device)
 
 
-def _as_nchw(x, device) -> torch.Tensor:
-    """NHWC array or tensor → contiguous f32 NCHW tensor on ``device``."""
-    x = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
-                        dtype=torch.float32, device=device)
-    return x.permute(0, 3, 1, 2).contiguous()
-
-
 def _guided(opt, domain, model, gd, x, generator, curve, **kw):
     if opt[f"sample_method_{domain}"] != "dense":
         raise NotImplementedError(
@@ -135,7 +136,7 @@ def proj_iterations(opt, model, x, generator: Optional[torch.Generator],
     dev = resolve_device(device)
     result, noise_strength = _guided(
         opt, "proj", model, gd or diffusion_for(opt, "proj", dev),
-        _as_nchw(x, dev), generator, curve or proj_curve_init())
+        nhwc_to_nchw(x, dev), generator, curve or proj_curve_init())
     if _opt(opt, "normal") and trans is not None:
         result = _denormalise(result, trans)
     return result, noise_strength
@@ -178,7 +179,7 @@ def img_iterations(opt, model, x, generator: Optional[torch.Generator],
     ``ultra_img_denoise`` the ultra pass (3×5 steps at λ=0.6, η=0.6)
     follows and its iterations are appended."""
     dev = resolve_device(device)
-    xc = _as_nchw(x, dev)
+    xc = nhwc_to_nchw(x, dev)
     gd = gd or diffusion_for(opt, "img", dev)
     result, _ = _guided(opt, "img", model, gd, xc, generator,
                         curve or curve_init(),
@@ -329,18 +330,16 @@ def _nchw_numpy(x: torch.Tensor, nhwc: bool = False) -> np.ndarray:
     return x.float().cpu().numpy()
 
 
-_TEST_MODES = ("test_proj", "test_img", "test_prog")
+_MODES = ("train_proj", "train_img", "test_proj", "test_img", "test_prog")
 
 
 class ProgressiveDomainDenoiser:
-    """The test engine. Construct with an IPDMConfig; call .fit()."""
+    """The train/test engine. Construct with an IPDMConfig; call .fit()."""
 
     def __init__(self, opt: IPDMConfig,
                  result_save_path: Optional[str] = None):
-        if opt.mode not in _TEST_MODES:
-            raise NotImplementedError(
-                f"mode {opt.mode!r}: training is ported with the training "
-                f"slice; this engine runs {_TEST_MODES}")
+        if opt.mode not in _MODES:
+            raise ValueError(f"mode {opt.mode!r}: one of {_MODES}")
         self.device = resolve_device(opt.device)
         self.trans_ldproj = None
         self.trans_ldimg = None
@@ -357,19 +356,32 @@ class ProgressiveDomainDenoiser:
         self.logger = LoggerX(save_root, opt)
         self.ckpt = CheckpointManager(self.logger.models_save_dir)
         self.logger.save_option(self.opt)
-        # the samplers' noise; the models' initial weights come from the
-        # same seed without touching the process's default generators
+        self.summer = (ScalarWriter(osp.join(save_root, "trainSummary"))
+                       if "train" in opt.mode else None)
+        # the samplers' and the train step's noise; the models' initial
+        # weights come from the same seed without touching the process's
+        # default generators
         self.generator = torch.Generator(device=self.device).manual_seed(
             opt.seed)
 
         # Section: models per mode (train_test_utils.py:146-168)
         self.proj_model = None
         self.img_model = None
-        if opt.mode in ("test_proj", "test_prog"):
+        self.optimizer = None
+        self.train_step = None
+        self._train_domain = None
+        self.train_resume_epochs = 0
+        if opt.mode in ("train_proj", "test_proj", "test_prog"):
             self.init_proj_model()
+            if opt.mode == "train_proj":
+                self._train_domain = "proj"
         self.init_convertor(opt.convertor)
-        if opt.mode in ("test_img", "test_prog"):
+        if opt.mode in ("train_img", "test_img", "test_prog"):
             self.init_img_model()
+            if opt.mode == "train_img":
+                self._train_domain = "img"
+        if self._train_domain is not None:
+            self._init_training()
         self.load_model()
 
         # Section: data
@@ -437,12 +449,34 @@ class ProgressiveDomainDenoiser:
     def init_convertor(self, convertor: str):
         self.convertor = make_convertor(self.opt, convertor)
 
+    def _init_training(self):
+        """The trained domain's Adam and train step (denoiser.py:295-321).
+        The JAX package trains a remat twin of the model with the same
+        parameters; here the model itself turns remat on, which
+        checkpoints its blocks only when grad is on, so the samplers of
+        ``test`` run it as before."""
+        opt = self.opt
+        domain = self._train_domain
+        model = self.proj_model if domain == "proj" else self.img_model
+        gd = (self.proj_gaussian_diffusion if domain == "proj"
+              else self.img_gaussian_diffusion)
+        self.partial_timesteps = opt[f"partial_timesteps_{domain}"]
+        self.train_resume_epochs = opt[f"resume_epochs_{domain}"]
+        model.remat = True
+        self.optimizer = make_optimizer(model.parameters(), opt.init_lr)
+        self.train_step = make_train_step(model, gd, self.optimizer,
+                                          self.partial_timesteps,
+                                          self.generator)
+
     # -- checkpoints (train_test_utils.py:247-251; loggerx.py:62-80) --------
 
     def load_model(self):
         """Load ``{img,proj}_model-{resume_epochs}`` from the configured
         directories into the models this mode built; a checkpoint that is
-        not there leaves the seeded initial weights."""
+        not there leaves the seeded initial weights. When training resumes,
+        the optimizer's state (Adam's moments and step) is loaded from the
+        trained domain's directory too (denoiser.py:354-373; the reference
+        restores every registered module, loggerx.py:71-80)."""
         opt = self.opt
         if (opt.resume_epochs_img > 0 and opt.load_img_model_path is not None
                 and self.img_model is not None):
@@ -454,17 +488,51 @@ class ProgressiveDomainDenoiser:
             self.ckpt.load("proj_model", opt.resume_epochs_proj,
                            self.proj_model,
                            load_dir=opt.load_proj_model_path)
+        if self.optimizer is not None and self.train_resume_epochs > 0:
+            load_dir = opt[f"load_{self._train_domain}_model_path"]
+            self.ckpt.load_optimizer("optimizer", self.train_resume_epochs,
+                                     self.optimizer, load_dir=load_dir)
 
     def checkpoints(self, epoch: int):
+        """The models this mode holds, and the optimizer when training
+        (denoiser.py:375-385)."""
         if self.proj_model is not None:
             self.ckpt.save("proj_model", epoch, self.proj_model)
         if self.img_model is not None:
             self.ckpt.save("img_model", epoch, self.img_model)
+        if self.optimizer is not None:
+            self.ckpt.save_optimizer("optimizer", epoch, self.optimizer)
 
     # -- data ---------------------------------------------------------------
 
     def init_data_loader(self):
+        """The test set and, when training, the training stream
+        (denoiser.py:438-470): ``max_iter`` = slices · max_epochs //
+        batch_size, resumed at ``resume_iter`` = resume_epochs ·
+        save_freq // batch_size, one replica."""
         opt = self.opt
+        self.train_loader = None
+        if "train" in opt.mode:
+            train_dataset = SiemensDatasetNpz(
+                ldimg_path=opt.train_dataset_path_LD_img,
+                fdimg_path=opt.train_dataset_path_FD_img,
+                ldproj_path=opt.train_dataset_path_LD_proj,
+                fdproj_path=opt.train_dataset_path_FD_proj,
+                proj_clip=opt.clip_proj, img_clip=opt.clip_img,
+                data_type=opt.data_type, patch=opt.patch,
+                patch_per_image=opt.patch_per_image, seed=opt.seed)
+            opt.max_iter = len(train_dataset) * opt.max_epochs // opt.batch_size
+            opt.resume_iter = (self.train_resume_epochs * opt.save_freq
+                               // opt.batch_size)
+            sampler = RandomSampler(len(train_dataset),
+                                    batch_size=opt.batch_size,
+                                    num_iter=opt.max_iter,
+                                    restore_iter=opt.resume_iter,
+                                    seed=opt.seed)
+            self.train_len = len(train_dataset)
+            self.train_loader = DataLoader(train_dataset, opt.batch_size,
+                                           sampler=sampler,
+                                           collate=train_dataset.collate)
         self.test_dataset = SiemensDatasetNpz(
             ldimg_path=opt.test_dataset_path_LD_img,
             fdimg_path=opt.test_dataset_path_FD_img,
@@ -494,14 +562,104 @@ class ProgressiveDomainDenoiser:
         self.img_denoise_result = ResultTempDict()
         self.progressive_denoise_result = ResultTempDict()
 
+    # -- training (train_test_utils.py:253-272, 326-348) --------------------
+
+    def train(self, inputs, n_iter: int, loss_temp):
+        """One step on a loader batch (denoiser.py:500-514): the trained
+        domain's full-dose stream, patch-flattened, Gaussianised with
+        ``normal``. Reads the loss back for the step's log line."""
+        opt = self.opt
+        images = inputs[1] if opt.mode == "train_proj" else inputs[2]
+        images = flatten_patches(np.asarray(images, np.float32))
+        if opt.normal:
+            images, _ = yeo_johnson_transform(np.maximum(images, 0.0))
+        loss = float(self.train_step(images))
+        loss_temp[0] += loss
+        self.logger.msg({"loss": loss, "lr": opt.init_lr}, n_iter)
+        return loss
+
+    def _native_train_iter(self):
+        """The native prefetching loader over the training stream
+        (denoiser.py:516-558): an iterator of the 4-stream tuples
+        :meth:`train` takes, or None where it does not apply (no library,
+        ``normal``, ``.npz`` files)."""
+        opt = self.opt
+        from ipdm_tpu_torch.utils import native
+        if not (opt.native_loader and native.available()
+                and not opt.normal):
+            return None
+        ds = self.train_loader.dataset
+        files = (ds.fdproj_file_name if opt.mode == "train_proj"
+                 else ds.fdimg_file_name)
+        if files is None or any(f.endswith(".npz") for f in files[:1]):
+            return None
+        H, W = np.load(files[0], mmap_mode="r").shape[:2]
+        indices = list(iter(self.train_loader.sampler))
+        loader = native.NativeLoader(files, H, W, indices,
+                                     batch=opt.batch_size)
+        stream_idx = 1 if opt.mode == "train_proj" else 2
+        scale = 0.1 if (opt.mode == "train_proj" and opt.clip_proj) else 1.0
+        rng = np.random.default_rng(opt.seed)
+
+        def gen():
+            for arr in loader:            # [b, H, W]
+                arr = arr * scale
+                if opt.patch:
+                    ph, pw = opt.patch
+                    ppi = opt.patch_per_image
+                    out = np.empty((arr.shape[0], ppi, ph, pw, 1),
+                                   np.float32)
+                    for b in range(arr.shape[0]):
+                        for k in range(ppi):
+                            top = rng.integers(0, max(H - ph, 0) + 1)
+                            left = rng.integers(0, max(W - pw, 0) + 1)
+                            out[b, k, :, :, 0] = arr[b, top:top + ph,
+                                                     left:left + pw]
+                else:
+                    out = arr[..., None]
+                item = [None, None, None, None]
+                item[stream_idx] = out
+                yield tuple(item)
+            loader.close()
+
+        return gen()
+
     # -- run ----------------------------------------------------------------
 
     def fit(self):
-        self.test(0)
+        """Train (steps resume_iter + 1 .. max_iter; the mean loss of
+        every 10 steps to ``train/loss``; every ``save_freq`` steps the
+        checkpoints of iteration n // save_freq and, with test_numbers > 0,
+        :meth:`test` on the trained module; denoiser.py:561-580), or
+        test."""
+        opt = self.opt
+        if "train" not in opt.mode:
+            self.test(0)
+            return
+        loader = self._native_train_iter()
+        if loader is None:
+            loader = iter(self.train_loader)
+        loss_temp = [0.0]
+        for n_iter in range(opt.resume_iter + 1, opt.max_iter + 1):
+            self.train(next(loader), n_iter, loss_temp)
+            if n_iter % 10 == 0:
+                self.summer.add_scalar("train/loss", loss_temp[0] / 10,
+                                       n_iter // 10)
+                loss_temp = [0.0]
+            if n_iter % opt.save_freq == 0:
+                it = n_iter // opt.save_freq
+                self.checkpoints(it)
+                if opt.test_numbers > 0:
+                    self.test(it)
 
     # -- evaluation (train_test_utils.py:274-324) ----------------------------
 
     def test(self, epoch: int):
+        """Denoise and score ``test_numbers`` seeded test slices (all of
+        them at ≤ 0). After training the module under test is the trained
+        one itself (the JAX engine copies its trained parameters over,
+        denoiser.py:585-590). A train mode tests its own domain and writes
+        the PSNR / SSIM means to the scalar stream."""
         opt = self.opt
         if opt.test_numbers <= 0:
             opt.test_numbers = len(self.test_dataset)
@@ -523,10 +681,10 @@ class ProgressiveDomainDenoiser:
                                     self.test_dataset.slice_name[tid])
                 self.data_sample_load(ldct=ld_img, ldproj=ld_proj,
                                       fdproj=fd_proj, fdct=fd_img)
-            if opt.mode == "test_proj":
+            if opt.mode in ("train_proj", "test_proj"):
                 self.proj_denoiser(self.ldproj)
                 figure_mode = "dproj2img"
-            elif opt.mode == "test_img":
+            elif opt.mode in ("train_img", "test_img"):
                 self.img_denoiser(self.ldct, mode="img_only")
                 figure_mode = "dimg"
             else:
@@ -541,6 +699,14 @@ class ProgressiveDomainDenoiser:
         self.metric_total_save(epoch)
         if self.timer.totals:
             print("[phases]", self.timer.report())
+        if self.summer is not None:
+            for key, vals in self.metric_total.items():
+                if vals:
+                    for name in ("psnr", "ssim"):
+                        self.summer.add_scalars(
+                            f"{key}/{name}",
+                            {k: v for k, v in vals.items() if name in k},
+                            epoch)
 
     # -- denoisers (train_test_utils.py:421-567) ----------------------------
 

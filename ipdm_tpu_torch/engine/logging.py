@@ -1,10 +1,11 @@
-"""Run logging: stdout metric lines and option snapshots (port of
-ipdm_tpu/engine/logging.py ``LoggerX``).
+"""Run logging: stdout metric lines, the JSONL scalar stream, option
+snapshots (port of ipdm_tpu/engine/logging.py).
 
 Equivalent of the reference LoggerX (Utils/loggerx.py:25-120) minus the
-stack-inspection variable-name magic (callers pass names explicitly). The
-scalar stream of the training loop (``ScalarWriter``) is ported with
-training.
+stack-inspection variable-name magic (callers pass names explicitly), and
+the training loop's ``ScalarWriter``: a JSONL scalar stream in the JAX
+package's format with a TensorBoard twin (the reference's SummaryWriter,
+train_test_utils.py:138,339).
 """
 
 from __future__ import annotations
@@ -14,6 +15,39 @@ import os
 import os.path as osp
 import time
 from typing import Dict
+
+
+class ScalarWriter:
+    """``scalars.jsonl`` (one ``{"tag", "value", "step", "time"}`` object a
+    line) plus a TensorBoard event file in the same directory."""
+
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self._f = open(osp.join(log_dir, "scalars.jsonl"), "a")
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:   # TensorBoard not installed: the JSONL only
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(log_dir=log_dir)
+
+    def add_scalar(self, tag: str, value: float, global_step: int) -> None:
+        self._f.write(json.dumps({"tag": tag, "value": float(value),
+                                  "step": int(global_step),
+                                  "time": time.time()}) + "\n")
+        self._f.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, global_step)
+
+    def add_scalars(self, tag: str, values: Dict[str, float],
+                    global_step: int) -> None:
+        for k, v in values.items():
+            self.add_scalar(f"{tag}/{k}", v, global_step)
+
+    def close(self) -> None:
+        self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class LoggerX:

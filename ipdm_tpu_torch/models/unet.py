@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ipdm_tpu_torch import resolve_device
 from ipdm_tpu_torch.ops.cuda.attention import (FLASH_MIN_SEQ,
                                                attention_plain,
@@ -244,16 +246,22 @@ class Upsample(nn.Module):
 class UNetModel(nn.Module):
     """Full UNet (reference model.py:190-310), NCHW in and out; the output
     is f32. Keys: time_embed.{0,2}, down_blocks.i.j, middle_block.{0,1,2},
-    up_blocks.i.j, out.{0,2} (see utils/torch_import.py)."""
+    up_blocks.i.j, out.{0,2} (see utils/torch_import.py).
+
+    With ``remat`` each residual and attention block runs under
+    ``torch.utils.checkpoint`` when grad is on (the JAX package's
+    ``nn.remat``, unet.py:801-802): its activations are recomputed in the
+    backward instead of kept, and the gradients are the same."""
 
     def __init__(self, in_channels: int = 3, model_channels: int = 128,
                  out_channels: int = 3, num_res_blocks: int = 2,
                  attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[float] = (1, 2, 2, 2),
                  num_heads: int = 4, dtype=torch.float32,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self.remat = remat
         self.in_channels = in_channels
         self.model_channels = model_channels
         self.out_channels = out_channels
@@ -347,6 +355,12 @@ class UNetModel(nn.Module):
                     ds //= 2
         return down, middle_ch, up, ch
 
+    def _block(self, block: nn.Module, *args):
+        """A residual or attention block, under checkpoint with remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x, timesteps):
         """x: [B, C_in, H, W]; timesteps: [B] integers. Returns
         [B, C_out, H, W] in f32."""
@@ -358,33 +372,36 @@ class UNetModel(nn.Module):
         for mods, planar in zip(self.down_blocks, self._down_planar):
             first = mods[0]
             if isinstance(first, ResidualBlock):
-                h = first(h, emb)
+                h = self._block(first, h, emb)
                 if len(mods) > 1:
-                    h = mods[1](h)
+                    h = self._block(mods[1], h)
             elif isinstance(first, Downsample):
                 h = first(h)
             else:  # stem
                 h = conv_unit(first, h, planar)
             hs.append(h)
-        h = self.middle_block[0](h, emb)
-        h = self.middle_block[1](h)
-        h = self.middle_block[2](h, emb)
+        h = self._block(self.middle_block[0], h, emb)
+        h = self._block(self.middle_block[1], h)
+        h = self._block(self.middle_block[2], h, emb)
         h_ = hs.pop()
         for mods in self.up_blocks:
             cat_in = torch.cat([h, h_], dim=1)
             if hs:
                 h_ = hs.pop()
-            h = mods[0](cat_in, emb)
+            h = self._block(mods[0], cat_in, emb)
             for m in mods[1:]:
-                h = m(h, h_.shape[2:]) if isinstance(m, Upsample) else m(h)
+                h = (m(h, h_.shape[2:]) if isinstance(m, Upsample)
+                     else self._block(m, h))
         h = conv_unit(self.out[2], h, self._out_planar, gn=self.out[0])
         return h.float()
 
 
-def build_unet(opt: dict, domain: str, device=None) -> UNetModel:
+def build_unet(opt: dict, domain: str, device=None,
+               remat: bool = False) -> UNetModel:
     """The img- or proj-domain UNet from options with IPDMConfig's key
     names (reference init_img_model/init_proj_model,
-    Utils/train_test_utils.py:213-245)."""
+    Utils/train_test_utils.py:213-245); ``remat`` as in
+    :class:`UNetModel`."""
     if domain not in ("img", "proj"):
         raise ValueError(f"domain {domain!r}: 'img' or 'proj'")
     g = lambda name: opt[f"{name}_{domain}"]
@@ -395,4 +412,5 @@ def build_unet(opt: dict, domain: str, device=None) -> UNetModel:
         out_channels=g("out_channels"),
         attention_resolutions=tuple(int(a) for a in
                                     g("attention_resolutions")),
-        channel_mult=tuple(g("channel_mult")), dtype=dtype, device=device)
+        channel_mult=tuple(g("channel_mult")), dtype=dtype, device=device,
+        remat=remat)

@@ -38,8 +38,15 @@ SIGNATURES = {
     "planar_unit_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # Q, s0, s1, frac, out, V, B, L, n, stream
     "bp_shift_launch": [P, P, P, P, P, I, I, I, I, P],
-    # q, k, v, out, BH, T, scale_log2, stream
-    "flash_attn_launch": [P, P, P, P, I, I, ctypes.c_float, P],
+    # q, k, v, out, lse (or null), BH, T, scale_log2, stream
+    "flash_attn_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
+    "flash_attn_f32_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
+    # q, k, v, out, do, lse, D, dq, BH, T, scale_log2, scale2, bf16, stream
+    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
+                            ctypes.c_float, I, P],
+    # q, k, v, do, lse, D, dk, dv, BH, T, scale_log2, scale2, bf16, stream
+    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
+                             ctypes.c_float, I, P],
     # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
     "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
     # x, rf, inv2, frac, s0, rows, nrmi, T, S, Vp, B, n, L, tile, lam,
@@ -57,7 +64,8 @@ SIGNATURES = {
 LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,
             "fp_plane_deposit": 0, "os_sart_sweep": 0, "anterp_taps": 0,
             "os_sart_sweep_bf16": 0, "bp_shift_accumulate": 0,
-            "fp_shift_deposit_batched": 0, "fp_shift_deposit": 0}
+            "fp_shift_deposit_batched": 0, "fp_shift_deposit": 0,
+            "flash_attn_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -1,18 +1,26 @@
-"""Softmax self-attention over long sequences: the flash kernel and its
-plain version.
+"""Softmax self-attention over long sequences: the flash kernels (forward
+and backward) and their plain versions.
 
 Port of the TPU flash kernel that ipdm_tpu/models/unet.py:601
-_flash_attention calls for sequences of at least ``FLASH_MIN_SEQ`` tokens.
-On a CUDA tensor :func:`flash_attention` launches the kernel of
-``csrc/flash_attn.cu``; on a CPU tensor it runs :func:`attention_plain`,
-the einsum formula of unet.py:659-662. Shorter sequences take
-:func:`attention_plain` on every device, as the JAX package does.
+_flash_attention calls for sequences of at least ``FLASH_MIN_SEQ`` tokens,
+and of the two Pallas kernels of its backward
+(jax/experimental/pallas/ops/tpu/flash_attention.py:940
+``_flash_attention_bwd_dkv`` and :1286 ``_flash_attention_bwd_dq``). On a
+CUDA tensor :func:`flash_attention` launches the forward kernel of
+``csrc/flash_attn.cu`` (bf16, wgmma) or ``csrc/flash_attn_f32.cu`` (f32,
+CUDA cores); on a CPU tensor it runs :func:`attention_plain`, the einsum
+formula of unet.py:659-662. Shorter sequences take :func:`attention_plain`
+on every device, as the JAX package does.
 
 Where grad mode is on and q, k or v requires a gradient, the call goes
-through an ``autograd.Function`` whose forward is that same dispatch and
-whose backward recomputes :func:`attention_plain` on the saved q, k, v
-and takes its vector-Jacobian product. Under ``no_grad`` nothing is saved
-and the call is the bare dispatch.
+through an ``autograd.Function``. Its forward also returns the softmax's
+log-normaliser per query row (lse, the counterpart of the TPU kernel's
+saved l and m residuals) and saves q, k, v, out and lse; its backward
+runs :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`: the kernels of
+``csrc/flash_bwd.cu`` on the card, on the CPU the two halves of
+:func:`attention_bwd_plain`, the same formulas written out with the saved
+lse. Under ``no_grad``
+nothing is saved and the call is the bare forward.
 """
 
 from __future__ import annotations
@@ -25,23 +33,82 @@ from ipdm_tpu_torch.ops.cuda import _build
 
 # sequence length from which attention runs the flash kernel (unet.py:590)
 FLASH_MIN_SEQ = 4096
-HEAD_DIM = 64  # the kernel's head dimension
+HEAD_DIM = 64  # the kernels' head dimension
+# forward kernel of each activation dtype: (C entry, launch counter)
+_FORWARD = {torch.bfloat16: ("flash_attn_launch", "flash_attn"),
+            torch.float32: ("flash_attn_f32_launch", "flash_attn_f32")}
+
+
+def _acc(t):
+    """t in the plain versions' sum dtype: f32, or f64 for f64 inputs (a
+    reference run in double)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _scores(q, k, scale):
+    """The f32 scores (q·s)(k·s)ᵀ, each operand scaled and rounded in the
+    activation dtype first (unet.py:659-662)."""
+    return torch.matmul(_acc(q * scale), _acc(k * scale).transpose(1, 2))
 
 
 def attention_plain(q, k, v, scale):
     """softmax((q·s)(k·s)ᵀ)·v for q, k, v [BH, T, hd] in the activation
     dtype: the scaled operands round to that dtype, the scores and the
     softmax are f32, the weights round back before the product with v."""
-    s = torch.matmul((q * scale).float(), (k * scale).float().transpose(1, 2))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
+    p = torch.softmax(_scores(q, k, scale), dim=-1).to(q.dtype)
     return torch.matmul(p, v)
 
 
+def attention_lse_plain(q, k, v, scale):
+    """:func:`attention_plain` and the f32 log-normaliser of its softmax
+    per query row, lse [BH, T] = log Σ_s exp(score)."""
+    s = _scores(q, k, scale)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p, v), torch.logsumexp(s, dim=-1)
+
+
+def _rowsum(out, do):
+    """D = rowsum(do ∘ out), the library's di."""
+    return (_acc(out) * _acc(do)).sum(dim=-1)
+
+
+def _probs_ds(q, k, v, lse, do, D, scale):
+    """The backward's shared terms: the scaled operands q·s, k·s, do,
+    P = exp(S − lse) and dS = P ∘ (do·vᵀ − D), all in :func:`_acc`'s
+    dtype."""
+    qs, ks, dof = _acc(q * scale), _acc(k * scale), _acc(do)
+    p = torch.exp(torch.matmul(qs, ks.transpose(1, 2)) - lse[..., None])
+    ds = p * (torch.matmul(dof, _acc(v).transpose(1, 2)) - D[..., None])
+    return qs, ks, dof, p, ds
+
+
+def attention_bwd_plain(q, k, v, out, lse, do, scale, D=None):
+    """Gradients (dq, dk, dv) of :func:`attention_plain` with respect to
+    the unscaled q, k and v, written out from the forward's saved ``out``
+    and ``lse`` (the library's mha_reference_bwd formulas), in f32 (f64
+    for f64 inputs) and returned in the activation dtype:
+
+        P  = exp(S − lse),  S = (q·s)(k·s)ᵀ as in the forward
+        D  = rowsum(do ∘ out)   (or the ``D`` given)
+        dv = Pᵀ·do,  dS = P ∘ (do·vᵀ − D)
+        dq = s·(dS·(k·s)),  dk = s·(dSᵀ·(q·s))
+
+    The scale reaches each of q and k once through its rounded operand
+    and once through the chain rule: s² in all, the kernels' one scale2."""
+    if D is None:
+        D = _rowsum(out, do)
+    qs, ks, dof, p, ds = _probs_ds(q, k, v, lse, do, D, scale)
+    dv = torch.matmul(p.transpose(1, 2), dof)
+    dq = torch.matmul(ds, ks) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qs) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention(q, k, v, scale):
-    """The same function as :func:`attention_plain`. The kernel applies
+    """The same function as :func:`attention_plain`. The kernels apply
     scale² once to the f32 score instead of scale to each operand, and
-    takes bf16 [BH, T, 64] contiguous tensors. Differentiable in q, k
-    and v (backward by recomputing the plain version)."""
+    take contiguous [BH, T, 64] tensors in bf16 or f32. Differentiable in
+    q, k and v (backward by the flash backward kernels on the card)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale)
@@ -49,56 +116,132 @@ def flash_attention(q, k, v, scale):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention with a backward: forward is :func:`_forward` (the kernel
-    on the card), backward the VJP of :func:`attention_plain` recomputed
-    on the saved q, k, v."""
+    """Attention with a backward: forward is :func:`_forward` with the
+    lse; backward :func:`flash_bwd_dq` then :func:`flash_bwd_dkv` (the
+    kernels on the card, the two halves of :func:`attention_bwd_plain` on
+    the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        out, lse = _forward(q, k, v, scale, with_lse=True)
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = attention_plain(*leaves, ctx.scale)
-            wrt = [t for t, n in zip(leaves, need) if n]
-            got = iter(torch.autograd.grad(out, wrt, grad_out))
-        return (*(next(got) if n else None for n in need), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        do = grad_out.to(q.dtype).contiguous()
+        dq, D = flash_bwd_dq(q, k, v, out, lse, do, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, do, D, ctx.scale)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None)
 
 
-def _forward(q, k, v, scale):
-    """Attention's forward: :func:`attention_plain` for CPU tensors, the
-    kernel for CUDA tensors (or raise)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 3 or q.shape[2] != HEAD_DIM:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} must be "
-                         f"[BH, T, {HEAD_DIM}]")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.shape != q.shape or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is {tuple(t.shape)} "
-                             f"on {t.device}, expected {tuple(q.shape)} on "
-                             f"{q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
-                            "kernel takes bf16")
+def _check(name, tensors, like):
+    """Every (name, tensor) must be a contiguous, 16-byte aligned tensor
+    of ``like``'s shape, device and dtype, bf16 or f32."""
+    for tn, t in tensors:
+        if t.shape != like.shape or t.device != like.device:
+            raise ValueError(f"{name}: {tn} is {tuple(t.shape)} on "
+                             f"{t.device}, expected {tuple(like.shape)} on "
+                             f"{like.device}")
+        if t.dtype not in _FORWARD or t.dtype != like.dtype:
+            raise TypeError(f"{name}: {tn} is {t.dtype}; the kernels take "
+                            "bf16 or f32, all of one dtype")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             "and 16-byte aligned")
+            raise ValueError(f"{name}: {tn} must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _check_cuda(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 3 or q.shape[2] != HEAD_DIM:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be "
+                         f"[BH, T, {HEAD_DIM}]")
+
+
+def _check_rows(name, tensors, q):
+    """[BH, T] f32 contiguous tensors on q's device."""
+    for tn, t in tensors:
+        if (tuple(t.shape) != tuple(q.shape[:2]) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tn} must be a contiguous f32 "
+                             f"[{q.shape[0]}, {q.shape[1]}] tensor on "
+                             f"{q.device}")
+
+
+def _forward(q, k, v, scale, with_lse=False):
+    """Attention's forward: :func:`attention_plain` (with the lse:
+    :func:`attention_lse_plain`) for CPU tensors, the kernel of q's dtype
+    for CUDA tensors (or raise). Returns out, or (out, lse)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return attention_lse_plain(q, k, v, scale)
+        return attention_plain(q, k, v, scale)
+    _check_cuda("flash_attention", q)
+    _check("flash_attention", (("q", q), ("k", k), ("v", v)), q)
     BH, T, _ = q.shape
     out = torch.empty_like(q)
-    lib = _build.library()
-    code = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), BH, T,
-                                 scale * scale * math.log2(math.e),
-                                 _build.stream_ptr(q))
-    _build.check(code, "flash_attn")
-    _build.LAUNCHES["flash_attn"] += 1
-    return out
+    lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    entry, counter = _FORWARD[q.dtype]
+    code = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), BH, T,
+        scale * scale * math.log2(math.e), _build.stream_ptr(q))
+    _build.check(code, counter)
+    _build.LAUNCHES[counter] += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_bwd_dq(q, k, v, out, lse, do, scale):
+    """dq of attention and D = rowsum(do ∘ out) (f32 [BH, T]), the
+    counterpart of the library's _flash_attention_bwd_dq and its di. The
+    kernel on CUDA tensors, its half of :func:`attention_bwd_plain` on CPU
+    ones."""
+    if q.device.type == "cpu":
+        D = _rowsum(out, do)
+        _, ks, _, _, ds = _probs_ds(q, k, v, lse, do, D, scale)
+        return (torch.matmul(ds, ks) * scale).to(q.dtype), D
+    _check_cuda("flash_bwd_dq", q)
+    _check("flash_bwd_dq", (("q", q), ("k", k), ("v", v), ("out", out),
+                            ("do", do)), q)
+    _check_rows("flash_bwd_dq", (("lse", lse),), q)
+    BH, T, _ = q.shape
+    dq = torch.empty_like(q)
+    D = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    code = _build.library().flash_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(), BH, T,
+        scale * scale * math.log2(math.e), scale * scale,
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(code, "flash_bwd_dq")
+    _build.LAUNCHES["flash_bwd_dq"] += 1
+    return dq, D
+
+
+def flash_bwd_dkv(q, k, v, lse, do, D, scale):
+    """(dk, dv) of attention from the lse and the D of
+    :func:`flash_bwd_dq`, the counterpart of the library's
+    _flash_attention_bwd_dkv. The kernel on CUDA tensors,
+    its half of :func:`attention_bwd_plain` on CPU ones."""
+    if q.device.type == "cpu":
+        qs, _, dof, p, ds = _probs_ds(q, k, v, lse, do, D, scale)
+        return ((torch.matmul(ds.transpose(1, 2), qs) * scale).to(k.dtype),
+                torch.matmul(p.transpose(1, 2), dof).to(v.dtype))
+    _check_cuda("flash_bwd_dkv", q)
+    _check("flash_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), q)
+    _check_rows("flash_bwd_dkv", (("lse", lse), ("D", D)), q)
+    BH, T, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    code = _build.library().flash_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, T,
+        scale * scale * math.log2(math.e), scale * scale,
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(code, "flash_bwd_dkv")
+    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv

@@ -117,7 +117,9 @@ def test_config_warns_on_unknown_and_tpu_only_keys(capsys):
                               "test_prog", "--native_loader", "false"])
     out = capsys.readouterr().out
     assert "no key names mesh_shape" in out
-    assert "no key names native_loader" in out and cli.mode == "test_prog"
+    # the native prefetching loader is the training path's: a field now
+    assert "native_loader" not in out and cli.mode == "test_prog"
+    assert cli.native_loader is False and config.IPDMConfig().native_loader
 
 
 def test_default_cfg_cli_wins_over_the_preset(capsys):

@@ -331,7 +331,7 @@ def test_plain_proj_denoiser_returns_every_iteration(jax_engine, tmp_path,
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mode="train_img"), NotImplementedError, "training"),
+    (dict(mode="test_prog", exact_fbp=True), NotImplementedError, "exact"),
     (dict(mode="test_prog", exact_art=True), NotImplementedError, "exact"),
     (dict(mode="test_prog", device="cuda"), RuntimeError, "CUDA"),
 ])

@@ -1,9 +1,10 @@
 """Gradients through the port's kernel wrappers (planar_unit,
 flash_attention) against jax.grad of the Flax modules of
 ipdm_tpu/models/unet.py, on the CPU: there each wrapper's
-autograd.Function runs the plain forward and recomputes it for the
-backward, as it recomputes the plain version behind the kernel on the
-card. Same seeded numpy inputs, weights and output cotangent on both
+autograd.Function runs the plain forward; planar's backward recomputes
+it (as it does behind the kernel on the card), flash's runs
+attention_bwd_plain on the saved output and lse (the formulas of the
+card's backward kernels). Same seeded numpy inputs, weights and output cotangent on both
 sides; the Flax weights and the JAX gradient tree come across through
 the port's state_dict_from_flax. The card's gradients (kernel forward)
 are held against the CPU's by chip_smoke.py's grad phase."""
@@ -162,9 +163,12 @@ def _attention_inputs(seed):
 @pytest.mark.parametrize("kernel", ["planar", "planar-bf16-noskip",
                                     "flash"])
 def test_function_gradients_equal_plain_autograd(kernel):
-    """On the CPU the Function's forward is the plain version and its
-    backward recomputes it: the gradients are plain autograd's, bit for
-    bit, for every input."""
+    """On the CPU the Functions' forward is the plain version. planar's
+    backward recomputes it: its gradients are plain autograd's, bit for
+    bit, for every input. flash's backward is attention_bwd_plain on the
+    saved out and lse (the formulas the card's backward kernels compute):
+    its gradients are that function's, bit for bit, and plain autograd's
+    to f32 rounding (test_torch_flash_bwd.py holds it to jax.vjp)."""
     if kernel == "flash":
         ins = _attention_inputs(1)
         via = attention.flash_attention(*ins, 0.35)
@@ -181,15 +185,26 @@ def test_function_gradients_equal_plain_autograd(kernel):
     live = [t for t in ins if t is not None]
     g = torch.randn(via.shape, generator=torch.Generator().manual_seed(3)
                     ).to(via.dtype)
-    for a, b in zip(torch.autograd.grad(via, live, g),
-                    torch.autograd.grad(plain, live, g)):
+    got = torch.autograd.grad(via, live, g)
+    if kernel == "flash":
+        q, k, v = (t.detach() for t in ins)
+        out, lse = attention.attention_lse_plain(q, k, v, 0.35)
+        torch.testing.assert_close(via.detach(), out, rtol=0, atol=0)
+        for a, b in zip(got, attention.attention_bwd_plain(
+                q, k, v, out, lse, g, 0.35)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for a, b in zip(got, torch.autograd.grad(plain, live, g)):
+            _close(a.numpy(), b.numpy(), "flash")
+        return
+    for a, b in zip(got, torch.autograd.grad(plain, live, g)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_function_only_where_a_gradient_is_needed():
     """Under no_grad (the sampler's path) and on inputs that need no
     gradient the wrapper saves nothing and builds no graph; with grad the
-    Function saves its inputs once."""
+    Function saves once: planar its six inputs, flash q, k, v, its output
+    and the lse."""
     saved = []
 
     def pack(t):
@@ -208,4 +223,4 @@ def test_function_only_where_a_gradient_is_needed():
         planar.planar_unit(*ins)
         assert len(saved) == 6
         attention.flash_attention(*qkv, 0.35)
-        assert len(saved) == 9
+        assert len(saved) == 11

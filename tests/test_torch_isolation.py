@@ -1,5 +1,5 @@
 """The port stands alone: importing ipdm_tpu_torch and every submodule,
-its entry script main_torch.py, its example and chip_smoke.py loads
+its entry script main_torch.py, its examples and chip_smoke.py loads
 neither JAX nor the JAX package, and its entry points run on CUDA unless
 the caller passes device="cpu"."""
 
@@ -22,10 +22,10 @@ for name in names:
     importlib.import_module(name)
 import runpy
 for script in ("main_torch.py", "examples/synthetic_e2e_torch.py",
-               "chip_smoke.py"):
+               "examples/bench_train_torch.py", "chip_smoke.py"):
     runpy.run_path(script, run_name="imported")  # its imports, not its main
 names += ["main_torch.py", "examples/synthetic_e2e_torch.py",
-          "chip_smoke.py"]
+          "examples/bench_train_torch.py", "chip_smoke.py"]
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ipdm_tpu"))}))
@@ -47,14 +47,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ipdm_tpu_torch.data.dataset",
                  "ipdm_tpu_torch.recon.simulate",
                  "ipdm_tpu_torch.engine.checkpoint",
+                 "ipdm_tpu_torch.engine.trainer",
+                 "ipdm_tpu_torch.data.sampler",
+                 "ipdm_tpu_torch.utils.native",
                  "main_torch.py", "examples/synthetic_e2e_torch.py",
-                 "chip_smoke.py"):
+                 "examples/bench_train_torch.py", "chip_smoke.py"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
 
 @pytest.mark.parametrize("path", ["main_torch.py",
                                   "examples/synthetic_e2e_torch.py",
+                                  "examples/bench_train_torch.py",
                                   "chip_smoke.py"])
 def test_scripts_name_no_jax_module(path):
     """No import statement of the port's scripts names jax or the JAX
