@@ -127,11 +127,13 @@ exits non-zero without a result line:
    those inputs against the plain forward's (out at the forward's rule;
    lse to a per-row bound from the rounding of the scores, beside a
    planted control with the lse in log2 units that must fail); the
-   ragged T = 7125 backward
+   ragged T = 4097 and T = 7125 backward
    and lse in both dtypes (f32 against the plain version in f64, with the
    f32 plain as a second witness) beside a planted control with the last
    key tile unmasked; the kernels' ms, the plain backward's, the
-   recomputed backward's and SDPA forward + backward's;
+   recomputed backward's and SDPA forward + backward's, with the bound of
+   the body that ran (bf16 products on wgmma; f32 as three bf16 passes)
+   and, for f32, the CUDA-core bound of the same products;
 18. the ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -144,6 +146,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import importlib.util
+import itertools
 import json
 import math
 import os
@@ -2417,10 +2420,16 @@ def lse_check(lse, q, k, scale, dtype_name):
 # tensor's max|plain|): bf16 as the forward's rule scaled to each
 # tensor's largest entry; f32 the grad phase's rule
 BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-3, 1e-4)}
+# csrc/flash_bwd.cu's body per dtype and its bf16 tensor-core passes per
+# product: f32 operands split into hi + lo, hi·hi + hi·lo + lo·hi
+BWD_BODY = {"bfloat16": "wgmma bf16", "float32": "wgmma, 3 bf16 passes"}
+BWD_PASSES = {"bfloat16": 1, "float32": 3}
 
 
 def bwd_ragged(reps):
-    """The backward kernels at T = 7125 on the forward's ragged inputs
+    """The backward kernels at T = 4097 (the last 64-row tile holds one
+    live row: a wrong mask or zero-fill shows there first) and T = 7125
+    on the forward's ragged inputs
     (q ≈ +1, k ≈ −1: live scores ≈ −8, so a key past T that escaped a
     mask, score 0, would dominate), in both dtypes, with the forward
     kernel's out and lse (its lse held to :func:`lse_check`), at the main
@@ -2439,8 +2448,9 @@ def bwd_ragged(reps):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
-    T, hd = 7125, attention.HEAD_DIM
-    for dtype_name in ("bfloat16", "float32"):
+    hd = attention.HEAD_DIM
+    for T, dtype_name in itertools.product((4097, 7125),
+                                           ("bfloat16", "float32")):
         dtype = getattr(torch, dtype_name)
 
         def rnd(mean, sd):
@@ -2639,12 +2649,23 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
                                                 lse, do, scale, reps)
                 BH, T, hd = q.shape
                 es = q.element_size()
-                rate = F32_FLOPS if dtype_name == "float32" else BF16_FLOPS
+                # the body that ran: bf16 products on wgmma; f32 as three
+                # bf16 passes on wgmma, beside the CUDA-core count of the
+                # same f32 products
+                passes = BWD_PASSES[dtype_name]
                 pair = 10 * BH * T * T * hd
-                b_dq = bound_ms(BH * T * hd * es * 6 + 8 * BH * T,
-                                6 * BH * T * T * hd, rate)
-                b_dkv = bound_ms(BH * T * hd * es * 6 + 8 * BH * T,
-                                 8 * BH * T * T * hd, rate)
+                nbytes = BH * T * hd * es * 6 + 8 * BH * T
+                b_dq = bound_ms(nbytes, passes * 6 * BH * T * T * hd,
+                                BF16_FLOPS)
+                b_dkv = bound_ms(nbytes, passes * 8 * BH * T * T * hd,
+                                 BF16_FLOPS)
+                cores = dict(
+                    dq=6 * BH * T * T * hd / F32_FLOPS * 1e3,
+                    dkv=8 * BH * T * T * hd / F32_FLOPS * 1e3)
+                body = BWD_BODY[dtype_name]
+                also = ("" if dtype_name == "bfloat16" else
+                        f"; {pair / F32_FLOPS * 1e3:.4f} ms at the f32 "
+                        f"CUDA-core rate")
                 src = ("the kernel's" if dtype_name == "bfloat16" else
                        "the plain forward's")
                 log(f"kernels-train: flash_bwd [{BH},{T},{hd}] "
@@ -2661,12 +2682,15 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
                     f"two launches bit-equal; planted control, D dropped "
                     f"from dS: dk at {ctrl['dk']:.1f}× the tolerance; dq "
                     f"{t['dq_ms']:.4f} ms + dkv {t['dkv_ms']:.4f} ms = "
-                    f"{t['dq_ms'] + t['dkv_ms']:.4f} ms (bound of the "
-                    f"pair, 10·T²·64·BH operations: "
-                    f"{pair / rate * 1e3:.4f} ms); plain backward "
-                    f"{t['plain_ms']:.4f} ms; the recomputed backward "
-                    f"{t['recompute_ms']:.4f} ms; SDPA forward + backward "
-                    f"{t['library_ms']:.4f} ms")
+                    f"{t['dq_ms'] + t['dkv_ms']:.4f} ms on {body} (bound "
+                    f"of the pair, {passes}×10·T²·64·BH operations at the "
+                    f"bf16 tensor-core rate: "
+                    f"{passes * pair / BF16_FLOPS * 1e3:.4f} ms{also}); "
+                    f"plain backward {t['plain_ms']:.4f} ms; the recomputed "
+                    f"backward {t['recompute_ms']:.4f} ms; SDPA forward + "
+                    f"backward {t['library_ms']:.4f} ms (the pair at "
+                    f"{(t['dq_ms'] + t['dkv_ms']) / t['library_ms']:.3f}× "
+                    f"it)")
                 if max(over.values()) > 1.0 or ctrl["dk"] <= 1.0:
                     raise AssertionError(f"flash backward at T={T} "
                                          f"{dtype_name}: {over}, D-dropped "
@@ -2674,26 +2698,28 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
                 common = dict(plain_ms=t["plain_ms"],
                               library_ms=t["library_ms"],
                               recompute_ms=t["recompute_ms"], T=T,
-                              dtype=dtype_name)
+                              dtype=dtype_name, body=body)
                 per["flash_bwd_dq"].append(dict(
-                    common, err=err["dq"], ms=t["dq_ms"], **b_dq))
+                    common, err=err["dq"], ms=t["dq_ms"],
+                    cuda_core_bound_ms=cores["dq"], **b_dq))
                 per["flash_bwd_dkv"].append(dict(
                     common, err=max(err["dk"], err["dv"]),
-                    ms=t["dkv_ms"], **b_dkv))
+                    ms=t["dkv_ms"], cuda_core_bound_ms=cores["dkv"], **b_dkv))
         for name, st in per.items():
             summarise(rows, "kernels-train", name,
                       "ipdm_tpu_torch/csrc/flash_bwd.cu",
                       "ipdm_tpu/models/unet.py:601 → jax/experimental/"
                       "pallas/ops/tpu/flash_attention.py:"
-                      + ("1286" if name.endswith("dq") else "940"),
+                      + ("1287" if name.endswith("dq") else "941"),
                       st, True)
             rows[-1]["library"] = ("SDPA forward + backward of the same "
                                    "q, k, v, dO (both kernels' work)")
             rows[-1]["shapes"] = [dict(
-                T=x["T"], dtype=x["dtype"], ms=x["ms"],
+                T=x["T"], dtype=x["dtype"], body=x["body"], ms=x["ms"],
                 plain_ms=x["plain_ms"], recompute_ms=x["recompute_ms"],
                 library_ms=x["library_ms"],
                 bound_ms=max(x["bytes_ms"], x["ops_ms"]),
+                cuda_core_bound_ms=x["cuda_core_bound_ms"],
                 max_abs_err=x["err"]) for x in st]
         bwd_ragged(reps)
     for row in rows:

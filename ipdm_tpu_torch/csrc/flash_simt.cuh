@@ -1,5 +1,5 @@
-// Shared pieces of the SIMT flash-attention kernels (flash_attn_f32.cu,
-// flash_bwd.cu): head dimension 64, 64-row tiles staged in shared memory
+// Pieces of the SIMT flash-attention kernel (flash_attn_f32.cu): head
+// dimension 64, 64-row tiles staged in shared memory
 // as f32, one 256-thread block computing a 64 x 64 tile of products as a
 // 16 x 16 grid of threads with a 4 x 4 register tile each.
 //
@@ -24,7 +24,6 @@ constexpr int HD = 64;     // head dimension
 constexpr int TILE = 64;   // rows (queries or keys) per tile
 constexpr int LD = 65;     // shared-memory row stride, in floats
 constexpr int NT = 256;    // threads per block
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 typedef float Tile[TILE][LD];

@@ -4,8 +4,8 @@ and backward) and their plain versions.
 Port of the TPU flash kernel that ipdm_tpu/models/unet.py:601
 _flash_attention calls for sequences of at least ``FLASH_MIN_SEQ`` tokens,
 and of the two Pallas kernels of its backward
-(jax/experimental/pallas/ops/tpu/flash_attention.py:940
-``_flash_attention_bwd_dkv`` and :1286 ``_flash_attention_bwd_dq``). On a
+(jax/experimental/pallas/ops/tpu/flash_attention.py:941
+``_flash_attention_bwd_dkv`` and :1287 ``_flash_attention_bwd_dq``). On a
 CUDA tensor :func:`flash_attention` launches the forward kernel of
 ``csrc/flash_attn.cu`` (bf16, wgmma) or ``csrc/flash_attn_f32.cu`` (f32,
 CUDA cores); on a CPU tensor it runs :func:`attention_plain`, the einsum
@@ -17,7 +17,9 @@ through an ``autograd.Function``. Its forward also returns the softmax's
 log-normaliser per query row (lse, the counterpart of the TPU kernel's
 saved l and m residuals) and saves q, k, v, out and lse; its backward
 runs :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`: the kernels of
-``csrc/flash_bwd.cu`` on the card, on the CPU the two halves of
+``csrc/flash_bwd.cu`` on the card (every product on wgmma: bf16 as the
+library rounds it, f32 as three bf16 passes of split operands), on the
+CPU the two halves of
 :func:`attention_bwd_plain`, the same formulas written out with the saved
 lse. Under ``no_grad``
 nothing is saved and the call is the bare forward.
@@ -200,8 +202,9 @@ def _forward(q, k, v, scale, with_lse=False):
 def flash_bwd_dq(q, k, v, out, lse, do, scale):
     """dq of attention and D = rowsum(do ∘ out) (f32 [BH, T]), the
     counterpart of the library's _flash_attention_bwd_dq and its di. The
-    kernel on CUDA tensors, its half of :func:`attention_bwd_plain` on CPU
-    ones."""
+    kernel on CUDA tensors (its f32 D takes do as its products see it,
+    hi + lo of the bf16 split: see csrc/flash_bwd.cu), its half of
+    :func:`attention_bwd_plain` on CPU ones."""
     if q.device.type == "cpu":
         D = _rowsum(out, do)
         _, ks, _, _, ds = _probs_ds(q, k, v, lse, do, D, scale)

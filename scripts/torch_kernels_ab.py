@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's deposit and anterp_taps kernels against a parent
-commit's, on one NVIDIA GPU, in one process.
+"""Time the port's deposit, anterp_taps and flash-backward kernels
+against a parent commit's, on one NVIDIA GPU, in one process.
 
     python3 scripts/torch_kernels_ab.py --parent DIR [--reps 20] [--out F]
 
@@ -16,6 +16,14 @@ and on each input:
 * holds this tree's kernel (through its wrapper) against the plain
   version with chip_smoke.py's summation-order bound, and prints the
   parent kernel's distance from it;
+* the flash backward (``flash_bwd_dq`` / ``flash_bwd_dkv``): one eval and
+  backward of the proj UNet (2000×912, T = 7125) and the img UNet (512²,
+  T = 4096) at B = 1, seeded random weights, in bf16 (chip_smoke.py's
+  slice widths) and in f32 (the train presets'), record the backward's
+  inputs; on each, the parent's kernels and this tree's are held to the
+  plain backward at chip_smoke.py's rule, and the forward kernel of the
+  dtype (``flash_attn_launch`` / ``flash_attn_f32_launch``) must give
+  the parent's out and lse bit for bit;
 * times the parent's kernel (launched bare) and this tree's (through
   its wrapper, with the host bounds the main path passes), back to back
   with the stream held by a spin kernel (device time), in the order
@@ -53,6 +61,15 @@ PARENT_SIGNATURES = {
     "fp_shift_deposit_launch": [P, P, P, P, P, P, I, I, I, I, P],
     # P, qi0, W, out, V, B, Ntp, Lp, Wt, stream
     "anterp_taps_launch": [P, P, P, P, I, I, I, I, I, P],
+    # q, k, v, out, lse, BH, T, scale_log2, stream
+    "flash_attn_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
+    "flash_attn_f32_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
+    # q, k, v, out, do, lse, D, dq, BH, T, scale_log2, scale2, bf16, stream
+    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
+                            ctypes.c_float, I, P],
+    # q, k, v, do, lse, D, dk, dv, BH, T, scale_log2, scale2, bf16, stream
+    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
+                             ctypes.c_float, I, P],
 }
 
 
@@ -252,6 +269,113 @@ def anterp_case(lib, label, args, kw, reps):
     return res
 
 
+def record_flash_bwd(seed: int):
+    """(dtype name, the flash backward's first call) of one eval and
+    backward of each UNet at B = 1: bf16 at chip_smoke.py's slice widths,
+    f32 at the train presets'."""
+    import torch
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    calls = []
+    t = torch.full((1,), 7, dtype=torch.long, device="cuda")
+    for dtype_name in ("bfloat16", "float32"):
+        for domain, shape in (("proj", (1, 1, 2000, 912)),
+                              ("img", (1, 1, 512, 512))):
+            torch.manual_seed(seed)
+            opt = (cs.SLICE_OPT if dtype_name == "bfloat16" else
+                   cs._train_preset(domain))
+            model = build_unet(opt, domain, device="cuda")
+            x = torch.rand(shape, device="cuda")
+            r = torch.randn(shape, device="cuda")
+            with cs.Recorder(attention, "flash_bwd_dq", limit=1) as rec:
+                (model(x, t).float() * r).sum().backward()
+            calls.append((dtype_name, rec.calls[0][0]))
+            del model
+    torch.cuda.synchronize()
+    return calls
+
+
+def flash_bwd_case(lib, dtype_name, args, reps):
+    """The parent's flash_bwd_dq / flash_bwd_dkv against this tree's on
+    one recorded input: both held to the plain backward at chip_smoke.py's
+    rule, the forward's out and lse bit-equal to the parent's, each
+    kernel timed A B B A."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    q, k, v, out, lse, do, scale = args
+    BH, T, _ = q.shape
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = _build.stream_ptr(q)
+    c2, c2l = scale * scale, scale * scale * math.log2(math.e)
+    # the forward (its helpers moved into csrc/hopper.cuh): bit for bit
+    fwd = "flash_attn_launch" if bf16 else "flash_attn_f32_launch"
+    out_p, lse_p = torch.empty_like(q), torch.empty_like(lse)
+    _build.check(getattr(lib, fwd)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out_p.data_ptr(), lse_p.data_ptr(), BH, T,
+                                   c2l, stream), "parent " + fwd)
+    out_n, lse_n = attention._forward(q, k, v, scale, with_lse=True)
+    fwd_equal = bool(torch.equal(out_p, out_n) and torch.equal(lse_p, lse_n))
+
+    dq_p, dk_p, dv_p = (torch.empty_like(q) for _ in range(3))
+    D_p = torch.empty_like(lse)
+
+    def parent_dq():
+        _build.check(lib.flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), D_p.data_ptr(), dq_p.data_ptr(),
+            BH, T, c2l, c2, bf16, stream), "parent flash_bwd_dq")
+
+    def parent_dkv():
+        _build.check(lib.flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), D_p.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(),
+            BH, T, c2l, c2, bf16, stream), "parent flash_bwd_dkv")
+
+    parent_dq()
+    parent_dkv()
+    dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+    fwd_in = ((out, lse) if bf16 else
+              attention.attention_lse_plain(q, k, v, scale))
+    want = attention.attention_bwd_plain(q, k, v, *fwd_in, do, scale)
+    rel, share = cs.BWD_TOL[dtype_name]
+
+    def over(grads):
+        return [float(((g.float() - w.float()).abs()
+                       / (share * float(w.float().abs().max())
+                          + rel * w.float().abs())).max())
+                for g, w in zip(grads, want)]
+
+    new_over, parent_over = over((dq, dk, dv)), over((dq_p, dk_p, dv_p))
+    torch.cuda.synchronize()
+    t_dq = abba(parent_dq, lambda: attention.flash_bwd_dq(
+        q, k, v, out, lse, do, scale), reps)
+    t_dkv = abba(parent_dkv, lambda: attention.flash_bwd_dkv(
+        q, k, v, lse, do, D, scale), reps)
+    res = dict(kernel="flash_bwd", dtype=dtype_name, BH=BH, T=T,
+               forward_bit_equal=fwd_equal, over=new_over,
+               parent_over=parent_over, dq_parent_ms=t_dq["parent"],
+               dq_new_ms=t_dq["new"], dkv_parent_ms=t_dkv["parent"],
+               dkv_new_ms=t_dkv["new"])
+    cs.log(f"ab: flash_bwd [{BH},{T},64] {dtype_name}: forward out and lse "
+           f"bit-equal to the parent's: {fwd_equal}; dq/dk/dv at "
+           f"{new_over[0]:.3f} / {new_over[1]:.3f} / {new_over[2]:.3f} of "
+           f"chip_smoke's rule (parent {parent_over[0]:.3f} / "
+           f"{parent_over[1]:.3f} / {parent_over[2]:.3f}); device ms dq "
+           f"parent {t_dq['parent'][0]:.4f}, new {t_dq['new'][0]:.4f}, new "
+           f"{t_dq['new'][1]:.4f}, parent {t_dq['parent'][1]:.4f}; dkv "
+           f"parent {t_dkv['parent'][0]:.4f}, new {t_dkv['new'][0]:.4f}, "
+           f"new {t_dkv['new'][1]:.4f}, parent {t_dkv['parent'][1]:.4f}")
+    if not fwd_equal or max(new_over) > 1.0:
+        raise AssertionError(f"flash_bwd {dtype_name} T={T}: forward equal "
+                             f"{fwd_equal}, over {new_over}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
@@ -285,6 +409,9 @@ def main() -> int:
         for label in ("a_resample", "a_plan", "a_fp"):
             for args, kw in calls[label]:
                 res.append(anterp_case(lib, label[2:], args, kw, a.reps))
+    for dtype_name, args in record_flash_bwd(a.seed):
+        with torch.no_grad():
+            res.append(flash_bwd_case(lib, dtype_name, args, a.reps))
     line = json.dumps({"device": smi, "ab": res})
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)

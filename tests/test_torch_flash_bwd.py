@@ -4,17 +4,20 @@ attention.py) on the CPU.
 * attention_bwd_plain, the formulas written out from the forward's saved
   output and lse, against jax.vjp of JAX's attention: the library's
   mha_reference (jax/experimental/pallas/ops/tpu/flash_attention.py,
-  whose backward the two Pallas kernels _flash_attention_bwd_dkv :940 and
-  _flash_attention_bwd_dq :1286 compute) and the einsum path of
+  whose backward the two Pallas kernels _flash_attention_bwd_dkv :941 and
+  _flash_attention_bwd_dq :1287 compute) and the einsum path of
   ipdm_tpu/models/unet.py:659-662, in f32 and bf16, at ragged T.
 * A CPU write-out of the CUDA kernels' tiling (csrc/flash_attn_f32.cu,
   csrc/flash_bwd.cu): 64-row tiles, rows past T staged as zeros, the
   online softmax and lse over key tiles in order, D = rowsum(dO·O), dQ
   per query tile over key tiles in order, dK and dV per key tile over
   query tiles in order, keys past T masked in the forward and the dQ
-  kernel and query rows past T in the dK/dV kernel; held to the plain
-  functions, with planted faults (D dropped, the key mask dropped) that
-  must miss the tolerance."""
+  kernel and query rows past T in the dK/dV kernel; each product as the
+  backward's bodies take it (bf16: P and dS rounded to bf16; f32: three
+  bf16 passes of split operands); held to the plain functions and to
+  jax.vjp of the library's reference, with planted faults (D dropped,
+  the key mask dropped, the f32 body's lo halves dropped) that must miss
+  the tolerance."""
 
 import math
 
@@ -28,7 +31,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import \
 
 from ipdm_tpu_torch.ops.cuda import attention
 
-TILE = 64      # flash_simt.cuh TILE: rows per tile of both kernels
+TILE = 64      # rows per tile: flash_simt.cuh TILE, flash_bwd.cu BN
 HD = attention.HEAD_DIM
 SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 
@@ -61,10 +64,12 @@ def _inputs(T, seed, BH=2, ragged=False):
     return [a.astype(np.float32) for a in (q, k, v, do)]
 
 
-def _close(got, want, name, rel, absmax):
-    """|got − want| ≤ absmax·max|want| + rel·|want| per tensor."""
+def _close(got, want, name, rel, absmax, extra=0.0):
+    """|got − want| ≤ absmax·max|want| + rel·|want| (+ a per-entry
+    allowance ``extra``) per tensor."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    tol = absmax * np.abs(want).max() + rel * np.abs(want)
+    tol = (absmax * np.abs(want).max() + rel * np.abs(want)
+           + np.asarray(extra, np.float64))
     over = float((np.abs(got - want) / tol).max())
     assert over <= 1.0, (name, over, float(np.abs(got - want).max()))
     return over
@@ -164,15 +169,48 @@ def fwd_tiles(q, k, v, scale, mask=True):
     return out[:, :T], lse[:, :T]
 
 
-def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True):
-    """flash_bwd.cu: D = rowsum(dO·O) (flash_bwd_dot_kernel; ``drop_d``
-    plants its loss); dQ per query tile over key tiles in order, keys ≥ T
-    masked (``mask``); dK and dV per key tile over query tiles in order,
-    query rows ≥ T at lse = +inf and D = 0, so P = 0. Returns dq, dk, dv
-    in f32."""
+def _split(x):
+    """x ≈ hi + lo, hi = bf16(x), lo = bf16(x − hi): an f32 operand as two
+    bf16 operands (the f32 body's staging)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm(a, b, body):
+    """a @ b as a body's tensor cores take it, f32 sums: ``bf16``, the
+    operands as given (bf16 values); ``split``, three bf16 passes
+    hi·hi + hi·lo + lo·hi of the split operands (lo·lo dropped);
+    ``one_pass``, the planted fault of the split with every lo dropped."""
+    if body == "bf16":
+        return a @ b
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if body == "one_pass":
+        return ah @ bh
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _weights(x, body):
+    """P or dS as the A operand of a product: rounded to bf16 in the bf16
+    body (flash_attention.py:900, :918, :1258), split in the f32 body."""
+    return x.to(torch.bfloat16).float() if body == "bf16" else x
+
+
+def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
+              body="split"):
+    """flash_bwd.cu: D = rowsum(dO·O) (flash_bwd_dot_kernel, with the dO
+    the products see; ``drop_d`` plants its loss); dQ per query tile over
+    key tiles in order, keys ≥ T masked (``mask``); dK and dV per key tile
+    over query tiles in order, query rows ≥ T at P = 0. Every product runs
+    as ``body`` takes it (:func:`_mm`): ``bf16`` (bf16 operands, P and dS
+    rounded to bf16 before the products that read them) or ``split`` (f32
+    operands, each product three bf16 passes), or the fault ``one_pass``.
+    Returns dq, dk, dv in f32."""
     BH, T, _ = q.shape
     c2, c = scale * scale * math.log2(math.e), scale * scale
-    D = (out.float() * do.float()).sum(-1)
+    dof = do.float()
+    if body != "bf16":   # D from the dO the products see
+        dof = sum(_split(dof)) if body == "split" else _split(dof)[0]
+    D = (out.float() * dof).sum(-1)
     if drop_d:
         D = torch.zeros_like(D)
     Q, K, V, dO = (_tiles(x, T) for x in (q, k, v, do))
@@ -183,16 +221,18 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True):
     Dp = torch.zeros(BH, n * TILE)
     Dp[:, :T] = D
     lse2, Dp = lse2.view(BH, n, TILE), Dp.view(BH, n, TILE)
+    mm = lambda a, b: _mm(a, b, body)
     dq = torch.zeros(BH, n, TILE, HD)
     for qt in range(n):
         acc = torch.zeros(BH, TILE, HD)
         for kt in range(n):
-            s = Q[:, qt] @ K[:, kt].transpose(1, 2)
-            dp = dO[:, qt] @ V[:, kt].transpose(1, 2)
+            s = mm(Q[:, qt], K[:, kt].transpose(1, 2))
+            dp = mm(dO[:, qt], V[:, kt].transpose(1, 2))
             p = torch.exp2(s * c2 - lse2[:, qt, :, None])
             if mask:
                 p = p.masked_fill(rows[kt * TILE:(kt + 1) * TILE] >= T, 0.0)
-            acc = acc + (p * (dp - Dp[:, qt, :, None])) @ K[:, kt]
+            ds = p * (dp - Dp[:, qt, :, None])
+            acc = acc + mm(_weights(ds, body), K[:, kt])
         dq[:, qt] = acc * c
     dk = torch.zeros(BH, n, TILE, HD)
     dv = torch.zeros(BH, n, TILE, HD)
@@ -200,12 +240,13 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True):
         ak = torch.zeros(BH, TILE, HD)
         av = torch.zeros(BH, TILE, HD)
         for qt in range(n):
-            st = K[:, kt] @ Q[:, qt].transpose(1, 2)
-            dpt = V[:, kt] @ dO[:, qt].transpose(1, 2)
+            st = mm(K[:, kt], Q[:, qt].transpose(1, 2))
+            dpt = mm(V[:, kt], dO[:, qt].transpose(1, 2))
             live = rows[qt * TILE:(qt + 1) * TILE] < T
             pt = torch.exp2(st * c2 - lse2[:, qt, None, :]) * live
-            av = av + pt @ dO[:, qt]
-            ak = ak + (pt * (dpt - Dp[:, qt, None, :])) @ Q[:, qt]
+            dst = pt * (dpt - Dp[:, qt, None, :])
+            av = av + mm(_weights(pt, body), dO[:, qt])
+            ak = ak + mm(_weights(dst, body), Q[:, qt])
         dk[:, kt], dv[:, kt] = ak * c, av
     flat = lambda x: x.reshape(BH, n * TILE, HD)[:, :T]
     return flat(dq), flat(dk), flat(dv)
@@ -213,9 +254,10 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True):
 
 @pytest.mark.parametrize("T", [64, 65, 130, 191])
 def test_kernel_tiling_matches_the_plain_functions(T):
-    """The write-out of the f32 forward (out, lse) and of the backward
-    (dq, dk, dv) against attention_lse_plain / attention_bwd_plain in
-    f32 on ragged inputs (one live key in the last tile at T = 65)."""
+    """The write-out of the f32 forward (out, lse) and of the f32 backward
+    (dq, dk, dv; each product three bf16 passes) against
+    attention_lse_plain / attention_bwd_plain in f32 on ragged inputs (one
+    live key in the last tile at T = 65)."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(T, 1, ragged=True))
     out, lse = fwd_tiles(q, k, v, SCALE)
     pout, plse = attention.attention_lse_plain(q, k, v, SCALE)
@@ -229,28 +271,111 @@ def test_kernel_tiling_matches_the_plain_functions(T):
         _close(g, w, name, rel, absmax)
 
 
-@pytest.mark.parametrize("fault", ["drop_d", "no_mask"])
+def _missed(got, want, rel, absmax, extra=(0.0, 0.0, 0.0)):
+    """Names of the gradients that :func:`_close` refuses."""
+    missed = []
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, extra):
+        try:
+            _close(g, w, name, rel, absmax, e)
+        except AssertionError:
+            missed.append(name)
+    return missed
+
+
+@pytest.mark.parametrize("fault", ["drop_d", "no_mask", "one_pass"])
 def test_planted_faults_miss_the_tolerance(fault):
-    """The checks above see a missing D term and a missing key mask (the
-    forward's and the dQ kernel's): at T = 130 on the ragged inputs each
-    moves a gradient past its tolerance."""
+    """The checks above see a missing D term, a missing key mask (the
+    forward's and the dQ kernel's) and an f32 body that drops the lo
+    halves (one bf16 pass): at T = 130 on the ragged inputs each moves a
+    gradient past its tolerance."""
     T = 130
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(T, 1, ragged=True))
     pout, plse = attention.attention_lse_plain(q, k, v, SCALE)
     want = attention.attention_bwd_plain(q, k, v, pout, plse, do, SCALE)
     if fault == "drop_d":
         got = bwd_tiles(q, k, v, pout, plse, do, SCALE, drop_d=True)
+    elif fault == "one_pass":
+        got = bwd_tiles(q, k, v, pout, plse, do, SCALE, body="one_pass")
     else:
         out, lse = fwd_tiles(q, k, v, SCALE, mask=False)
         got = bwd_tiles(q, k, v, out, lse, do, SCALE, mask=False)
     rel, absmax = TOL[torch.float32]
-    missed = []
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        try:
-            _close(g, w, name, rel, absmax)
-        except AssertionError:
-            missed.append(name)
-    assert missed, fault
+    assert _missed(got, want, rel, absmax), fault
+
+
+@pytest.mark.parametrize("T", [64, 65, 130, 191, 4097])
+def test_bf16_body_matches_library_vjp(T):
+    """The bf16 body (bf16 operands; P and dS rounded to bf16 before the
+    products, as the library's kernels round them: flash_attention.py:900,
+    :918, :1258) against jax.vjp of the library's mha_reference on the
+    same bf16-rounded inputs in f32, at the bf16 rule, on ragged inputs
+    (one live row in the last tile at T = 65 and 4097). Both take the f32
+    forward's out and lse of those inputs: a bf16 out rounds D, and on
+    these inputs dq is a cancellation that carries it (the bf16 plain
+    backward on the bf16 out misses this rule by 21× at T = 4097), a
+    property of the forward's output, held on the card by the bf16 check
+    on the forward kernel's own out."""
+    BH = 1 if T > 1000 else 2
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(T, 3, BH=BH, ragged=True))
+    out, lse = attention.attention_lse_plain(q.float(), k.float(),
+                                             v.float(), SCALE)
+    got = bwd_tiles(q, k, v, out, lse, do, SCALE, body="bf16")
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: _library_attention(a, b, c, SCALE),
+                     jq, jk, jv)
+    rel, absmax = TOL[torch.bfloat16]
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        _close(g.to(torch.bfloat16).float(), np.asarray(w, np.float32),
+               name, rel, absmax)
+
+
+def _bwd_sizes(q, k, v, do, out, lse, scale):
+    """Σ|terms| of each gradient entry with dS's terms taken before their
+    cancellation, P·(|dO|·|v|ᵀ + Σ|O||dO|) (chip_smoke.py _bwd_sizes)."""
+    acc = attention._acc
+    qs, ks, dof = (acc(t) for t in (q * scale, k * scale, do))
+    p = torch.exp(qs @ ks.transpose(1, 2) - lse[..., None])
+    pre = p * (dof.abs() @ acc(v).abs().transpose(1, 2)
+               + (acc(out) * dof).abs().sum(-1)[..., None])
+    return ((pre @ ks.abs()) * scale, (pre.transpose(1, 2) @ qs.abs())
+            * scale, p.transpose(1, 2) @ dof.abs())
+
+
+# the f32 ragged backward's allowance per unit of Σ|terms| (chip_smoke.py
+# RAGGED_F32_EPS)
+RAGGED_F32_EPS = 2.0 ** -20
+
+
+@pytest.mark.parametrize("T,inputs", [(191, "random"), (1025, "random"),
+                                      (191, "ragged"), (4097, "ragged")])
+def test_f32_split_body_gate(T, inputs):
+    """The gate of the f32 body: each product as three bf16 passes of the
+    split operands, and D from the dO the products see. At random inputs
+    it meets the f32 rule (1e-3·|plain| + 1e-4·max|plain|) against the
+    f32 plain backward; at the ragged inputs (dq a cancellation) the f64
+    witness rule of the card's ragged check, the f32 rule against the
+    plain backward in f64 + 2⁻²⁰·Σ|terms before the cancellation|. The
+    planted one-pass body (every lo dropped) misses both."""
+    BH = 1 if T > 1000 else 2
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(T, 5, BH=BH, ragged=inputs == "ragged"))
+    out, lse = attention.attention_lse_plain(q, k, v, SCALE)
+    rel, absmax = TOL[torch.float32]
+    if inputs == "random":
+        want = attention.attention_bwd_plain(q, k, v, out, lse, do, SCALE)
+        extra = (0.0, 0.0, 0.0)
+    else:
+        ins = [t.double() for t in (q, k, v, do)]
+        o64, l64 = attention.attention_lse_plain(*ins[:3], SCALE)
+        want = attention.attention_bwd_plain(*ins[:3], o64, l64, ins[3],
+                                             SCALE)
+        extra = tuple(RAGGED_F32_EPS * z for z in _bwd_sizes(
+            *ins, o64, l64, SCALE))
+    got = bwd_tiles(q, k, v, out, lse, do, SCALE)
+    assert not _missed(got, want, rel, absmax, extra)
+    ctrl = bwd_tiles(q, k, v, out, lse, do, SCALE, body="one_pass")
+    assert _missed(ctrl, want, rel, absmax, extra) == ["dq", "dk", "dv"]
 
 
 def test_wrappers_on_cpu_are_the_plain_functions():
