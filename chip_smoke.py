@@ -71,7 +71,15 @@ exits non-zero without a result line:
    η=0.7; the ultra pass, 3×5 steps at λ=0.6, η=0.6; 105 UNet evals): the
    main-path run on a plan built anew (every kernel > 0), then warm
    slices split into proj stage / convert / img stage, launches per warm
-   slice, peak memory, one profiled slice;
+   slice, peak memory, one profiled slice; then slice-ART-f32, the same
+   slice at the shipped test preset's dtype (f32 activations, both UNets
+   built from the f32 options, cuDNN in TF32 as main_torch.py runs it):
+   its main-path run, 2 warm slices, the profiled slice with the flash
+   kernels' launches and device ms, and the f32 flash forward
+   (csrc/flash_attn.cu, three bf16 passes on wgmma) on that run's q, k, v
+   at T = 7125 and 4096 against the plain version (the f32 rule, the lse
+   by lse_check, bit-equal repeats), timed beside SDPA f32, which it must
+   not be slower than;
 11. record-FP — one ``project_fast`` of two 512² phantoms at the SIEMENS
    scanner (natural Kf = 2, 500 views per drive) with the kernel wrappers'
    inputs recorded, its launches, its device time; then one
@@ -116,7 +124,7 @@ exits non-zero without a result line:
    UNet: each > 0), the checkpoint files and scalars.jsonl lines; a
    resume from optimizer-1 whose Adam state must equal the file's;
 17. kernels-train — the f32 flash forward on the train runs' recorded
-   q, k, v (T = 4096, 7125) against the plain version in f32, with f32
+   q, k, v (T = 4096, 7125) as in slice-ART-f32, with f32
    ragged checks and the unmasked control; flash_bwd_dq and
    flash_bwd_dkv on the recorded backward inputs (f32 from the train
    runs, bf16 from the grad phase) against attention_bwd_plain (f32 on
@@ -219,14 +227,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 class Recorder:
     """Replaces ``module.name`` by a wrapper that records each call's
-    arguments (the first ``limit`` calls, all by default), for as long as
-    the ``with`` block runs."""
+    arguments (the first ``limit`` calls, all by default; with ``key``,
+    only the first call of each ``key(args)``), for as long as the
+    ``with`` block runs."""
 
-    def __init__(self, module, name, limit=None):
+    def __init__(self, module, name, limit=None, key=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = []
         self.limit = limit
+        self.key, self.keys = key, set()
 
     def __enter__(self):
         setattr(self.module, self.name, self._record)
@@ -236,7 +246,12 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
     def _record(self, *args, **kw):
-        if self.limit is None or len(self.calls) < self.limit:
+        if self.key is not None:
+            k = self.key(args)
+            if k not in self.keys:
+                self.keys.add(k)
+                self.calls.append((args, kw))
+        elif self.limit is None or len(self.calls) < self.limit:
             self.calls.append((args, kw))
         return self.fn(*args, **kw)
 
@@ -893,7 +908,8 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
     ``n_timed`` timed slices split into proj stage / convert / img stage,
     the launches of one warm slice, and one slice under torch.profiler
     (device time by kernel, and the device's idle share). Returns the
-    main-path run's and the warm slice's launch counts."""
+    main-path run's and the warm slice's launch counts and the profiled
+    slice's kernels as {name: (launches, device ms)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -904,7 +920,8 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
     from ipdm_tpu_torch.recon import sart_fast
 
     proj_model, img_model = models
-    tag = "slice" if label == "FBP" else "slice-ART"
+    tag = {"FBP": "slice", "ART": "slice-ART",
+           "ART-f32": "slice-ART-f32"}[label]
 
     n = make_convertor(opt).fbp_geom.grid_n
 
@@ -982,7 +999,146 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
     for e in kernels[:25]:
         log(f"{tag} profile: {dev_us(e) / 1e3:10.3f} ms {e.count:7d}x  "
             f"{e.key[:100]}")
-    return launches, warm
+    return launches, warm, {e.key: (e.count, dev_us(e) / 1e3)
+                            for e in kernels}
+
+# the shipped test preset's activation dtype: Config/Mayo-Config/
+# test_progressive_option.json sets no compute_dtype, so it runs at the
+# config's default, float32
+ART_F32_SLICE_OPT = dict(ART_SLICE_OPT, compute_dtype="float32")
+ART_F32_KERNELS = ("planar_unit", "flash_attn_f32", "bp_shift",
+                   "fp_plane_deposit", "os_sart_sweep", "anterp_taps")
+# bf16 tensor-core passes per product of csrc/flash_attn.cu's f32 body
+F32_FWD_PASSES = 3
+
+
+def flash_f32_check(tag, calls, reps):
+    """The f32 flash forward on recorded q, k, v against the plain version
+    in f32: out at the f32 rule (:func:`flash_tol`), the lse within
+    1e-4·max|plain lse| and by :func:`lse_check`, two launches bit-equal
+    in both; its time through the wrapper (the split pre-pass included),
+    the plain version's and SDPA f32's in the same call, which it must not
+    exceed; the bound of the body that runs (three bf16 passes of
+    4·T²·64·BH operations at the bf16 tensor-core rate) beside the
+    CUDA-core bound of the same f32 products. Returns one stats dict per
+    call."""
+    import torch
+    import torch.nn.functional as F
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    stats = []
+    for args, kw in calls:
+        q, k, v, scale = args
+        got, lse = attention._forward(q, k, v, scale, with_lse=True)
+        again, lse2 = attention._forward(q, k, v, scale, with_lse=True)
+        repeat_check("flash_attn_f32", got, again)
+        repeat_check("flash_attn_f32 lse", lse, lse2)
+        want, plse = attention.attention_lse_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        rtol, atol = flash_tol(want, "float32")
+        ok, err = _within(got, want, rtol, atol)
+        over = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+        lse_err = float((lse - plse).abs().max())
+        lse_ok = lse_err <= 1e-4 * float(plse.abs().max())
+        del want, plse
+        lse_over, lse_ctrl = lse_check(lse, q, k, scale, "float32")
+        BH, T, hd = q.shape
+        flops = 4 * BH * T * T * hd
+        q4, k4, v4 = (t_.view(1, BH, T, hd) for t_ in (q, k, v))
+        s = dict(err=err, over=over, lse_over=lse_over, T=T,
+                 **bound_ms(4 * BH * T * hd * 4, F32_FWD_PASSES * flops,
+                            BF16_FLOPS),
+                 cuda_core_bound_ms=flops / F32_FLOPS * 1e3,
+                 ms=cuda_ms(lambda: attention.flash_attention(
+                     q, k, v, scale), reps),
+                 plain_ms=cuda_ms(lambda: attention.attention_plain(
+                     q, k, v, scale), max(2, reps // 4)),
+                 library_ms=cuda_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         q4, k4, v4, scale=scale * scale), reps))
+        log(f"{tag}: flash_attn_f32 [{BH},{T},{hd}] f32 (recorded on the "
+            f"main path): out at {over:.4f} of the f32 rule (max |diff| "
+            f"{err:.3e}, tol {atol:.2e} + {rtol:g}·|plain|), lse max |diff| "
+            f"{lse_err:.3e}, at {lse_over:.4f} of lse_check's bound "
+            f"(log2-units control {lse_ctrl:.1f}×); two launches "
+            f"bit-equal; {s['ms']:.4f} ms on wgmma, {F32_FWD_PASSES} bf16 "
+            f"passes (bound {max(s['bytes_ms'], s['ops_ms']):.4f} ms; "
+            f"{s['cuda_core_bound_ms']:.4f} ms at the f32 CUDA-core rate), "
+            f"plain {s['plain_ms']:.4f} ms, SDPA f32 {s['library_ms']:.4f} "
+            f"ms (the kernel at {s['ms'] / s['library_ms']:.3f}× it)")
+        if not ok or not lse_ok:
+            raise AssertionError(f"flash_attn_f32 disagrees at T={T}: "
+                                 f"{err}, lse {lse_err}")
+        if s["ms"] > s["library_ms"]:
+            raise AssertionError(f"flash_attn_f32 at T={T}: {s['ms']} ms, "
+                                 f"slower than SDPA f32 "
+                                 f"({s['library_ms']} ms)")
+        stats.append(s)
+    return stats
+
+
+def f32_shapes(stats) -> list:
+    """The per-shape entries of the f32 forward's row."""
+    return [dict(T=st["T"], ms=st["ms"], library_ms=st["library_ms"],
+                 plain_ms=st["plain_ms"],
+                 bound_ms=max(st["bytes_ms"], st["ops_ms"]),
+                 cuda_core_bound_ms=st["cuda_core_bound_ms"],
+                 max_abs_err=st["err"], rule_share=st["over"],
+                 lse_bound_share=st["lse_over"]) for st in stats]
+
+
+def phase_slice_f32(ld_proj, seed: int, reps: int) -> dict:
+    """The ART slice at the shipped test preset's dtype, f32 activations
+    (:data:`ART_F32_SLICE_OPT`), with both UNets built anew from the f32
+    options and PyTorch's default precision, as ``main_torch.py`` runs it
+    (cuDNN convolutions in TF32, matmuls in f32): the main-path run on a
+    plan built anew, 2 warm slices with their stage split, one profiled
+    slice (:func:`phase_slice`); the flash kernels' launches and device
+    ms in the profiled slice; then the f32 forward on the main-path run's
+    q, k, v (its first call of each shape: T = 7125 from the proj UNet,
+    4096 from the img UNet) by :func:`flash_f32_check`. Returns the
+    kernels JSON line's flash_attn_f32 row."""
+    import torch
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import build_unet
+
+    torch.manual_seed(seed)
+    models = (build_unet(ART_F32_SLICE_OPT, "proj", device="cuda").eval(),
+              build_unet(ART_F32_SLICE_OPT, "img", device="cuda").eval())
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with Recorder(unet, "flash_attention",
+                      key=lambda a: tuple(a[0].shape)) as fa:
+            run, warm, prof = phase_slice(
+                "ART-f32", ART_F32_SLICE_OPT, models, ld_proj, seed,
+                ART_F32_KERNELS, 105, n_timed=2, fresh_plan=True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    del models
+    flash = {k: v for k, v in prof.items()
+             if "flash_attn_kernel" in k or "split_kernel" in k}
+    for k, (n, ms) in flash.items():
+        log(f"slice-ART-f32 profile: flash {k[:60]}: {n} launches, "
+            f"{ms:.3f} ms on the device ({ms / max(n, 1):.4f} ms each)")
+    log(f"slice-ART-f32: flash_attn_f32 launches per warm slice "
+        f"{warm['flash_attn_f32']} (expected 525: 225 at T = 7125, 300 at "
+        f"T = 4096), in the main-path run {run['flash_attn_f32']}; flash's "
+        f"device time in the profiled slice "
+        f"{sum(ms for _, ms in flash.values()):.3f} ms")
+    stats = flash_f32_check("kernels-ART-f32", fa.calls, reps)
+    rows = []
+    summarise(rows, "kernels-ART-f32", "flash_attn_f32",
+              "ipdm_tpu_torch/csrc/flash_attn.cu",
+              "ipdm_tpu/models/unet.py:601", stats, True)
+    row = rows[0]
+    row["launches"] = run["flash_attn_f32"]
+    row["launches_per_warm_f32_slice"] = warm["flash_attn_f32"]
+    row["shapes"] = f32_shapes(stats)
+    return row
 
 
 def phase_record_art(ld_proj):
@@ -2582,61 +2738,19 @@ def _bwd_rounded_ds(q, k, v, do, scale):
 
 def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
     """The f32 flash forward on the train runs' recorded q, k, v (T = 4096
-    and 7125) against attention_plain in f32, with its ragged checks and
+    and 7125) by :func:`flash_f32_check`, with its ragged checks and
     planted control; the backward kernels on the recorded backward inputs
     (f32 from the train runs, bf16 from the grad phase) against
     attention_bwd_plain, bit-equal over two launches, each beside a
     planted D-dropped control; the ragged backward checks. Returns the
-    rows of the kernels JSON line (flash_attn_f32, flash_bwd_dq,
-    flash_bwd_dkv) with each run's launches."""
+    rows of the kernels JSON line (flash_bwd_dq, flash_bwd_dkv) with each
+    run's launches, and the forward's stats."""
     import torch
-    import torch.nn.functional as F
-    from ipdm_tpu_torch.ops.cuda import attention
 
-    rows, stats = [], []
+    rows = []
     # no_grad, not inference_mode: the timed yardsticks run autograd
     with torch.no_grad():
-        for args, kw in fwd_calls:
-            q, k, v, scale = args
-            got, lse = attention._forward(q, k, v, scale, with_lse=True)
-            again = attention._forward(q, k, v, scale)
-            repeat_check("flash_attn_f32", got, again)
-            want, plse = attention.attention_lse_plain(q, k, v, scale)
-            torch.cuda.synchronize()
-            rtol, atol = flash_tol(want, "float32")
-            ok, err = _within(got, want, rtol, atol)
-            lse_err = float((lse - plse).abs().max())
-            BH, T, hd = q.shape
-            q4, k4, v4 = (t_.view(1, BH, T, hd) for t_ in (q, k, v))
-            s = dict(err=err, **bound_ms(4 * BH * T * hd * 4,
-                                         4 * BH * T * T * hd, F32_FLOPS),
-                     ms=cuda_ms(lambda: attention.flash_attention(
-                         q, k, v, scale), reps),
-                     plain_ms=cuda_ms(lambda: attention.attention_plain(
-                         q, k, v, scale), max(2, reps // 4)),
-                     library_ms=cuda_ms(
-                         lambda: F.scaled_dot_product_attention(
-                             q4, k4, v4, scale=scale * scale), reps))
-            log(f"kernels-train: flash_attn_f32 [{BH},{T},{hd}] f32 (a "
-                f"train run's recorded q, k, v): max |diff| {err:.3e} (tol "
-                f"{atol:.2e} + {rtol:g}·|plain|), lse max |diff| "
-                f"{lse_err:.3e}; two launches bit-equal; {s['ms']:.4f} ms, "
-                f"plain {s['plain_ms']:.4f} ms, SDPA "
-                f"{s['library_ms']:.4f} ms, bound "
-                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
-            if not ok or lse_err > 1e-4 * float(plse.abs().max()):
-                raise AssertionError(f"flash_attn_f32 disagrees at T={T}: "
-                                     f"{err}, lse {lse_err}")
-            stats.append(dict(s, T=T))
-        summarise(rows, "kernels-train", "flash_attn_f32",
-                  "ipdm_tpu_torch/csrc/flash_attn_f32.cu",
-                  "ipdm_tpu/models/unet.py:601", stats, True)
-        rows[-1]["shapes"] = [dict(T=st["T"], ms=st["ms"],
-                                   library_ms=st["library_ms"],
-                                   plain_ms=st["plain_ms"],
-                                   bound_ms=max(st["bytes_ms"],
-                                                st["ops_ms"]),
-                                   max_abs_err=st["err"]) for st in stats]
+        fwd_stats = flash_f32_check("kernels-train", fwd_calls, reps)
         flash_ragged(reps, "float32", (4097, 7125))
 
         # the backward kernels: f32 from the train runs, bf16 from grad
@@ -2727,7 +2841,7 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
         row["launches"] = runs["img"][name] + runs["proj"][name]
         row["launches_train_img"] = runs["img"][name]
         row["launches_train_proj"] = runs["proj"][name]
-    return rows
+    return rows, fwd_stats
 
 
 def main() -> int:
@@ -2759,13 +2873,14 @@ def main() -> int:
     bp_row = rows[-1]
     grad_calls = phase_grad(models, ld_proj, SEED)
     phase_reference(SEED)
-    fbp, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
-                         FBP_KERNELS, 90, n_timed=1)
+    fbp, _, _ = phase_slice("FBP", SLICE_OPT, models, ld_proj, SEED,
+                            FBP_KERNELS, 90, n_timed=1)
     art_calls, per_plan = phase_record_art(ld_proj)
     rows += phase_kernels_art(art_calls, REPS, bp_row)
     phase_reference_art(SEED)
-    art, warm = phase_slice("ART", ART_SLICE_OPT, models, ld_proj, SEED,
-                            ART_KERNELS, 105, n_timed=2, fresh_plan=True)
+    art, warm, _ = phase_slice("ART", ART_SLICE_OPT, models, ld_proj, SEED,
+                               ART_KERNELS, 105, n_timed=2, fresh_plan=True)
+    f32_row = phase_slice_f32(ld_proj, SEED, REPS)
     fp_calls, fp_run, bf16_run = phase_record_fp(SEED)
     rows += phase_kernels_fp(fp_calls, art_calls, REPS)
     phase_reference_fp(SEED)
@@ -2777,8 +2892,14 @@ def main() -> int:
         rows += phase_kernels_bp1(
             bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
         fwd_calls, bwd_calls, train_runs = phase_train(SEED, out)
-    train_rows = phase_kernels_train(fwd_calls, bwd_calls, grad_calls,
-                                     train_runs, REPS)
+    train_rows, train_fwd = phase_kernels_train(
+        fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
+    # the f32 forward's row is the f32 ART slice's (its main path); the
+    # train runs' counts and checked shapes beside them
+    f32_row["launches_train_img"] = train_runs["img"]["flash_attn_f32"]
+    f32_row["launches_train_proj"] = train_runs["proj"]["flash_attn_f32"]
+    f32_row["train_shapes"] = f32_shapes(train_fwd)
+    train_rows.insert(0, f32_row)
     # each path's run had the counters set to 0 just before it and read
     # just after. A kernel's ``launches`` is its count in the ART slice's
     # main-path run (rows of the earlier slices), or in the run of this
@@ -2814,12 +2935,15 @@ def main() -> int:
         if row["name"] in ("planar_unit", "flash_attn"):
             row["launches_train_proj"] = train_runs["proj"][row["name"]]
     for row in train_rows:
-        log(f"kernels: {row['name']}: {row['launches']} launches in the "
-            f"train runs (img {row['launches_train_img']}, proj "
+        where = ("the f32 ART slice's main-path run; in the train runs"
+                 if row is f32_row else "the train runs")
+        log(f"kernels: {row['name']}: {row['launches']} launches in "
+            f"{where} (img {row['launches_train_img']}, proj "
             f"{row['launches_train_proj']})")
-        if row["launches_train_img"] <= 0 or row["launches_train_proj"] <= 0:
-            raise AssertionError(f"{row['name']} was not launched in a "
-                                 f"train run")
+        if (row["launches"] <= 0 or row["launches_train_img"] <= 0
+                or row["launches_train_proj"] <= 0):
+            raise AssertionError(f"{row['name']} was not launched in "
+                                 f"{where}")
     rows += train_rows
     print(json.dumps({"kernels": rows}))
     print(smi)

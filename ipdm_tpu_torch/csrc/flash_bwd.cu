@@ -103,8 +103,6 @@ constexpr int BR = BM * NWG;              // resident rows per CTA
 constexpr int BN = 64;                    // rows per ring tile
 constexpr int NTHREADS = NWG * 128;
 constexpr int TILE = BN * HD;             // elements of a 64-row tile
-constexpr int MN_STEP = 16 * 128 >> 4;    // 16 rows of an MN-major B, in
-                                          // descriptor units
 constexpr float LOG2E = 1.4426950408889634f;
 
 // the value of x that the products see: x in bf16; hi + lo of its split
@@ -167,15 +165,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-// x ~ hi + lo as two bf16 pairs
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
-
 // four consecutive f32 of row r, columns 4 c4 .. 4 c4 + 3, split into the
 // hi and lo tiles at their 128-byte-swizzle place (16-byte chunk c4 / 2 of
 // the row XOR r % 8, as TMA's SWIZZLE_128B lays a 64-column bf16 tile out)
@@ -201,53 +190,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NP][16],
     else
       split2(d[2 * i], d[2 * i + 1], a[0][i], a[1][i]);
   }
-}
-
-// d (+)= A B^T over the head dimension, A and B K-major in shared memory:
-// one pass, or three (hi hi, hi lo, lo hi)
-template <bool F32>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint64_t aH,
-                                           uint64_t aL, uint64_t bH,
-                                           uint64_t bL) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss(d, aH + 2 * kk, bH + 2 * kk, kk);
-  if constexpr (F32) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(d, aH + 2 * kk, bL + 2 * kk, 1);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(d, aL + 2 * kk, bH + 2 * kk, 1);
-  }
-}
-
-// d += A B over the ring tile's 64 rows, A in registers, B MN-major in
-// shared memory: one pass, or three
-template <int NP>
-__device__ __forceinline__ void product_rs(float (&d)[32],
-                                           const uint32_t (&a)[NP][16],
-                                           uint64_t bH, uint64_t bL) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
-             a[0][4 * kk + 3], bH + kk * MN_STEP);
-  if constexpr (NP == 2) {
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
-               a[0][4 * kk + 3], bL + kk * MN_STEP);
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(d, a[1][4 * kk], a[1][4 * kk + 1], a[1][4 * kk + 2],
-               a[1][4 * kk + 3], bH + kk * MN_STEP);
-  }
-}
-
-template <int NP>
-__device__ __forceinline__ void reg_fence_a(uint32_t (&a)[NP][16]) {
-#pragma unroll
-  for (int p = 0; p < NP; ++p) reg_fence(a[p]);
 }
 
 // A warp's loads, all 32 lanes: ring tile j into slot j % STAGES once the

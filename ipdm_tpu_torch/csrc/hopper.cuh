@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_attn.cu, flash_bwd.cu): mbarriers, TMA loads of [BH, T, 64]
-// tensors, wgmma m64n64k16 in bf16 with f32 sums, and the register
-// layouts between them.
+// tensors, wgmma m64n64k16 in bf16 with f32 sums, f32 products as three
+// bf16 passes, and the register layouts between them.
 //
 // Accumulator layout (m64nN f32): warp w of the warpgroup holds rows
 // 16w + lane/4 (registers 4n, 4n+1) and 16w + lane/4 + 8 (4n+2, 4n+3), at
@@ -166,6 +166,69 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// f32 operands as three bf16 passes (flash_attn.cu's f32 body,
+// flash_bwd.cu's): x ~ hi + lo with hi = bf16(x), lo = bf16(x - hi), and
+// each product hi*hi + hi*lo + lo*hi into the same f32 sums (lo*lo dropped)
+
+// x ~ hi + lo as two bf16 pairs
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+constexpr int MN_STEP = 16 * 128 >> 4;  // 16 rows of an MN-major B, in
+                                        // descriptor units
+
+// d (+)= A B^T over the head dimension, A and B K-major in shared memory:
+// one pass, or three (hi hi, hi lo, lo hi)
+template <bool F32>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint64_t aH,
+                                           uint64_t aL, uint64_t bH,
+                                           uint64_t bL) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(d, aH + 2 * kk, bH + 2 * kk, kk);
+  if constexpr (F32) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(d, aH + 2 * kk, bL + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(d, aL + 2 * kk, bH + 2 * kk, 1);
+  }
+}
+
+// d += A B over a 64-row tile, A in registers, B MN-major in shared
+// memory: one pass, or three
+template <int NP>
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&a)[NP][16],
+                                           uint64_t bH, uint64_t bL) {
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk)
+    wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
+             a[0][4 * kk + 3], bH + kk * MN_STEP);
+  if constexpr (NP == 2) {
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk)
+      wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
+               a[0][4 * kk + 3], bL + kk * MN_STEP);
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk)
+      wgmma_rs(d, a[1][4 * kk], a[1][4 * kk + 1], a[1][4 * kk + 2],
+               a[1][4 * kk + 3], bH + kk * MN_STEP);
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void reg_fence_a(uint32_t (&a)[NP][16]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) reg_fence(a[p]);
 }
 
 // a named barrier over ``n`` threads (a multiple of 32)

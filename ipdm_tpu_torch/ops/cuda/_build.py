@@ -40,7 +40,8 @@ SIGNATURES = {
     "bp_shift_launch": [P, P, P, P, P, I, I, I, I, P],
     # q, k, v, out, lse (or null), BH, T, scale_log2, stream
     "flash_attn_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
-    "flash_attn_f32_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
+    # q, k, v, split (scratch), out, lse (or null), BH, T, scale_log2, stream
+    "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, ctypes.c_float, P],
     # q, k, v, out, do, lse, D, dq, BH, T, scale_log2, scale2, bf16, stream
     "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
                             ctypes.c_float, I, P],

@@ -7,8 +7,8 @@ and of the two Pallas kernels of its backward
 (jax/experimental/pallas/ops/tpu/flash_attention.py:941
 ``_flash_attention_bwd_dkv`` and :1287 ``_flash_attention_bwd_dq``). On a
 CUDA tensor :func:`flash_attention` launches the forward kernel of
-``csrc/flash_attn.cu`` (bf16, wgmma) or ``csrc/flash_attn_f32.cu`` (f32,
-CUDA cores); on a CPU tensor it runs :func:`attention_plain`, the einsum
+``csrc/flash_attn.cu`` (wgmma: bf16 as it is, f32 as three bf16 passes of
+split operands); on a CPU tensor it runs :func:`attention_plain`, the einsum
 formula of unet.py:659-662. Shorter sequences take :func:`attention_plain`
 on every device, as the JAX package does.
 
@@ -190,10 +190,14 @@ def _forward(q, k, v, scale, with_lse=False):
     lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     entry, counter = _FORWARD[q.dtype]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if q.dtype == torch.float32:   # the kernel's bf16 hi and lo of q, k, v
+        split = torch.empty((6, BH, T, HEAD_DIM), dtype=torch.bfloat16,
+                            device=q.device)
+        ptrs.append(split.data_ptr())
     code = getattr(_build.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), BH, T,
-        scale * scale * math.log2(math.e), _build.stream_ptr(q))
+        *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(), BH,
+        T, scale * scale * math.log2(math.e), _build.stream_ptr(q))
     _build.check(code, counter)
     _build.LAUNCHES[counter] += 1
     return (out, lse) if with_lse else out

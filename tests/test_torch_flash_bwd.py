@@ -7,8 +7,8 @@ attention.py) on the CPU.
   whose backward the two Pallas kernels _flash_attention_bwd_dkv :941 and
   _flash_attention_bwd_dq :1287 compute) and the einsum path of
   ipdm_tpu/models/unet.py:659-662, in f32 and bf16, at ragged T.
-* A CPU write-out of the CUDA kernels' tiling (csrc/flash_attn_f32.cu,
-  csrc/flash_bwd.cu): 64-row tiles, rows past T staged as zeros, the
+* A CPU write-out of the CUDA kernels' tiling (csrc/flash_attn.cu's
+  tile order with f32 products, csrc/flash_bwd.cu): 64-row tiles, rows past T staged as zeros, the
   online softmax and lse over key tiles in order, D = rowsum(dO·O), dQ
   per query tile over key tiles in order, dK and dV per key tile over
   query tiles in order, keys past T masked in the forward and the dQ
@@ -31,7 +31,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import \
 
 from ipdm_tpu_torch.ops.cuda import attention
 
-TILE = 64      # rows per tile: flash_simt.cuh TILE, flash_bwd.cu BN
+TILE = 64      # rows per tile: flash_attn.cu BK, flash_bwd.cu BN
 HD = attention.HEAD_DIM
 SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 
@@ -133,16 +133,17 @@ def test_bwd_plain_matches_jax_vjp(dtype, T, ref):
 
 def _tiles(x, T):
     """[BH, T, 64] → [BH, ntiles, 64, 64], rows past T zeros (the tiles'
-    staging in flash_simt.cuh load_tile)."""
+    zero fill by TMA)."""
     n = -(-T // TILE)
     pad = torch.zeros(x.shape[0], n * TILE - T, HD, dtype=torch.float32)
     return torch.cat([x.float(), pad], 1).view(x.shape[0], n, TILE, HD)
 
 
 def fwd_tiles(q, k, v, scale, mask=True):
-    """flash_attn_f32.cu: per 64-row query tile, key tiles in order, the
-    online softmax in the log2 domain; keys ≥ T score −inf (``mask``).
-    Returns out [BH, T, 64] and lse [BH, T]."""
+    """flash_attn.cu's order with f32 products (its three-pass body is
+    tests/test_torch_flash_fwd.py's gate): per 64-row query tile, key
+    tiles in order, the online softmax in the log2 domain; keys ≥ T score
+    −inf (``mask``). Returns out [BH, T, 64] and lse [BH, T]."""
     BH, T, _ = q.shape
     c2 = scale * scale * math.log2(math.e)
     Q, K, V = _tiles(q, T), _tiles(k, T), _tiles(v, T)
