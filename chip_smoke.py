@@ -80,6 +80,28 @@ exits non-zero without a result line:
    at T = 7125 and 4096 against the plain version (the f32 rule, the lse
    by lse_check, bit-equal repeats), timed beside SDPA f32, which it must
    not be slower than;
+   exact — the reference's own reconstructor (plain PyTorch) at the
+   SIEMENS geometry: the footprint pair's adjointness ⟨FP x, y⟩ =
+   (1/dr)·⟨x, BP y⟩ on four views, beside a BP with one footprint bin
+   dropped that must miss it; the exact FP of a 512² phantom (ms, a
+   repeat's max |diff|) and its scatter-add through index_add_ and
+   index_put_(accumulate=True), with and without deterministic
+   algorithms (repeats bit-equal or not, ms); fbp_convert and recons
+   (nstart 10, 40 subsets) of that one sinogram: ms, peak memory, finite,
+   recons ≥ 0, PSNR against the phantom in the recons orientation, two
+   recons runs' max |diff|; forward_project, fbp_convert and recons at
+   64² on the card against the CPU, within 1e-3 of their range; one ART
+   slice with exact_art (the footprint OS-SART of the four kept
+   iterations): s/slice and its stage split;
+   slice-DDIM — the shipped test preset (Config/Mayo-Config/
+   test_progressive_option.json, f32) with sparse (DDIM) sampling in
+   both domains: UNet evals per slice (counted), the main-path run with
+   its launches (planar_unit, the f32 flash forward, the sweep and
+   anterp_taps each > 0), warm slices and their split, the profiled
+   slice's device time and idle share, peak memory; then kernels-DDIM:
+   planar_unit (f32), the f32 flash forward, the sweep at B = 3 (the
+   three kept iterations; beside B = 4's time per image) and anterp_taps
+   on that path's recorded inputs against their plain versions;
 11. record-FP — one ``project_fast`` of two 512² phantoms at the SIEMENS
    scanner (natural Kf = 2, 500 views per drive) with the kernel wrappers'
    inputs recorded, its launches, its device time; then one
@@ -109,7 +131,11 @@ exits non-zero without a result line:
    the engine's phase times; then one more slice through ``update_opt``:
    FBP with one converted iteration, which backprojects a single sinogram
    through bp_shift_accumulate, with that wrapper's inputs recorded; the
-   corpus's os_sart_sweep calls are recorded too;
+   corpus's os_sart_sweep calls are recorded too; figures — fit() with
+   display_result on one slice of that corpus: progressive.png written,
+   and every PSNR / SSIM drawn on it equal to the slice's metric.json
+   (where matplotlib cannot be imported, a line says the phase did not
+   run and why);
 15. kernels-corpus — os_sart_sweep on the corpus's last sweep of each drive
    (B = 1) against its plain version, with the repeat check;
    kernels-BP1 — bp_shift_accumulate on the recorded inputs (V=500,
@@ -920,8 +946,8 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
     from ipdm_tpu_torch.recon import sart_fast
 
     proj_model, img_model = models
-    tag = {"FBP": "slice", "ART": "slice-ART",
-           "ART-f32": "slice-ART-f32"}[label]
+    tag = {"FBP": "slice", "ART": "slice-ART", "ART-f32": "slice-ART-f32",
+           "DDIM": "slice-DDIM"}[label]
 
     n = make_convertor(opt).fbp_geom.grid_n
 
@@ -2340,7 +2366,7 @@ def phase_train(seed: int, out: str):
     full-dose images and sinograms; both slices are the test set too),
     10 steps each, checkpoints and test(it) every 5 steps with one test
     slice, PSNR / SSIM only; the PNG grids (display_result, which
-    train_proj's preset sets) are not ported yet. Each step's loss, warm
+    train_proj's preset sets) are the figures phase's. Each step's loss, warm
     s/step, peak memory of a step, the kernels' launches per step, the
     checkpoint files and the scalars.jsonl lines; then a resume from
     optimizer-1, whose Adam state must equal the file's. Returns the
@@ -2351,8 +2377,8 @@ def phase_train(seed: int, out: str):
     ex = _example()
     paths = ex.dataset_paths(out)
     fwd_calls, bwd_calls, runs = [], [], {}
-    log("train: display_result=False: the PNG grids are ported with a "
-        "later slice (ROADMAP Queue 1 item 3); metrics psnr, ssim")
+    log("train: display_result=False (the PNG grids are the figures "
+        "phase's; they need matplotlib); metrics psnr, ssim")
     # as main_torch.py trains: PyTorch's default precision (convolutions
     # through cuDNN in TF32, matmuls in f32), which the kernel checks above
     # turned off
@@ -2844,6 +2870,485 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
     return rows, fwd_stats
 
 
+# ---------------------------------------------------------------------------
+# The exact physics, sparse (DDIM) sampling and the PNG result grids
+# ---------------------------------------------------------------------------
+
+# the ART slice with the reference's own reconstructor: the footprint
+# OS-SART (recon/sart.py) in place of the fast one
+EXACT_ART_OPT = dict(ART_SLICE_OPT, exact_art=True)
+# the shipped test preset, read from the checkout
+PRESET_PATH = osp.join("Config", "Mayo-Config", "test_progressive_option.json")
+# kernels the sparse slice's main path launches once the OS-SART plan is
+# built: the UNets' (f32, the preset's dtype), the sweep and the resample
+DDIM_KERNELS = ("planar_unit", "flash_attn_f32", "os_sart_sweep",
+                "anterp_taps")
+# the exact phase's views for the adjointness check (degrees)
+ADJOINT_VIEWS = (0.0, 33.3, 137.0, 271.0)
+
+
+def shipped_preset() -> dict:
+    """Config/Mayo-Config/test_progressive_option.json as a dict."""
+    with open(osp.join(osp.dirname(osp.abspath(__file__)), PRESET_PATH)) as f:
+        return json.load(f)
+
+
+def ddim_slice_opt() -> dict:
+    """The shipped test preset with sparse (DDIM) sampling in both
+    domains, at its own dtype (it sets none: the config's f32)."""
+    return dict(shipped_preset(), sample_method_proj="sparse",
+                sample_method_img="sparse", compute_dtype="float32")
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev) -> float:
+    import torch
+    if torch.device(dev).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _timed(fn, dev):
+    """fn()'s result and its host time in ms, synchronised at both ends."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _psnr(img, ref) -> float:
+    """PSNR of img against ref with the peak max|ref|."""
+    mse = float(((img.double() - ref.double()) ** 2).mean())
+    return 10 * math.log10(float(ref.abs().max()) ** 2 / mse)
+
+
+def _fp_scatter(foot, x, geom, how: str):
+    """The FP's scatter of one block of views (recon/projector.py
+    fp_one_angle's values and bin indices) through ``index_add_`` or
+    ``index_put_(accumulate=True)``: the two scatter-adds PyTorch offers,
+    for the repeat measurement."""
+    import torch
+    V, P = foot.div.shape
+    vals = (x[None] / foot.div)[..., None] * foot.areas
+    offs = torch.arange(geom.nfoot, device=x.device)
+    idx = foot.s_bin[..., None] + offs
+    vals = torch.where((idx >= 0) & (idx < geom.nr), vals,
+                       torch.zeros((), device=x.device)).reshape(-1)
+    idx = (idx.clamp(0, geom.nr - 1) + geom.nr * torch.arange(
+        V, device=x.device)[:, None, None]).reshape(-1)
+    out = torch.zeros(V * geom.nr, device=x.device)
+    if how == "index_add_":
+        return out.index_add_(0, idx, vals)
+    return out.index_put_((idx,), vals, accumulate=True)
+
+
+def exact_repeats(foot, x, geom, reps: int) -> None:
+    """Whether the FP's scatter-add gives the same bits twice: index_add_
+    and index_put_(accumulate=True), each with and without
+    torch.use_deterministic_algorithms, on one block of views at full
+    width; the max |diff| between two runs and the ms of one."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det)
+            for how in ("index_add_", "index_put_"):
+                try:
+                    a = _fp_scatter(foot, x, geom, how)
+                    b = _fp_scatter(foot, x, geom, how)
+                except RuntimeError as e:
+                    log(f"exact: FP scatter {how} deterministic={det}: "
+                        f"refused ({str(e)[:120]})")
+                    continue
+                torch.cuda.synchronize()
+                diff = float((a - b).abs().max())
+                ms = cuda_ms(lambda: _fp_scatter(foot, x, geom, how), reps)
+                log(f"exact: FP scatter of {foot.div.shape[0]} views through "
+                    f"{how}, deterministic algorithms {det}: two runs "
+                    f"{'bit-equal' if torch.equal(a, b) else 'differ'} (max "
+                    f"|diff| {diff:.3e} of max {float(a.abs().max()):.4f}), "
+                    f"{ms:.4f} ms")
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def small_exact_check(seed: int, dev: str = "cuda") -> None:
+    """forward_project, fbp_convert and recons (nstart 10, 40 subsets) of a
+    64² phantom on ``dev`` against the CPU, each within 1e-3 of the CPU
+    result's range."""
+    import torch
+    from ipdm_tpu_torch.recon import projector
+    from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan, recons
+    from ipdm_tpu_torch.recon.fbp import fbp_convert
+    from ipdm_tpu_torch.recon.geometry import area_lut, default_betas
+    from ipdm_tpu_torch.recon.phantom import random_ellipse_phantom
+
+    geom = _example().make_geom(64)
+    vol = torch.as_tensor(random_ellipse_phantom(
+        64, np.random.default_rng(seed))[None], dtype=torch.float32)
+    lut, betas = area_lut(geom), default_betas(geom)
+    out = {}
+    for d in ("cpu", dev):
+        sino = projector.forward_project_batch(vol.to(d), geom, lut, betas)
+        fbp = fbp_convert(sino, fbp_geom_from_fan(geom))
+        art = recons(sino, geom, nstart=10, nsubsets=40)
+        _sync(d)
+        out[d] = [t.cpu() for t in (sino, fbp, art)]
+    for name, got, want in zip(("forward_project", "fbp_convert", "recons"),
+                               out[dev], out["cpu"]):
+        rng_ = float(want.max() - want.min())
+        err = float((got - want).abs().max())
+        log(f"exact: 64² {name} {tuple(want.shape)} on the card against the "
+            f"CPU: max |diff| {err:.3e} = {err / rng_:.2e} of the range "
+            f"{rng_:.4f} (tol 1e-3)")
+        if not err <= 1e-3 * rng_:
+            raise AssertionError(f"exact {name}: card and CPU differ by "
+                                 f"{err} (range {rng_})")
+    art = out["cpu"][2][0]
+    log(f"exact: 64² recons PSNR against the phantom: transposed "
+        f"{_psnr(art, vol[0].T):.2f} dB, as is {_psnr(art, vol[0]):.2f} dB")
+
+
+def phase_exact(models, seed: int, reps: int, dev: str = "cuda",
+                size: int = 512) -> dict:
+    """The reference's own reconstructor in plain PyTorch on the card, at
+    the SIEMENS geometry (``size`` 512; a smaller one rehearses it): the
+    projector pair's adjointness on a few views with a planted control;
+    the exact FP of a phantom (ms; the scatter-add's repeat behaviour);
+    fbp_convert and recons (the preset's nstart 10, 40 subsets) of that
+    one sinogram (ms, peak memory, finite, recons ≥ 0, PSNR against the
+    phantom, two recons runs' max |diff|); the 64² card-vs-CPU check;
+    then one ART slice with ``exact_art`` (bf16 UNets, the exact convert
+    of the four kept iterations): s/slice and its stage split. Returns
+    the numbers for the record."""
+    import torch
+    from ipdm_tpu_torch.engine.denoiser import (make_convertor,
+                                                progressive_denoiser)
+    from ipdm_tpu_torch.recon import projector
+    from ipdm_tpu_torch.recon.convertor import Convertor, recons
+    from ipdm_tpu_torch.recon.fbp import fbp_convert
+    from ipdm_tpu_torch.recon.geometry import area_lut, default_betas
+    from ipdm_tpu_torch.recon.phantom import random_ellipse_phantom
+
+    geom = _example().make_geom(size)
+    fbp_geom = Convertor("FBP", geom=geom).fbp_geom
+    lut = torch.as_tensor(area_lut(geom), device=dev)
+    betas = torch.as_tensor(default_betas(geom), device=dev)
+    xy = torch.as_tensor(projector.pixel_centers(geom),
+                         device=dev).reshape(-1, 2)
+    host = np.random.default_rng(seed)
+    P = geom.nx * geom.ny
+    rec = {}
+    with torch.inference_mode():
+        # the pair's adjointness: ⟨FP x, y⟩ = (1/dr)·⟨x, BP y⟩, rtol 1e-4;
+        # a BP with one footprint bin dropped has to miss it
+        x = torch.as_tensor(host.random(P, np.float32), device=dev)
+        y = torch.as_tensor(host.random(geom.nr, np.float32), device=dev)
+        worst, planted = 0.0, float("inf")
+        for ang in ADJOINT_VIEWS:
+            foot = projector.footprint_for_angle(
+                geom, lut, xy, torch.tensor(ang, device=dev))
+            lhs = float(torch.dot(projector.fp_one_angle(x, foot, geom)
+                                  .double(), y.double()))
+
+            def rhs(f):
+                return float(torch.dot(x.double(), projector.bp_one_angle(
+                    y, f, geom).double())) / geom.dr
+
+            worst = max(worst, abs(lhs - rhs(foot)) / abs(lhs))
+            areas = foot.areas.clone()
+            areas[:, 2] = 0
+            planted = min(planted, abs(lhs - rhs(foot._replace(
+                areas=areas))) / abs(lhs))
+        log(f"exact: adjointness ⟨FP x, y⟩ = (1/dr)·⟨x, BP y⟩ at "
+            f"{list(ADJOINT_VIEWS)}°: worst relative gap {worst:.2e} (rtol "
+            f"1e-4); with the BP's middle footprint bin dropped "
+            f"{planted:.2e} at the least")
+        if not (worst <= 1e-4 and planted > 1e-4):
+            raise AssertionError(f"exact adjointness {worst}, planted "
+                                 f"{planted}")
+
+        # the exact FP of a phantom: the sinogram the converts below read
+        vol = torch.as_tensor(random_ellipse_phantom(geom.nx, host),
+                              dtype=torch.float32, device=dev)
+        _peak_reset(dev)
+        sino, fp_ms = _timed(lambda: projector.forward_project(
+            vol, geom, lut, betas), dev)
+        again = projector.forward_project(vol, geom, lut, betas)
+        _sync(dev)
+        rec.update(fp_ms=fp_ms, fp_repeat=float((sino - again).abs().max()))
+        log(f"exact: forward_project of a {geom.nx}² phantom → "
+            f"{tuple(sino.shape)} in {fp_ms:.1f} ms (views in blocks of "
+            f"{projector.VIEW_BLOCK}), peak {_peak_gib(dev):.2f} GiB; a "
+            f"second run {'bit-equal' if torch.equal(sino, again) else 'differs'}"
+            f" (max |diff| {rec['fp_repeat']:.3e} of max "
+            f"{float(sino.abs().max()):.4f})")
+        if torch.device(dev).type == "cuda":
+            foot = projector.footprint_for_angle(geom, lut, xy,
+                                                 betas[:projector.VIEW_BLOCK])
+            exact_repeats(foot, vol.reshape(-1), geom, reps)
+
+        _peak_reset(dev)
+        fbp, fbp_ms = _timed(lambda: fbp_convert(sino[None], fbp_geom), dev)
+        fbp_peak = _peak_gib(dev)
+        _peak_reset(dev)
+        art, art_ms = _timed(lambda: recons(sino[None], geom, nstart=10,
+                                            nsubsets=40), dev)
+        art_peak = _peak_gib(dev)
+        art2, art2_ms = _timed(lambda: recons(sino[None], geom, nstart=10,
+                                              nsubsets=40), dev)
+        rec.update(fbp_ms=fbp_ms, fbp_peak=fbp_peak, art_ms=art_ms,
+                   art_ms_second=art2_ms, art_peak=art_peak,
+                   art_repeat=float((art - art2).abs().max()))
+        ref = vol.T
+        for name, img, ms, peak in (("fbp_convert", fbp, fbp_ms, fbp_peak),
+                                    ("recons", art, art_ms, art_peak)):
+            finite = bool(torch.isfinite(img).all())
+            log(f"exact: {name} of one {tuple(sino.shape)} sinogram → "
+                f"{tuple(img.shape)}: {ms:.1f} ms, peak {peak:.2f} GiB, "
+                f"finite={finite}, min {float(img.min()):.4f}, PSNR against "
+                f"the phantom (peak max μ) transposed "
+                f"{_psnr(img[0], ref):.2f} dB, as is {_psnr(img[0], vol):.2f}"
+                f" dB")
+            if not finite or tuple(img.shape) != (1, geom.nx, geom.ny):
+                raise AssertionError(f"exact {name}: {tuple(img.shape)} "
+                                     f"finite={finite}")
+            if not _psnr(img[0], ref) > _psnr(img[0], vol):
+                raise AssertionError(f"exact {name}: not in the recons "
+                                     f"(transposed) orientation")
+        if not float(art.min()) >= 0.0:
+            raise AssertionError(f"exact recons below 0: {float(art.min())}")
+        log(f"exact: recons again {art2_ms:.1f} ms; the two runs "
+            f"{'bit-equal' if torch.equal(art, art2) else 'differ'} (max "
+            f"|diff| {rec['art_repeat']:.3e} of max {float(art.max()):.4f})")
+        del sino, again, fbp, art, art2
+
+    small_exact_check(seed, dev)
+
+    if models is None:
+        return rec
+    # one ART slice with the exact convert (the four kept iterations in
+    # one batched footprint OS-SART)
+    proj_model, img_model = models
+    opt = dict(EXACT_ART_OPT, geometry=_example().geometry_overrides(size))
+    ld = torch.as_tensor(host.random((1, geom.na, geom.nr, 1), np.float32)
+                         * 4.0, device=dev)
+    timer = StageTimer(make_convertor(opt))
+    _peak_reset(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    out = progressive_denoiser(opt, proj_model, img_model, ld, gen,
+                               convertor=timer, sharpen_num=SHARPEN,
+                               device=dev)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    c0, c1 = timer.marks
+    finite = bool(torch.isfinite(out).all())
+    rec.update(slice_s=dt, proj_s=c0 - t0, convert_s=c1 - c0,
+               img_s=t0 + dt - c1, slice_peak=_peak_gib(dev))
+    log(f"exact: ART slice with exact_art (105 UNet evals, the footprint "
+        f"OS-SART of 4 sinograms): {dt:.3f} s/slice: proj stage "
+        f"{rec['proj_s']:.3f} s, convert {rec['convert_s']:.3f} s, img stage "
+        f"{rec['img_s']:.3f} s; peak {rec['slice_peak']:.2f} GiB; output "
+        f"{tuple(out.shape)} finite={finite}")
+    if tuple(out.shape) != (1, geom.nx, geom.ny, 1) or not finite:
+        raise AssertionError(f"exact_art slice output {tuple(out.shape)} "
+                             f"finite={finite}")
+    return rec
+
+
+class CountedModel:
+    """A UNet as the samplers call it, counting its evals."""
+
+    def __init__(self, model):
+        self.model = model
+        self.evals = 0
+
+    def __call__(self, x, t):
+        self.evals += 1
+        return self.model(x, t)
+
+
+def phase_slice_ddim(ld_proj, seed: int, reps: int, sweep_b4: dict) -> dict:
+    """The shipped test preset at full width with sparse (DDIM) sampling in
+    both domains (:func:`ddim_slice_opt`; f32 UNets built from it, cuDNN
+    in TF32 as main_torch.py runs): UNet evals per slice (counted), the
+    main-path run, warm slices and their split, the profiled slice
+    (:func:`phase_slice`); then one more slice with the kernel wrappers'
+    inputs recorded, and on them planar_unit (f32), the f32 flash forward
+    (:func:`flash_f32_check`), the sweep at B = 3 (the three kept
+    iterations; beside B = 4's time per image from kernels-ART) and
+    anterp_taps, each against its plain version. Returns the main-path
+    run's launches."""
+    import torch
+    from ipdm_tpu_torch.engine.denoiser import progressive_denoiser
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import planar, shift
+    from ipdm_tpu_torch.recon import sart_fast
+
+    opt = ddim_slice_opt()
+    n_evals = (sum(opt["ddim_timesteps_proj"]) + sum(opt["ddim_timesteps_img"])
+               + 15)   # + the ultra pass, 3×5 steps
+    torch.manual_seed(seed)
+    models = [CountedModel(build_unet(opt, d, device="cuda").eval())
+              for d in ("proj", "img")]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        run, warm, _ = phase_slice("DDIM", opt, models, ld_proj, seed,
+                                   DDIM_KERNELS, n_evals, n_timed=2)
+        evals = [m.evals for m in models]
+        per = sum(evals) / 5   # warm-up, main path, 2 timed, profiled
+        log(f"slice-DDIM: UNet evals per slice {per:g} (proj "
+            f"{evals[0] / 5:g}, img {evals[1] / 5:g}; dense ART: 105); "
+            f"DDIM steps proj {opt['ddim_timesteps_proj']} from t "
+            f"{opt['t_start_proj']}, img {opt['ddim_timesteps_img']} from t "
+            f"{opt['t_start_img']}, then the ultra pass")
+        if per != n_evals:
+            raise AssertionError(f"DDIM slice: {per} UNet evals per slice, "
+                                 f"expected {n_evals}")
+        by_shape = lambda a: (tuple(a[0].shape), tuple(a[3].shape))
+        recs = [Recorder(unet, "planar_unit", key=by_shape),
+                Recorder(unet, "flash_attention",
+                         key=lambda a: tuple(a[0].shape)),
+                Recorder(sart_fast, "os_sart_sweep"),
+                Recorder(sart_fast, "anterp_taps")]
+        with contextlib.ExitStack() as stack:
+            for r in recs:
+                stack.enter_context(r)
+            gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+            progressive_denoiser(opt, *models, ld_proj, gen)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    pu, fa, sw, an = (r.calls for r in recs)
+    del models
+    # the plain versions in f32 (convolutions and matmuls without TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        for args, kw in pu:
+            x, a, bb, w, bias, skip = args
+            act = kw.get("act", True)
+            got = planar.planar_unit(x, a, bb, w, bias, skip, act=act)
+            want = planar.planar_unit_plain(x, a, bb, w, bias, skip, act=act)
+            torch.cuda.synchronize()
+            ok, err = _within(got, want, 1e-4, 1e-4)
+            log(f"kernels-DDIM: planar_unit f32 C={x.shape[1]} "
+                f"O={w.shape[3]} {x.shape[2]}x{x.shape[3]}: max |diff| "
+                f"{err:.3e} (tol 1e-4 + 1e-4·|plain|)")
+            if not ok:
+                raise AssertionError(f"planar_unit (DDIM) disagrees: {err}")
+        flash_f32_check("kernels-DDIM", fa, reps)
+        # the sweep on the last sweep of each drive (x != 0), B = 3
+        for args, kw in sw[-2:]:
+            x, rf, inv2, frac, s0, nrmi, lam = args
+            B = x.shape[0]
+            if not float(x.abs().max()) > 0 or B != 3:
+                raise AssertionError(f"os_sart_sweep (DDIM) held at B={B}, "
+                                     f"max|x| {float(x.abs().max())}")
+            want = shift.os_sart_sweep_plain(*args)
+            got = shift.os_sart_sweep(*args, **kw)
+            repeat_check("os_sart_sweep (DDIM)", got,
+                         shift.os_sart_sweep(*args, **kw))
+            over = sweep_over(got, want)
+            ms = cuda_ms(lambda: shift.os_sart_sweep(*args, **kw), reps)
+            log(f"kernels-DDIM: os_sart_sweep S={rf.shape[0]} B={B}: max "
+                f"|diff| {float((got - want).abs().max()):.3e}, {over:.3f}× "
+                f"the tolerance (1e-5·max|plain| + 1e-4·|plain|); two "
+                f"launches bit-equal; {ms:.4f} ms a call, {ms / B:.4f} ms "
+                f"per image (B = 4 in kernels-ART: {sweep_b4['ms']:.4f} ms, "
+                f"{sweep_b4['ms'] / 4:.4f} per image)")
+            if not over <= 1.0:
+                raise AssertionError(f"os_sart_sweep (DDIM) disagrees: "
+                                     f"{over}× the tolerance")
+        for args, kw in an[-2:]:
+            anterp_checks("kernels-DDIM", args, kw, reps)
+    return run
+
+
+def phase_figures(seed: int, out: str, dev: str = "cuda", size: int = 512):
+    """``display_result`` on the engine phase's corpus and checkpoints
+    under ``out``: ``fit()`` in test_prog mode (the ART settings, one
+    slice) draws progressive.png; the PSNR / SSIM strings drawn on its
+    axes (captured from ``Axes.text``) must be the slice's metric.json
+    values, rounded as the grid rounds them. Without matplotlib the phase
+    says that it did not run, and why. Returns whether it ran."""
+    import torch
+    try:
+        import matplotlib.axes
+    except ImportError as e:
+        log(f"figures: NOT RUN: matplotlib cannot be imported on this "
+            f"machine ({e}); display_result needs it, and the engine "
+            f"refuses display_result without it")
+        return False
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+
+    ex = _example()
+    ckpt_dir = osp.join(out, "seeded_models")
+    cfg = dict(ART_SLICE_OPT, mode="test_prog", run_name="chip_smoke_figures",
+               device=dev, seed=seed, metrics=["psnr", "ssim"],
+               test_numbers=1, display_result=True, save_it_state_proj=True,
+               save_it_state_img=False, geometry=ex.geometry_overrides(size),
+               resume_epochs_img=1, resume_epochs_proj=1,
+               load_img_model_path=ckpt_dir, load_proj_model_path=ckpt_dir,
+               **ex.dataset_paths(out))
+    eng = ProgressiveDomainDenoiser(IPDMConfig(**cfg), result_save_path=out)
+    texts = []
+    text = matplotlib.axes.Axes.text
+
+    def capture(ax, *a, **kw):
+        texts.append(kw.get("s"))
+        return text(ax, *a, **kw)
+
+    matplotlib.axes.Axes.text = capture
+    try:
+        t0 = time.perf_counter()
+        eng.fit()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        matplotlib.axes.Axes.text = text
+    root = osp.join(eng.save_root_path, "Save_Iter_0", "P001")
+    (slice_dir,) = [osp.join(root, d) for d in os.listdir(root)]
+    png = osp.join(slice_dir, "progressive.png")
+    with open(osp.join(slice_dir, "metric.json")) as f:
+        m = json.load(f)
+    fmt = "PSNR={:.2f} , SSIM={:.2f}".format
+    n_proj = sum(k.startswith("psnr_iter_") for k in m["deProj"])
+    n_img = sum(k.startswith("psnr_iter_") for k in m["deProg"])
+    want = ([fmt(m["LDCT"]["psnr_iter_0"], m["LDCT"]["ssim_iter_0"])]
+            + [fmt(m["deProj"][f"psnr_iter_{i}"], m["deProj"][f"ssim_iter_{i}"])
+               for i in range(1, n_proj + 1)]
+            + [fmt(m["deProg"][f"psnr_iter_{i}"], m["deProg"][f"ssim_iter_{i}"])
+               for i in range(n_img, 0, -1)])
+    size_b = osp.getsize(png) if osp.exists(png) else 0
+    log(f"figures: fit() with display_result, one slice, {dt:.3f} s; "
+        f"{osp.basename(png)} {size_b} bytes; {len(texts)} annotations, "
+        f"{texts[:2]}...; equal to metric.json's values: {texts == want}")
+    if not size_b > 1000 or texts != want:
+        raise AssertionError(f"figures: PNG {size_b} bytes; drawn {texts}, "
+                             f"metric.json {want}")
+    return True
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2880,7 +3385,10 @@ def main() -> int:
     phase_reference_art(SEED)
     art, warm, _ = phase_slice("ART", ART_SLICE_OPT, models, ld_proj, SEED,
                                ART_KERNELS, 105, n_timed=2, fresh_plan=True)
+    phase_exact(models, SEED, REPS)
     f32_row = phase_slice_f32(ld_proj, SEED, REPS)
+    ddim = phase_slice_ddim(ld_proj, SEED, REPS, next(
+        r for r in rows if r["name"] == "os_sart_sweep"))
     fp_calls, fp_run, bf16_run = phase_record_fp(SEED)
     rows += phase_kernels_fp(fp_calls, art_calls, REPS)
     phase_reference_fp(SEED)
@@ -2891,6 +3399,7 @@ def main() -> int:
             r for r in rows if r["name"] == "os_sart_sweep"))
         rows += phase_kernels_bp1(
             bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
+        phase_figures(SEED, out)
         fwd_calls, bwd_calls, train_runs = phase_train(SEED, out)
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
@@ -2899,6 +3408,7 @@ def main() -> int:
     f32_row["launches_train_img"] = train_runs["img"]["flash_attn_f32"]
     f32_row["launches_train_proj"] = train_runs["proj"]["flash_attn_f32"]
     f32_row["train_shapes"] = f32_shapes(train_fwd)
+    f32_row["launches_ddim"] = ddim["flash_attn_f32"]
     train_rows.insert(0, f32_row)
     # each path's run had the counters set to 0 just before it and read
     # just after. A kernel's ``launches`` is its count in the ART slice's
@@ -2917,6 +3427,7 @@ def main() -> int:
         row["launches_fbp"] = fbp[name]      # the FBP main-path run
         row["launches_engine"] = eng_run[name]   # corpus + fit(), 2 slices
         row["launches_project_fast"] = fp_run[name]
+        row["launches_ddim"] = ddim[name]    # the DDIM slice's main path
         if name in ("fp_plane_deposit", "anterp_taps", "bp_shift"):
             # the first convert's launches less those of a warm one
             row["launches_per_plan"] = per_plan[name] - warm[name]
@@ -2924,7 +3435,8 @@ def main() -> int:
             f"run; {art[name]} in the ART slice's (plan built in it), "
             f"{warm[name]} per warm ART slice, {fbp[name]} per FBP slice, "
             f"{eng_run[name]} in the engine's run of 2 slices, "
-            f"{fp_run[name]} in the batched project_fast")
+            f"{fp_run[name]} in the batched project_fast, {ddim[name]} in "
+            f"the DDIM slice's")
         if row["launches"] <= 0:
             raise AssertionError(f"{name} was not launched in its "
                                  f"main-path run")
@@ -2939,7 +3451,9 @@ def main() -> int:
                  if row is f32_row else "the train runs")
         log(f"kernels: {row['name']}: {row['launches']} launches in "
             f"{where} (img {row['launches_train_img']}, proj "
-            f"{row['launches_train_proj']})")
+            f"{row['launches_train_proj']})"
+            + (f"; {row['launches_ddim']} in the DDIM slice's main-path run"
+               if row is f32_row else ""))
         if (row["launches"] <= 0 or row["launches_train_img"] <= 0
                 or row["launches_train_proj"] <= 0):
             raise AssertionError(f"{row['name']} was not launched in "

@@ -128,10 +128,10 @@ class IPDMConfig:
     sart_sample_rate: int = 1  # sparse-view ART: keep every k-th view
     #   (recons_torch sample_rate, TASART2DNSL0_PyAPI.cpp:37)
     exact_fbp: bool = False  # force the reference-faithful direct fan BP
-    #   instead of the rebinned fast path (ported with the exact physics)
+    #   instead of the rebinned fast path (recon/fbp.py::fbp_convert)
     exact_art: bool = False  # force the reference-faithful fan-beam
     #   footprint SART instead of the rebinned-parallel OS-SART fast path
-    #   (ported with the exact physics)
+    #   (recon/sart.py::sart_reconstruct)
     native_loader: bool = True  # C++ prefetching batch loader for training
     #   (native/libipdm_native.so); without the library, or with
     #   ``normal``, the engine reads through data.sampler.DataLoader

@@ -1,5 +1,5 @@
 """CT unit conversions: display pixel ∈ [0,1] ↔ HU ↔ attenuation μ (port
-of ipdm_tpu/data/units.py:20-44).
+of ipdm_tpu/data/units.py:20-55).
 
 Same conventions as the reference (Dataset/npz_data_loader.py:9-52):
 μ_water = 0.183 cm⁻¹, a +24 HU scanner offset, and a fixed display window
@@ -38,3 +38,15 @@ def miu2pixel(miu, HU_range=None):
 
 def pixel2miu(pix):
     return HU2miu(pixel2HU(pix))
+
+
+def reset_window_centre(img, new_window=None, origin_window=None):
+    """Re-window a [0, 1] display image from ``origin_window`` (default
+    the full display window) to ``new_window`` (default: the same)."""
+    if origin_window is None:
+        origin_window = DEFAULT_WINDOW
+    if new_window is None:
+        new_window = origin_window
+    HU_ = img * (origin_window[1] - origin_window[0]) + origin_window[0]
+    out = (HU_ - new_window[0]) / (new_window[1] - new_window[0])
+    return out.clip(0.0, 1.0)

@@ -77,10 +77,10 @@ def noise_like(x: torch.Tensor, generator) -> torch.Tensor:
 
 class GaussianDiffusion:
     """Schedule tables on one device plus the reference's q/p methods
-    (q_sample, q_sample_inverse, q_posterior_mean_variance,
-    predict_start_from_noise, p_mean_variance_condition,
-    p_sample_condition, train_loss). The guided sampler lives in
-    diffusion/guided.py."""
+    (q_sample, q_sample_inverse, q_mean_variance,
+    q_posterior_mean_variance, predict_start_from_noise, p_mean_variance,
+    p_mean_variance_condition, p_sample_condition, train_loss,
+    lambda_t_calculate). The samplers live in diffusion/guided.py."""
 
     def __init__(self, timesteps: int = 1000, beta_schedule: str = "linear",
                  schedule_power: float = 1, device=None):
@@ -108,6 +108,13 @@ class GaussianDiffusion:
         return ((x_t - extract(self.sqrt_alphas_cumprod, t, nd) * x_start)
                 / extract(self.sqrt_one_minus_alphas_cumprod, t, nd))
 
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log-variance of q(x_t | x_0)."""
+        nd = x_start.ndim
+        return (extract(self.sqrt_alphas_cumprod, t, nd) * x_start,
+                extract(1.0 - self.alphas_cumprod, t, nd),
+                extract(self.log_one_minus_alphas_cumprod, t, nd))
+
     # -- posterior -----------------------------------------------------------
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
@@ -123,6 +130,14 @@ class GaussianDiffusion:
                 - extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * noise)
 
     # -- reverse steps -------------------------------------------------------
+
+    def p_mean_variance(self, model_fn, x_t, t, clip_denoised=False):
+        """Unguided mean/variance of p(x_{t-1} | x_t)."""
+        pred_noise = model_fn(x_t, t)
+        x_recon = self.predict_start_from_noise(x_t, t, pred_noise)
+        if clip_denoised:
+            x_recon = x_recon.clamp(-1.0, 1.0)
+        return self.q_posterior_mean_variance(x_recon, x_t, t)
 
     def p_mean_variance_condition(self, model_fn, x_t, x_0, t, lambda_,
                                   clip_denoised=False):
@@ -158,3 +173,11 @@ class GaussianDiffusion:
         x_noisy = self.q_sample(x_start, t, noise)
         predicted = model_fn(x_noisy, t)
         return torch.mean((noise - predicted) ** 2)
+
+    def lambda_t_calculate(self, eta: float = 0.9) -> torch.Tensor:
+        """The reference's cumulative λ_t table (model.py:430-435); no
+        sampler reads it."""
+        lambda_t = ((1 - eta + eta * self.alphas - self.alphas_cumprod)
+                    * torch.sqrt(self.alphas_cumprod_prev)
+                    / (1 - self.alphas_cumprod)).abs()
+        return torch.cumprod(lambda_t, dim=0)

@@ -23,6 +23,12 @@ package scans the loops on device; here they are Python loops over eager
 PyTorch. Every Gaussian draw goes through
 :func:`ipdm_tpu_torch.diffusion.diffusion.noise_like` with the caller's
 ``torch.Generator``.
+
+The sparse path (:func:`sparse_guided_reverse_process`, guided.py:489-562,
+reference model.py:655-759) q-samples the condition once and runs one
+conditioned DDIM pass (:func:`ddim_sample`) per entry of ``t_start``, with
+λ on a linear ramp and the condition blended towards each result; it
+keeps no ensemble.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import torch
 
 from ipdm_tpu_torch.data.units import miu2pixel
 from ipdm_tpu_torch.diffusion import diffusion as _diffusion
-from ipdm_tpu_torch.diffusion.diffusion import GaussianDiffusion
+from ipdm_tpu_torch.diffusion.diffusion import (GaussianDiffusion, extract,
+                                                std_normalize)
 from ipdm_tpu_torch.diffusion.schedules import cosine_beta_schedule
 from ipdm_tpu_torch.ops.lambda_map import (avg_pool, condition_lambda_map,
                                            nearest_upsample)
@@ -185,3 +192,84 @@ def guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
     if constant_guidance is None and t_start is None:
         iters = iters[1:]  # drop the probe iteration
     return iters, out_noise_strength
+
+
+# ---------------------------------------------------------------------------
+# Sparse (DDIM) sampling (guided.py:489-562, reference model.py:655-759)
+# ---------------------------------------------------------------------------
+
+
+def ddim_sample(model_fn: Callable, gd: GaussianDiffusion,
+                sample_img: torch.Tensor, condition: torch.Tensor,
+                t_start: int, condition_lambda: float,
+                generator: Optional[torch.Generator],
+                ddim_timesteps: int = 2, ddim_eta: float = 0.0,
+                clip_denoised: bool = True) -> torch.Tensor:
+    """Conditioned DDIM over a uniform sub-sequence of ``t_start`` steps
+    (reference model.py:655-724, 'uniform' discretisation): the ε blend of
+    the guided step, then the DDIM update with σ overridden by
+    η·posterior_variance, as the reference does (model.py:713)."""
+    seq = np.linspace(t_start - 1, 0, ddim_timesteps + 1).astype(int)[:-1]
+    prev_seq = np.append(seq[1:], 0)
+    B = sample_img.shape[0]
+    dev = sample_img.device
+    lam = condition_lambda
+    x = sample_img
+    for i in range(ddim_timesteps):
+        t = torch.full((B,), int(seq[i]), dtype=torch.long, device=dev)
+        pt = torch.full((B,), int(prev_seq[i]), dtype=torch.long, device=dev)
+        nd = x.ndim
+        ac_t = extract(gd.alphas_cumprod, t, nd)
+        ac_prev = extract(gd.alphas_cumprod, pt, nd)
+        pred_noise = model_fn(x, t)
+        cond_noise = gd.q_sample_inverse(x, condition, t).to(pred_noise.dtype)
+        pred_noise = std_normalize((1 - lam) * std_normalize(pred_noise)
+                                   + lam * std_normalize(cond_noise))
+        pred_x0 = (x - torch.sqrt(1.0 - ac_t) * pred_noise) / torch.sqrt(ac_t)
+        if clip_denoised:
+            pred_x0 = pred_x0.clamp(-1.0, 1.0)
+        sigmas_t = ddim_eta * torch.sqrt(
+            (1 - ac_prev) / (1 - ac_t) * (1 - ac_t / ac_prev))
+        pred_dir = torch.sqrt(1 - ac_prev - sigmas_t ** 2) * pred_noise
+        sigmas_t = ddim_eta * extract(gd.posterior_variance, t, nd)
+        z = _diffusion.noise_like(x, generator)
+        x = torch.sqrt(ac_prev) * pred_x0 + pred_dir + sigmas_t * z
+    return x
+
+
+@torch.no_grad()
+def sparse_guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
+                                  condition: torch.Tensor,
+                                  generator: Optional[torch.Generator],
+                                  t_start: Sequence[int],
+                                  condition_lambda_max: float = 0.5,
+                                  condition_lambda_min: float = 0.25,
+                                  ddim_timesteps: Sequence[int] = (2,),
+                                  ddim_eta: float = 0.0, eta: float = 0.5,
+                                  clip_denoised: bool = True
+                                  ) -> List[torch.Tensor]:
+    """Iterated DDIM with a linear λ ramp (reference model.py:727-759).
+    condition: in the layout ``model_fn`` takes. Returns one result per
+    entry of ``t_start``. λ_i is the i-th value of ``np.arange(λ_max,
+    λ_min − step, −step)``, step (λ_max − λ_min)/n, and after each pass the
+    condition becomes η·x̂ + (1 − η)·x₀."""
+    B = condition.shape[0]
+    t0 = torch.full((B,), int(t_start[0]), dtype=torch.long,
+                    device=condition.device)
+    sample_img = gd.q_sample(condition, t0,
+                             _diffusion.noise_like(condition, generator))
+    condition_0 = condition
+    n = len(t_start)
+    step = (condition_lambda_max - condition_lambda_min) / n
+    lambdas = np.arange(condition_lambda_max,
+                        condition_lambda_min - step, -step)
+    result = []
+    for i, t in enumerate(t_start):
+        sample_img = ddim_sample(model_fn, gd, sample_img, condition, int(t),
+                                 float(lambdas[i]), generator,
+                                 ddim_timesteps=int(ddim_timesteps[i]),
+                                 ddim_eta=float(ddim_eta),
+                                 clip_denoised=clip_denoised)
+        condition = eta * sample_img + (1 - eta) * condition_0
+        result.append(sample_img)
+    return result

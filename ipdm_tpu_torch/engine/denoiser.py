@@ -28,8 +28,10 @@ metrics and the result stores.
 Tensors at the engine's boundary are NHWC like the JAX engine's
 ([B, na, nr, 1] sinograms, [B, n, n, 1] images); the UNets run NCHW
 inside, and saved result arrays are NCHW [B, 1, H, W] like the
-reference's. The PNG grids and the sparse (DDIM) sampler are ported with
-later slices and raise ``NotImplementedError``.
+reference's. With ``display_result`` each test slice also gets the
+reference's annotated PNG grid (matplotlib, Agg backend); a
+``sample_method_*`` other than "dense" runs that domain's sparse (DDIM)
+sampler.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ from ipdm_tpu_torch.data.dataset import SiemensDatasetNpz
 from ipdm_tpu_torch.data.sampler import DataLoader, RandomSampler
 from ipdm_tpu_torch.data.units import miu2pixel
 from ipdm_tpu_torch.diffusion.diffusion import GaussianDiffusion
-from ipdm_tpu_torch.diffusion.guided import guided_reverse_process
+from ipdm_tpu_torch.diffusion.guided import (guided_reverse_process,
+                                             sparse_guided_reverse_process)
 from ipdm_tpu_torch.diffusion.normalize import (yeo_johnson_inverse_transform,
                                                 yeo_johnson_transform)
 from ipdm_tpu_torch.engine.checkpoint import CheckpointManager
@@ -80,18 +83,17 @@ CONVERTOR_KEYS = frozenset(("convertor", "geometry", "sart_nstart", "ntv",
 
 def make_convertor(opt, kind: Optional[str] = None) -> Convertor:
     """The convertor the options name (or ``kind``), on the scanner of
-    their ``geometry`` overrides, with the OS-SART settings (engine
-    init_convertor, denoiser.py:284-293)."""
-    if _opt(opt, "exact_fbp") or _opt(opt, "exact_art"):
-        raise NotImplementedError(
-            "exact_fbp / exact_art: the direct fan-beam FBP and the "
-            "footprint SART are ported with the exact physics")
+    their ``geometry`` overrides, with the OS-SART settings and the
+    ``exact_fbp`` / ``exact_art`` switches (engine init_convertor,
+    denoiser.py:284-293)."""
     overrides = _opt(opt, "geometry")
     geom = SIEMENS.replace(**overrides) if overrides else SIEMENS
     return Convertor(kind or opt["convertor"], geom=geom,
                      nstart=_opt(opt, "sart_nstart"), ntv=_opt(opt, "ntv"),
                      nsubsets=_opt(opt, "sart_subsets"),
-                     sample_rate=_opt(opt, "sart_sample_rate"))
+                     sample_rate=_opt(opt, "sart_sample_rate"),
+                     exact_fbp=_opt(opt, "exact_fbp"),
+                     exact_art=_opt(opt, "exact_art"))
 
 
 def diffusion_for(opt, domain: str, device=None) -> GaussianDiffusion:
@@ -102,10 +104,24 @@ def diffusion_for(opt, domain: str, device=None) -> GaussianDiffusion:
                              device=device)
 
 
+# the sparse sampler's λ ramp (max, min) per domain (denoiser.py:655-660,
+# :714-719)
+_SPARSE_LAMBDA = {"proj": (0.49, 0.35), "img": (0.5, 0.3)}
+
+
 def _guided(opt, domain, model, gd, x, generator, curve, **kw):
+    """The domain's sampler: the dense guided process, or, for any other
+    ``sample_method_*``, the sparse DDIM one (which clips only with
+    ``clip_proj`` in the sinogram domain, always in the image domain, and
+    leaves the noise class None)."""
     if opt[f"sample_method_{domain}"] != "dense":
-        raise NotImplementedError(
-            "sparse (DDIM) sampling is ported with a later slice")
+        lam_max, lam_min = _SPARSE_LAMBDA[domain]
+        return sparse_guided_reverse_process(
+            model, gd, x, generator, t_start=opt[f"t_start_{domain}"],
+            condition_lambda_max=lam_max, condition_lambda_min=lam_min,
+            ddim_timesteps=opt[f"ddim_timesteps_{domain}"],
+            eta=opt[f"eta_{domain}"],
+            clip_denoised=opt["clip_proj"] if domain == "proj" else True), None
     return guided_reverse_process(
         model, gd, x, generator, t_start=opt[f"t_start_{domain}"],
         clip=opt[f"clip_{domain}"], mode=domain,
@@ -331,6 +347,25 @@ def _nchw_numpy(x: torch.Tensor, nhwc: bool = False) -> np.ndarray:
 
 
 _MODES = ("train_proj", "train_img", "test_proj", "test_img", "test_prog")
+# the result grids' fixed display window: (-160, 240) HU on the [0, 1]
+# display scale of [-1024, 3072] HU (denoiser.py:141)
+_WINDOW = ((-160 + 1024) / 4096, (240 + 1024) / 4096)
+
+
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, imported when a result grid
+    is drawn; without matplotlib ``display_result`` cannot be honoured,
+    so it raises."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError(
+            "display_result (the PNG result grids) needs matplotlib, which "
+            "is not installed: install matplotlib or set display_result "
+            "false") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
 
 
 class ProgressiveDomainDenoiser:
@@ -810,21 +845,49 @@ class ProgressiveDomainDenoiser:
     def result_figure_save(self, mode="progressive", display=True,
                            only_metric=False):
         """The metrics of every stored iteration against the full-dose
-        image, with the reference's figure modes. The annotated PNG grids
-        (``only_metric=False``, and the sinogram-residual mode "dproj")
-        are ported with a later slice."""
+        image and, unless ``only_metric``, the reference's annotated PNG
+        grid of the mode (denoiser.py:801-905): "progressive"
+        (``progressive.png``: LDCT and the converted proj iterations over
+        FDCT and the image iterations, last first), "dimg" / "dproj2img"
+        (``deImg.png`` / ``deProj2img.png``: LDCT, FDCT, the iterations,
+        last first), each shown in the fixed (-160, 240) HU window with
+        its PSNR / SSIM; "dproj" (``dProj.png``, always drawn, no
+        metrics): |FD − LD| and |iteration − FD| of the sinograms. The
+        metrics do not depend on ``only_metric``."""
         if mode not in ("progressive", "dimg", "dproj", "dproj2img"):
             raise ValueError('mode should be one of: "progressive", '
                              '"dimg", "dproj", "dproj2img"')
+        plt = None
         if not only_metric or mode == "dproj":
-            raise NotImplementedError(
-                "the PNG result grids (display_result) are ported with a "
-                "later slice; run with only_metric=True")
-        store, metric_mode = {
-            "dproj2img": (self.proj_denoise_convert2img_result,
-                          "deProj2img"),
-            "dimg": (self.img_denoise_result, "deImg"),
-            "progressive": (self.progressive_denoise_result, "deProg"),
+            plt = _pyplot()
+
+        if mode == "dproj":
+            delta_target = np.abs(self.fdproj - self.ldproj_np)
+            n = len(self.proj_denoise_result)
+            fig, ax = plt.subplots(1, 1 + n, figsize=(30, 30))
+            vmin, vmax = delta_target.min(), delta_target.max()
+            ax[0].set_title("res target", fontsize=35, y=1.02)
+            ax[0].set_xticks([]), ax[0].set_yticks([])
+            ax[0].imshow(delta_target, "inferno", vmin=vmin, vmax=vmax)
+            for i in range(n):
+                dp = np.abs(self.proj_denoise_result[f"iter_{i + 1}"][0, 0]
+                            - self.fdproj)
+                ax[i + 1].set_title(f"deProj iter{i + 1}", fontsize=35,
+                                    y=1.02)
+                ax[i + 1].set_xticks([]), ax[i + 1].set_yticks([])
+                ax[i + 1].imshow(dp, "inferno", vmin=vmin, vmax=vmax)
+            plt.savefig(self.save_path + "/dProj.png", dpi=100)
+            if not display:
+                plt.close(fig)
+            return
+
+        # the three image-grid modes share structure
+        store, metric_mode, fname, title = {
+            "dproj2img": (self.proj_denoise_convert2img_result, "deProj2img",
+                          "deProj2img.png", "Proj"),
+            "dimg": (self.img_denoise_result, "deImg", "deImg.png", "Img"),
+            "progressive": (self.progressive_denoise_result, "deProg",
+                            "progressive.png", "Img"),
         }[mode]
         self.metric_calculate(mode="LDCT", it=0, denoise_result=self.ldct_np)
         if mode == "progressive":
@@ -832,9 +895,58 @@ class ProgressiveDomainDenoiser:
                 dr = miu2pixel(
                     self.proj_denoise_convert2img_result[f"iter_{i}"][0, 0])
                 self.metric_calculate(mode="deProj", it=i, denoise_result=dr)
-        for i in range(1, len(store) + 1):
+        img_its = len(store)
+        results = {}
+        for i in range(1, img_its + 1):
             dr = miu2pixel(store[f"iter_{i}"][0, 0])
             self.metric_calculate(mode=metric_mode, it=i, denoise_result=dr)
+            results[i] = dr
+        if only_metric:
+            return
+        w0, w1 = _WINDOW
+
+        def show(a, img, ttl, s=None):
+            a.set_title(ttl, fontsize=35, y=1.02)
+            if s is not None:
+                a.text(x=0.5, y=-0.12, s=s, fontsize=25,
+                       horizontalalignment="center", transform=a.transAxes)
+            a.set_xticks([]), a.set_yticks([])
+            a.imshow(img, "gray", vmin=w0, vmax=w1)
+
+        mi = self.metric_instance
+
+        def scores(key, it):
+            return "PSNR={:.2f} , SSIM={:.2f}".format(
+                mi[key].get(f"psnr_iter_{it}", float("nan")),
+                mi[key].get(f"ssim_iter_{it}", float("nan")))
+
+        if mode == "progressive":
+            n_proj = len(self.proj_denoise_convert2img_result)
+            ncols = 1 + max(img_its, n_proj)
+            fig, ax = plt.subplots(2, ncols, figsize=(7 * ncols, 16))
+            show(ax[0, 0], self.ldct_np, "LDCT", scores("LDCT", 0))
+            for i in range(1, n_proj + 1):
+                dr = miu2pixel(
+                    self.proj_denoise_convert2img_result[f"iter_{i}"][0, 0])
+                show(ax[0, i], dr, f"Proj iter{i}", scores("deProj", i))
+            for i in range(1, img_its + 1):
+                r_it = img_its + 1 - i
+                show(ax[1, i], results[r_it], f"Img iter{r_it}",
+                     scores(metric_mode, r_it))
+            show(ax[1, 0], self.fdct, "FDCT")
+        else:
+            fig, ax = plt.subplots(1, 2 + img_its,
+                                   figsize=(7 * (2 + img_its), 7))
+            show(ax[0], self.ldct_np, "LDCT", scores("LDCT", 0))
+            show(ax[1], self.fdct, "FDCT")
+            for i in range(1, img_its + 1):
+                r_it = img_its + 1 - i
+                show(ax[i + 1], results[r_it], f"{title} iter{r_it}",
+                     scores(metric_mode, r_it))
+        plt.savefig(osp.join(self.save_path, fname),
+                    dpi=100 if mode == "progressive" else 200)
+        if not display:
+            plt.close(fig)
 
     def result_data_save(self, data_save=True):
         os.makedirs(self.save_path, exist_ok=True)

@@ -1,18 +1,28 @@
-"""Equiangular fan-beam FBP geometry (port of ipdm_tpu/recon/fbp.py:32-73).
+"""Equiangular fan-beam filtered backprojection (port of
+ipdm_tpu/recon/fbp.py).
 
 Plain numpy constants of the reference FBP (Recon/FBP_kernel.py:32-60):
 source-axis 59.5 cm, axis-detector 49.06 cm, 912 detectors at
 Δγ = 0.0010125 rad with a +3.75-bin offset, 2000 views over 360° in 0.18°
 steps, a 512² grid of half-size L = 21 cm. The fast converter
-(recon/fbp_fast.py) plans from these; the direct fan-beam ``fbp_convert``
-is ported with a later slice.
+(recon/fbp_fast.py) plans from these.
+
+:func:`fbp_convert` is the reference's direct fan-beam FBP (the
+``exact_fbp`` convertor, FBP_kernel.py:86-122): cosine weighting, the R-L
+ramp kernel applied as an rFFT convolution (equal to the 'full'
+convolution's slice [N−1 : 2N−1]), then a per-view gather with linear
+detector interpolation and 1/L² distance weighting, over blocks of views,
+in plain PyTorch on the sinogram's device. The detector axis is flipped on
+input and the image flipped back on output.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 class FBPGeometry:
@@ -57,3 +67,63 @@ class FBPGeometry:
 
 
 SIEMENS_FBP = FBPGeometry()
+
+
+def ramp_filter(pj: torch.Tensor, h_RL, n_det: int) -> torch.Tensor:
+    """Filter [.., M, N] weighted projections with the ramp kernel by rFFT
+    (≡ np.convolve(kernel, row)[N−1 : 2N−1], FBP_kernel.py:125-131)."""
+    L = int(2 ** math.ceil(math.log2(3 * n_det - 2)))
+    h = torch.as_tensor(h_RL, dtype=pj.dtype, device=pj.device)
+    K = torch.fft.rfft(h, n=L)
+    P = torch.fft.rfft(pj, n=L, dim=-1)
+    full = torch.fft.irfft(P * K, n=L, dim=-1)
+    return full[..., n_det - 1: 2 * n_det - 1]
+
+
+def fbp_convert(pj: torch.Tensor, g: FBPGeometry = SIEMENS_FBP,
+                view_block: int = 50, flip: bool = True) -> torch.Tensor:
+    """Direct fan-beam FBP of [B, M, N] sinograms → [B, n, n] images
+    (reference convert, FBP_kernel.py:86-122), ``view_block`` views at a
+    time."""
+    dev = pj.device
+    if flip:
+        pj = pj.flip(2)
+    # cosine weighting and the Δθ scale (FBP_kernel.py:104-105)
+    w = torch.as_tensor((g.D * np.cos(g.nda)).astype(np.float32), device=dev)
+    dtheta = float(np.float32(g.theta[1] - g.theta[0]))
+    pj = pj * w * dtheta
+    pj = ramp_filter(pj, g.h_RL, g.N)
+
+    r = torch.as_tensor(g.r, device=dev).reshape(-1)
+    phi = torch.as_tensor(g.phi, device=dev).reshape(-1)
+    nda0 = float(np.float32(g.nda[0]))
+    da = float(np.float32(g.da))
+    D = float(np.float32(g.D))
+    half_pi = float(np.float32(np.pi / 2))
+    theta = torch.as_tensor(g.theta, dtype=torch.float32, device=dev)
+    B = pj.shape[0]
+    n = g.grid_n
+    img = torch.zeros((B, n * n), dtype=pj.dtype, device=dev)
+    for v0 in range(0, g.M, view_block):
+        beta = theta[v0:v0 + view_block] - half_pi
+        th = (half_pi + beta)[:, None] + phi                  # [vb, n²]
+        denom = D + r * torch.cos(th)
+        alpha = torch.atan(r * torch.sin(th) / denom)
+        pos = (alpha - nda0) / da + 0.5
+        curdet = torch.floor(pos)
+        lam = pos - curdet
+        Lw = r * torch.sin(th) / torch.sin(alpha)
+        ci = curdet.long()
+        valid = (ci > 0) & (ci < g.N)
+        c0 = (ci - 1).clamp(0, g.N - 1)
+        c1 = ci.clamp(0, g.N - 1)
+        blk = pj[:, v0:v0 + view_block]                       # [B, vb, N]
+        p0 = blk.gather(2, c0[None].expand(B, -1, -1))
+        p1 = blk.gather(2, c1[None].expand(B, -1, -1))
+        v = ((1 - lam) * p0 + lam * p1) / (Lw * Lw)
+        img += torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                                 device=dev)).sum(1)
+    img = img.reshape(B, n, n)
+    if flip:
+        img = img.flip(2)
+    return img

@@ -7,8 +7,9 @@ electronic noise Ne = 5.8 and photon flux N0 = 1.4e5,
     σ²(p) = (1−f)·exp(p)·(1 + (1+f)·Ne·exp(p)/(f·N0)) / (f·N0)
 
 applied as p + σ(p)·n, n ~ N(0,1), on the sinogram's device, with the
-low-dose image reconstructed by the fast OS-SART. The ``exact=True`` branch
-(the fan-beam footprint SART) is ported with the exact physics.
+low-dose image reconstructed by the fast OS-SART, or with ``exact=True``
+by the fan-beam footprint SART (``recons``, the reference binding's
+transposed output).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan
+from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan, recons
 from ipdm_tpu_torch.recon.geometry import SIEMENS, FanBeamGeometry
 from ipdm_tpu_torch.recon.sart_fast import sart_fast_convert
 
@@ -46,10 +47,11 @@ def simulate_ldct_batch(clean_proj: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, na, nr] clean sinograms → (noisy sinograms, LD images
     [B, ny, nx])."""
-    if exact:
-        raise NotImplementedError(
-            "the exact footprint SART is ported with the exact physics")
     noisy = add_noise(clean_proj, generator, dose)
-    ld_img = sart_fast_convert(noisy, fbp_geom_from_fan(geom), nstart=nstart,
-                               nsubsets=nsubsets)
+    if exact:
+        ld_img = recons(noisy, geom, nstart=nstart, nsubsets=nsubsets,
+                        permute=True)
+    else:
+        ld_img = sart_fast_convert(noisy, fbp_geom_from_fan(geom),
+                                   nstart=nstart, nsubsets=nsubsets)
     return noisy, ld_img

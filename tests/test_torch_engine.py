@@ -331,28 +331,58 @@ def test_plain_proj_denoiser_returns_every_iteration(jax_engine, tmp_path,
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mode="test_prog", exact_fbp=True), NotImplementedError, "exact"),
-    (dict(mode="test_prog", exact_art=True), NotImplementedError, "exact"),
+    (dict(mode="test_prog", exact_fbp=True), None, "exact_fbp"),
+    (dict(mode="test_prog", exact_art=True, convertor="ART"), None,
+     "exact_art"),
     (dict(mode="test_prog", device="cuda"), RuntimeError, "CUDA"),
 ])
 def test_engine_refuses_what_is_not_ported(tmp_path, corpus, monkeypatch, kw,
                                            err, match):
+    """Without a card, device="cuda" is refused; exact_fbp / exact_art
+    (refused before the exact physics was ported) build the exact
+    convertor on the options' scanner."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dict(BASE, **corpus, device="cpu", convertor="FBP")
     cfg.update(kw)
-    with pytest.raises(err, match=match):
-        ProgressiveDomainDenoiser(IPDMConfig(**cfg),
-                                  result_save_path=str(tmp_path))
+    if err is not None:
+        with pytest.raises(err, match=match):
+            ProgressiveDomainDenoiser(IPDMConfig(**cfg),
+                                      result_save_path=str(tmp_path))
+        return
+    eng = ProgressiveDomainDenoiser(IPDMConfig(**cfg),
+                                    result_save_path=str(tmp_path))
+    conv = eng.convertor
+    assert getattr(conv, match) and conv.kind == cfg["convertor"]
+    assert (conv.geom.nx, conv.geom.na, conv.geom.nr) == (32, 90, 64)
+    assert conv.lut.shape == (GEO["ta_dimy"], GEO["ta_dimx"])
+    assert make_convertor(eng.opt).__dict__.keys() == conv.__dict__.keys()
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(display_result=True), "PNG"),
-    (dict(sample_method_img="sparse"), "DDIM")])
+    (dict(sample_method_img="sparse", display_result=True), "DDIM")])
 def test_engine_run_refuses_png_grids_and_ddim(tmp_path, corpus, kw, match):
+    """The image-domain test run with the PNG grids on (refused before
+    they were ported), once through the convertor only and once with the
+    sparse (DDIM) sampler (refused before it was ported): fit() writes
+    each slice's deImg.png and metric.json and the aggregate metrics."""
     cfg = dict(BASE, **corpus, device="cpu", convertor="FBP",
-               mode="test_img", benchmark_test="PNG" in match)
+               mode="test_img", benchmark_test="PNG" in match,
+               t_start_img=[3, 2, 2])
     cfg.update(kw)
     eng = ProgressiveDomainDenoiser(IPDMConfig(**cfg),
                                     result_save_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=match):
-        eng.fit()
+    eng.fit()
+    root = osp.join(eng.save_root_path, "Save_Iter_0")
+    iters = 1 if "PNG" in match else 3
+    for i in range(2):
+        path = osp.join(root, "P001", f"{i:04d}")
+        assert osp.getsize(osp.join(path, "deImg.png")) > 1000
+        with open(osp.join(path, "metric.json")) as f:
+            m = json.load(f)
+        assert sorted(m["deImg"]) == sorted(
+            f"{k}_iter_{it}" for k in ("psnr", "ssim")
+            for it in range(1, iters + 1))
+    with open(osp.join(root, "metric.json")) as f:
+        agg = json.load(f)
+    assert np.isfinite(agg["deImg"][f"psnr_iter_{iters}"])

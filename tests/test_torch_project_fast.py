@@ -17,7 +17,8 @@ from ipdm_tpu.recon import simulate as jax_sim
 from ipdm_tpu.recon.convertor import fbp_geom_from_fan as jax_fbp_geom
 from ipdm_tpu.recon.geometry import FanBeamGeometry as JaxFan
 from ipdm_tpu_torch.recon import phantom, sart_fast, simulate
-from ipdm_tpu_torch.recon.convertor import Convertor, fbp_geom_from_fan
+from ipdm_tpu_torch.recon.convertor import (Convertor, fbp_geom_from_fan,
+                                            recons)
 from ipdm_tpu_torch.recon.geometry import SIEMENS, FanBeamGeometry
 
 FAN = dict(nx=64, ny=64, dx=42 / 64, dy=42 / 64, nr=128,
@@ -148,10 +149,26 @@ def test_add_noise_matches_jax_with_equal_noise(monkeypatch):
 
 
 def test_add_noise_generator_and_exact_branch():
+    """The noise follows the generator; the exact branch (refused before
+    the exact physics was ported) returns the footprint SART's
+    ``recons`` of the noisy sinogram."""
     data = torch.full((4, 8), 2.0)
     a = simulate.add_noise(data, torch.Generator().manual_seed(1), 0.25)
     b = simulate.add_noise(data, torch.Generator().manual_seed(1), 0.25)
     c = simulate.add_noise(data, torch.Generator().manual_seed(2), 0.25)
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="exact"):
-        simulate.simulate_ldct_batch(data[None], None, exact=True)
+    geom = FanBeamGeometry(**FAN)
+    clean = torch.from_numpy(np.abs(np.random.default_rng(2).standard_normal(
+        (1, geom.na, geom.nr))).astype(np.float32))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # thousands of small ops: no pool to thrash
+    try:
+        noisy, img = simulate.simulate_ldct_batch(
+            clean, torch.Generator().manual_seed(3), geom=geom, nstart=1,
+            nsubsets=4, exact=True)
+        assert torch.equal(noisy, simulate.add_noise(
+            clean, torch.Generator().manual_seed(3), 0.25))
+        assert img.shape == (1, geom.nx, geom.ny)
+        assert torch.equal(img, recons(noisy, geom, nstart=1, nsubsets=4))
+    finally:
+        torch.set_num_threads(threads)
