@@ -168,7 +168,25 @@ exits non-zero without a result line:
    recomputed backward's and SDPA forward + backward's, with the bound of
    the body that ran (bf16 products on wgmma; f32 as three bf16 passes)
    and, for f32, the CUDA-core bound of the same products;
-18. the ``kernels`` JSON line, the nvidia-smi line, and the last line
+18. mesh — ``parallel/mesh.py`` with 2 ranks of gloo on the one card
+   (NCCL refuses two ranks on one device; spawned after this process
+   built the kernels; f32, cuDNN TF32 off), each sharded result against
+   the unsharded one: the img train preset's data-parallel step (2 DDP
+   steps, global batch 2: losses, the first step's gradients, both
+   ranks' params alike), the H-sharded eval of the img UNet at 512² and
+   the proj UNet at 2000×912 (max|diff| ≤ 1e-4 of max|unsharded|; each
+   rank's planar_unit and f32 flash launches > 0; each planar_unit call
+   of each rank's banded evals, on its halo'd band, against the plain
+   version at the f32 rule, beside a planted control with the halo row
+   dropped that must fail), the view-sharded FBP at 2000 views and the
+   FP, each with its time beside the unsharded one (two ranks on one
+   card measure no scaling; the train step also 2 warm steps beside one
+   process's at B = 2 and B = 1); then ``fit()`` of
+   train_img with mesh_shape [1, 1] for 2 steps in a 1-rank NCCL group
+   that the engine joins from torchrun's variables;
+19. the ``kernels`` JSON line (the mesh phase's launches under
+   ``launches_mesh``, with planar_unit's max |diff| on the bands), the
+   nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when no CUDA device is present. It imports nothing of
@@ -3349,6 +3367,440 @@ def phase_figures(seed: int, out: str, dev: str = "cuda", size: int = 512):
     return True
 
 
+MESH_RANKS = 2
+MESH_TIMEOUT = 300   # s for the 2-rank spawn: start-up, train, evals, FBP, FP
+MESH_TOL = 1e-4      # sharded vs unsharded f32: max|diff| / max|unsharded|
+MESH_WARM_STEPS = 2  # train steps timed after the two checked ones
+# the kernels each rank's banded evals must launch: planar_unit runs in
+# the proj UNet's banded levels, the f32 flash forward in the gathered ones
+MESH_EVAL_KERNELS = {"img": ("flash_attn_f32",),
+                     "proj": ("planar_unit", "flash_attn_f32")}
+MESH_TRAIN_KERNELS = ("flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _mesh_geoms(size: int):
+    """(FBP geometry, fan-beam geometry, proj UNet input rows × cols) of
+    the mesh phase: the SIEMENS scanner at 512, the example's small
+    scanner otherwise (a CPU rehearsal)."""
+    from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP
+    from ipdm_tpu_torch.recon.geometry import SIEMENS
+    if size == 512:
+        return SIEMENS_FBP, SIEMENS, (2000, 912)
+    fan = _example().make_geom(size)
+    return fbp_geom_from_fan(fan), fan, (fan.na, fan.nr)
+
+
+def _mesh_checks(rank, tmp, seed, dev_name, size):
+    """One rank of the mesh phase, in a process that
+    ``parallel/spawn.py`` ``run_ranks`` spawned into a gloo group (see
+    :func:`phase_mesh`)."""
+    import torch
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        # f32 products and convolutions in f32: the sharded and unsharded
+        # runs are held to each other
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(2)
+    return _mesh_work(rank, seed, dev, size)
+
+
+def _mesh_planar_check(calls, rank, rows, banded):
+    """Each planar_unit call that this rank's banded eval made, against
+    the plain version on the same inputs at the f32 rule (1e-4 +
+    1e-4·|plain|, as in kernels:); on each call made on a halo'd band (its
+    height a banded level's band plus the halo rows) a planted control:
+    the plain version on the band with the neighbour's halo row dropped
+    (zero padding at the band's edge, what a missing exchange leaves),
+    which must fail the same rule on the rows the eval keeps."""
+    from ipdm_tpu_torch.ops.cuda import planar
+    top, bottom = int(rank > 0), int(rank < MESH_RANKS - 1)
+    heights = {(rows >> lvl) + top + bottom for lvl in range(banded)}
+    worst, ctrl, seen = 0.0, float("inf"), []
+    for args, kw in calls:
+        x, a, bb, w, bias, skip = args
+        act = kw.get("act", True)
+        got = planar.planar_unit(x, a, bb, w, bias, skip, act=act)
+        want = planar.planar_unit_plain(x, a, bb, w, bias, skip, act=act)
+        ok, err = _within(got, want, 1e-4, 1e-4)
+        C, H, W, O = x.shape[1], x.shape[2], x.shape[3], w.shape[3]
+        if not ok:
+            raise AssertionError(f"mesh: rank {rank}: planar_unit on a "
+                                 f"band disagrees at C={C} O={O} {H}x{W}: "
+                                 f"max |diff| {err}")
+        worst = max(worst, err)
+        if H not in heights:
+            continue
+        seen.append(H)
+        cut = slice(top, H - bottom)
+        dropped = planar.planar_unit_plain(
+            x[:, :, cut].contiguous(), a, bb, w, bias,
+            None if skip is None else skip[:, :, cut].contiguous(), act=act)
+        c_ok, c_err = _within(dropped, want[:, :, cut], 1e-4, 1e-4)
+        if c_ok:
+            raise AssertionError(f"mesh: rank {rank}: the control without "
+                                 f"its halo row passes at C={C} O={O} "
+                                 f"{H}x{W}: the check cannot see it")
+        ctrl = min(ctrl, c_err)
+    return dict(calls=len(calls), banded_calls=len(seen),
+                heights=sorted(set(seen)), max_abs_err=worst,
+                control_min_err=ctrl)
+
+
+def _mesh_work(rank, seed, dev, size):
+    import torch
+    import torch.distributed as dist
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import diffusion_for
+    from ipdm_tpu_torch.engine.trainer import make_optimizer, make_train_step
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.parallel import mesh as M
+    from ipdm_tpu_torch.recon.fbp import fbp_convert
+    from ipdm_tpu_torch.recon.geometry import area_lut, default_betas
+    from ipdm_tpu_torch.recon.phantom import shepp_logan
+    from ipdm_tpu_torch.recon.projector import forward_project
+
+    if dev.type == "cuda":
+        _build.library()   # built by the parent: loaded here
+    dp = M.make_mesh([MESH_RANKS, 1], device_type=dev.type)
+    vw = M.make_mesh([1, MESH_RANKS], device_type=dev.type)
+    out = {"rank": rank, "device": str(dev)}
+
+    def timed(fn, reps=1):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r = fn()
+        _sync(dev)
+        return r, (time.perf_counter() - t0) * 1e3 / reps
+
+    def rel(got, want) -> float:
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    def launches():
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    # 1. the img train preset's data-parallel step: global batch 2, one
+    # image a rank; the unsharded step on rank 0 from the same init
+    opt = IPDMConfig().merge(_train_preset("img"))
+    pt = opt.partial_timesteps_img
+    gd = diffusion_for(opt, "img", dev)
+
+    def fresh():
+        torch.manual_seed(seed)
+        return build_unet(opt, "img", device=dev, remat=True)
+
+    images = np.random.default_rng(seed).random((MESH_RANKS, size, size, 1),
+                                                np.float32)
+    model = fresh()
+    step = M.make_sharded_train_step(
+        model, gd, make_optimizer(model.parameters(), opt.init_lr), pt, dp,
+        torch.Generator(device=dev).manual_seed(seed))
+    _build.reset_launches()
+    losses, ms = [], []
+    for i in range(2):
+        loss, t = timed(lambda: float(step(images)))
+        losses.append(loss)
+        ms.append(t)
+        if i == 0:
+            grads = [p.grad.detach().clone() for p in model.parameters()]
+    out["train"] = dict(losses=losses, ms=ms, launches=launches())
+    # two more steps, timed once the shapes' set-up is done
+    out["train"]["warm_ms"] = [timed(lambda: float(step(images)))[1]
+                               for _ in range(MESH_WARM_STEPS)]
+    psum = torch.tensor([float(sum(p.detach().double().sum()
+                                   for p in model.parameters()))],
+                        dtype=torch.float64, device=dev)
+    out["train"]["param_sums"] = [float(v) for v in
+                                  M._all_gather(psum, dist.group.WORLD)]
+    if rank == 0:
+        def ref_run(batch):
+            """make_train_step on ``batch`` from the same init: each
+            step's (loss, ms), and the first step's gradients."""
+            ref = fresh()
+            ref_step = make_train_step(
+                ref, gd, make_optimizer(ref.parameters(), opt.init_lr), pt,
+                torch.Generator(device=dev).manual_seed(seed))
+            runs = [timed(lambda: float(ref_step(batch)))]
+            g1 = [p.grad.detach().clone() for p in ref.parameters()]
+            runs += [timed(lambda: float(ref_step(batch)))
+                     for _ in range(1 + MESH_WARM_STEPS)]
+            return [r_[0] for r_ in runs], [r_[1] for r_ in runs], g1
+
+        # one process on the global batch: steps 1-2 checked, 3-4 warm
+        ref_losses, ref_ms, g1 = ref_run(images)
+        gmax = max(float(g.abs().max()) for g in g1)
+        gdiff = max(float((g - h).abs().max()) for g, h in zip(grads, g1))
+        out["train"].update(ref_losses=ref_losses[:2], ref_ms=ref_ms,
+                            grad_rel=gdiff / gmax)
+        del g1
+        # one process on one rank's share (B = 1): what each rank's DDP
+        # step computes, alone on the card
+        out["train"]["ref_b1_ms"] = ref_run(images[:1])[1]
+    del model, step, grads
+    dist.barrier()
+
+    # 2. H-sharded evals at full width, f32 (unsharded on rank 0 first)
+    eval_opt = dict(SLICE_OPT, compute_dtype="float32")
+    torch.manual_seed(seed)
+    models = {"proj": build_unet(eval_opt, "proj", device=dev).eval(),
+              "img": build_unet(eval_opt, "img", device=dev).eval()}
+    rng = np.random.default_rng(seed + 1)
+    shapes = {"img": (size, size), "proj": _mesh_geoms(size)[2]}
+    out["evals"] = {}
+    for name in ("img", "proj"):
+        m = models[name]
+        x = torch.as_tensor(rng.standard_normal((1, 1) + shapes[name]),
+                            dtype=torch.float32, device=dev)
+        t = torch.tensor([10], device=dev)
+        apply = M.make_spatial_sharded_apply(m, dp)
+        r = out["evals"][name] = {"shape": list(x.shape)}
+        with torch.no_grad():
+            if rank == 0:
+                m(x, t)
+                want, r["ms_unsharded"] = timed(lambda: m(x, t), 3)
+            dist.barrier()
+            _build.reset_launches()
+            reduce, calls = dist.all_reduce, []
+
+            def counted(*a, **kw):   # the eval's collectives, each an
+                calls.append(1)      # all_reduce (mesh.py's gathers too)
+                return reduce(*a, **kw)
+
+            dist.all_reduce = counted
+            try:
+                with Recorder(unet, "planar_unit") as pu:
+                    y = M.gather_rows(apply(M.shard_rows(x, dp), t), dp)
+            finally:
+                dist.all_reduce = reduce
+            _sync(dev)
+            r["launches"] = launches()
+            r["collectives"] = len(calls)
+            _, r["ms_banded"] = timed(
+                lambda: M.gather_rows(apply(M.shard_rows(x, dp), t), dp), 3)
+            rows = x.shape[2] // MESH_RANKS
+            r["banded_levels"] = M._Bands(M._group(dp, "data"), m,
+                                          rows).banded
+            r["planar"] = _mesh_planar_check(pu.calls, rank, rows,
+                                             r["banded_levels"])
+            del pu
+        r["finite"] = bool(torch.isfinite(y).all())
+        if rank == 0:
+            r["rel_err"] = rel(y, want)
+            del want
+        del y
+    del models
+    dist.barrier()
+
+    # 3. view-sharded FBP and FP (unsharded on rank 0)
+    g, fan, _ = _mesh_geoms(size)
+    pj = torch.as_tensor(rng.random((1, g.M, g.N)) * 4.0,
+                         dtype=torch.float32, device=dev)
+    fbp = M.make_view_sharded_fbp(vw, g)
+    fbp(pj)    # warm: the FFT plans
+    img, ms_fbp = timed(lambda: fbp(pj), 3)
+    lut, betas = area_lut(fan), default_betas(fan)
+    phantom = torch.as_tensor(shepp_logan(fan.nx), dtype=torch.float32,
+                              device=dev)
+    fp = M.make_view_sharded_fp(vw, fan, lut, betas)
+    fp(phantom)
+    sino, ms_fp = timed(lambda: fp(phantom))
+    out["fbp"] = dict(views=g.M, ms=ms_fbp, finite=bool(
+        torch.isfinite(img).all()))
+    out["fp"] = dict(views=fan.na, ms=ms_fp, finite=bool(
+        torch.isfinite(sino).all()))
+    if rank == 0:
+        ref, out["fbp"]["ms_unsharded"] = timed(lambda: fbp_convert(pj, g),
+                                                3)
+        out["fbp"]["rel_err"] = rel(img, ref)
+        ref, out["fp"]["ms_unsharded"] = timed(
+            lambda: forward_project(phantom, fan, lut, betas))
+        out["fp"]["rel_err"] = rel(sino, ref)
+    dist.barrier()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_mesh(seed: int, out: str, dev: str = "cuda", size: int = 512):
+    """``parallel/mesh.py`` on the card: 2 ranks of gloo on ``cuda:0``
+    (NCCL refuses two ranks on one device), spawned after the parent
+    built the kernels, each sharded result held to the unsharded one in
+    f32 (cuDNN TF32 off): the img train preset's data-parallel step (2
+    steps, global batch 2; losses and the first step's all-reduced
+    gradients against ``make_train_step`` on rank 0; both ranks' params
+    alike; then 2 warm steps timed, beside one process's at B = 2 and at
+    B = 1); the H-sharded eval of the img UNet at 512² and the proj UNet
+    at 2000×912 (the slices' widths, f32), each rank's planar_unit and
+    flash launches > 0, and each rank's planar_unit calls on its halo'd
+    bands held to the plain version with a planted control
+    (:func:`_mesh_planar_check`); the view-sharded FBP at 2000 views and
+    the FP.
+    Then a 1-rank NCCL group: ``fit()`` of train_img with mesh_shape
+    [1, 1] for 2 steps on the engine phase's corpus, the engine joining
+    the group from torchrun's variables. Returns each rank's launches
+    and the engine run's."""
+    from ipdm_tpu_torch.parallel.spawn import run_ranks
+
+    smi = nvidia_smi_line() if dev == "cuda" else "cpu"
+    dev_name = "cuda:0" if dev == "cuda" else "cpu"
+    log(f"mesh: {MESH_RANKS} ranks of gloo on {dev_name} ({smi}); two "
+        f"ranks share one card, so these times measure no scaling")
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=out)
+    t0 = time.perf_counter()
+    res = run_ranks(_mesh_checks, MESH_RANKS, tmp,
+                    (seed, dev_name, size), timeout=MESH_TIMEOUT)
+    log(f"mesh: spawn to exit {time.perf_counter() - t0:.1f} s")
+    _mesh_report(res, smi, dev == "cuda")
+    engine = _mesh_engine(seed, out, dev, size)
+    return [r_["evals"] for r_ in res], [r_["train"] for r_ in res], engine
+
+
+def _mesh_report(res, smi, on_card: bool):
+    """Print the ranks' results and fail where a check misses (the
+    launch counts only on the card: the CPU runs the plain versions)."""
+    r0 = res[0]
+    tr = r0["train"]
+    log(f"mesh: train img preset, global batch {MESH_RANKS} (1 a rank), "
+        f"2 DDP steps: losses {tr['losses']} against one process "
+        f"{tr['ref_losses']}; first step's gradients max|diff| "
+        f"{tr['grad_rel']:.3e} of max|g|; param sums by rank "
+        f"{tr['param_sums']}; TF32 off; {smi}")
+    log(f"mesh: train ms/step, steps 1-2 (the first with cuDNN's set-up) "
+        f"then {MESH_WARM_STEPS} warm: DDP rank 0 {tr['ms']} + "
+        f"{tr['warm_ms']}, rank 1 {res[1]['train']['ms']} + "
+        f"{res[1]['train']['warm_ms']} (two ranks of B = 1 at once on one "
+        f"card); one process B = 2 {tr['ref_ms']}, B = 1 "
+        f"{tr['ref_b1_ms']}; {smi}")
+    bad = []
+    if not np.allclose(tr["losses"], tr["ref_losses"], rtol=MESH_TOL):
+        bad.append("train losses")
+    if not tr["grad_rel"] <= MESH_TOL:
+        bad.append("train gradients")
+    if len(set(tr["param_sums"])) != 1:
+        bad.append("ranks' params differ after the DDP steps")
+    for r in res:
+        for k in MESH_TRAIN_KERNELS if on_card else ():
+            if not r["train"]["launches"].get(k, 0) > 0:
+                bad.append(f"rank {r['rank']}: train launched no {k}")
+    for name in ("img", "proj"):
+        e = r0["evals"][name]
+        log(f"mesh: {name} UNet {e['shape']} f32 on {MESH_RANKS} H-bands "
+            f"({e['banded_levels']} levels banded, the rest gathered; "
+            f"{e['collectives']} all-reduces a rank): "
+            f"max|diff| {e['rel_err']:.3e} of max|unsharded| (tol "
+            f"{MESH_TOL}); ms/eval banded {res[0]['evals'][name]['ms_banded']:.3f}"
+            f" / {res[1]['evals'][name]['ms_banded']:.3f} (ranks 0 / 1, "
+            f"concurrent on one card), unsharded "
+            f"{e['ms_unsharded']:.3f}; launches by rank "
+            f"{[r['evals'][name]['launches'] for r in res]}; {smi}")
+        if not (e["rel_err"] <= MESH_TOL and all(
+                r["evals"][name]["finite"] for r in res)):
+            bad.append(f"{name} banded eval")
+        for r in res:
+            for k in MESH_EVAL_KERNELS[name] if on_card else ():
+                if not r["evals"][name]["launches"].get(k, 0) > 0:
+                    bad.append(f"rank {r['rank']}: {name} eval launched "
+                               f"no {k}")
+            pc = r["evals"][name]["planar"]
+            if pc["calls"]:
+                log(f"mesh: {name} eval rank {r['rank']}: {pc['calls']} "
+                    f"planar_unit calls against the plain version, max "
+                    f"|diff| {pc['max_abs_err']:.3e} (tol 1e-4 + "
+                    f"1e-4·|plain|); {pc['banded_calls']} on halo'd bands "
+                    f"{pc['heights']} rows, the control without the halo "
+                    f"row off by {pc['control_min_err']:.3e} at the least "
+                    f"(fails)")
+            if (on_card and "planar_unit" in MESH_EVAL_KERNELS[name]
+                    and not pc["banded_calls"] > 0):
+                bad.append(f"rank {r['rank']}: no {name} planar_unit call "
+                           f"on a halo'd band checked")
+    for name in ("fbp", "fp"):
+        e = r0[name]
+        log(f"mesh: view-sharded {name.upper()} of {e['views']} views "
+            f"({e['views'] // MESH_RANKS} a rank): max|diff| "
+            f"{e['rel_err']:.3e} of max|unsharded| (tol {MESH_TOL}); ms "
+            f"{res[0][name]['ms']:.1f} / {res[1][name]['ms']:.1f} (ranks "
+            f"0 / 1, concurrent) against {e['ms_unsharded']:.1f} "
+            f"unsharded; {smi}")
+        if not (e["rel_err"] <= MESH_TOL and all(r[name]["finite"]
+                                                 for r in res)):
+            bad.append(f"view-sharded {name}")
+    if bad:
+        raise AssertionError(f"mesh: {bad}")
+
+
+def _mesh_engine(seed: int, out: str, dev: str, size: int) -> dict:
+    """``fit()`` of train_img with mesh_shape [1, 1] for 2 steps on the
+    engine phase's corpus under ``out`` (save_freq 2: the checkpoints and
+    test(1) on one slice, its UNet evals through the banded apply), in
+    this process: the engine initialises the 1-rank group (NCCL on the
+    card) from the variables torchrun would set. Returns its launches."""
+    import torch
+    import torch.distributed as dist
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ex = _example()
+        opt = IPDMConfig().merge(_train_preset("img"))
+        opt.merge(dict(device=dev, seed=seed, display_result=False,
+                       mesh_shape=[1, 1], max_epochs=1, save_freq=2,
+                       test_numbers=1, metrics=["psnr", "ssim"],
+                       run_name="chip_smoke_mesh",
+                       geometry=ex.geometry_overrides(size),
+                       **ex.dataset_paths(out)))
+        t0 = time.perf_counter()
+        eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
+        backend = dist.get_backend()
+        _build.reset_launches()
+        eng.fit()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        runs = {k: v for k, v in _build.LAUNCHES.items() if v}
+        files = [osp.join(eng.logger.models_save_dir, f)
+                 for f in ("img_model-1", "optimizer-1")]
+        files.append(osp.join(eng.save_root_path, "Save_Iter_1",
+                              "metric.json"))
+        missing = [f for f in files if not osp.exists(f)]
+        log(f"mesh: engine fit() train_img, mesh_shape [1, 1], a 1-rank "
+            f"{backend} group from torchrun's variables, {opt.max_iter} "
+            f"steps, checkpoints and test(1) on one slice: {dt:.1f} s "
+            f"(with the engine's set-up); launches {runs}; files missing: "
+            f"{missing}")
+        if (backend != ("nccl" if dev == "cuda" else "gloo") or missing
+                or opt.max_iter != 2 or not all(
+                    runs.get(k, 0) > 0 for k in MESH_TRAIN_KERNELS
+                    if dev == "cuda")):
+            raise AssertionError("mesh: the 1-rank engine run")
+        return runs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3401,6 +3853,7 @@ def main() -> int:
             bp1_calls, art_calls["bp_shift_accumulate_batched"], REPS)
         phase_figures(SEED, out)
         fwd_calls, bwd_calls, train_runs = phase_train(SEED, out)
+        mesh_evals, mesh_train, mesh_engine = phase_mesh(SEED, out)
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
     # the f32 forward's row is the f32 ART slice's (its main path); the
@@ -3459,6 +3912,28 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched in "
                                  f"{where}")
     rows += train_rows
+    # the mesh phase's launches: each rank's banded evals (img + proj) and
+    # DDP train steps, and the 1-rank engine run; each read just after
+    # its run, the counters set to 0 just before it
+    for row in rows:
+        name = row["name"]
+        if name in ("planar_unit",) + MESH_TRAIN_KERNELS:
+            row["launches_mesh"] = dict(
+                eval_by_rank=[sum(e[d]["launches"].get(name, 0)
+                                  for d in ("img", "proj"))
+                              for e in mesh_evals],
+                train_by_rank=[t["launches"].get(name, 0)
+                               for t in mesh_train],
+                engine_1rank=mesh_engine.get(name, 0))
+            if name == "planar_unit":
+                # its calls on the halo'd bands, against the plain version
+                row["launches_mesh"]["eval_checked_calls"] = sum(
+                    e[d]["planar"]["calls"] for e in mesh_evals
+                    for d in ("img", "proj"))
+                row["launches_mesh"]["eval_max_abs_err"] = max(
+                    e[d]["planar"]["max_abs_err"] for e in mesh_evals
+                    for d in ("img", "proj"))
+            log(f"kernels: {name}: under the mesh {row['launches_mesh']}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,9 @@ unknown keys, and a runtime mutation API with snapshot restore.
 * ``device`` is ``"cuda"`` or ``"cpu"``; a preset's ``"cuda:0"`` is taken
   as it is, and a preset's ``"tpu"`` (the JAX package's) is ignored with a
   warning.
-* Keys that steer only the JAX package's accelerator (``TPU_ONLY_KEYS``)
-  are not fields here: a preset or a command line that carries them loads,
-  with the same warning an unknown key gets.
+* ``mesh_shape`` ([data, view]) runs the engine over a process group, one
+  process per device: ``torchrun --nproc-per-node N main_torch.py
+  --mesh_shape N 1 ...`` (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -132,6 +132,8 @@ class IPDMConfig:
     exact_art: bool = False  # force the reference-faithful fan-beam
     #   footprint SART instead of the rebinned-parallel OS-SART fast path
     #   (recon/sart.py::sart_reconstruct)
+    mesh_shape: Optional[List[int]] = None  # [data, view] process mesh
+    #   (torchrun, one process per device); None = one process
     native_loader: bool = True  # C++ prefetching batch loader for training
     #   (native/libipdm_native.so); without the library, or with
     #   ``normal``, the engine reads through data.sampler.DataLoader
@@ -169,15 +171,9 @@ class IPDMConfig:
         return copy.deepcopy(self)
 
 
-# keys of the JAX package's config that steer its accelerator only (the
-# device mesh)
-TPU_ONLY_KEYS = ("mesh_shape",)
-
-
 def cfg_load(new_cfg: dict, old_cfg: dict) -> None:
-    """Overlay new_cfg onto old_cfg recursively; unknown keys (and the
-    TPU-only ones) warn, not fail (matches reference
-    default_config.py:176-185 behaviour)."""
+    """Overlay new_cfg onto old_cfg recursively; unknown keys warn, not
+    fail (matches reference default_config.py:176-185 behaviour)."""
     for key, val in new_cfg.items():
         if isinstance(val, dict) and isinstance(old_cfg.get(key), dict):
             cfg_load(val, old_cfg[key])
@@ -210,11 +206,11 @@ def _add_field_arg(parser: argparse.ArgumentParser, f: dataclasses.Field) -> Non
         parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
                             default=default)
     elif isinstance(default, list) or f.name in (
-            "t_start_img", "t_start_proj", "patch", "metrics"):
+            "t_start_img", "t_start_proj", "patch", "mesh_shape", "metrics"):
         elem = str if f.name == "metrics" else float
         if f.name in ("attention_resolutions_img", "attention_resolutions_proj",
                       "ddim_timesteps_img", "ddim_timesteps_proj",
-                      "t_start_img", "t_start_proj", "patch"):
+                      "t_start_img", "t_start_proj", "patch", "mesh_shape"):
             elem = int
         parser.add_argument(name, nargs="+", type=elem, default=default)
     elif isinstance(default, int):
@@ -236,15 +232,9 @@ def default_cfg(argv: Optional[List[str]] = None) -> IPDMConfig:
         "denoiser")
     for f in dataclasses.fields(IPDMConfig):
         _add_field_arg(parser, f)
-    for key in TPU_ONLY_KEYS:
-        parser.add_argument("--" + key, nargs="+", default=None)
     if argv is None:
         argv = sys.argv[1:]
-    given = vars(parser.parse_args(argv))
-    for key in TPU_ONLY_KEYS:
-        if given.pop(key) is not None:
-            print(f"no key names {key} in config\n")
-    opt = IPDMConfig(**given)
+    opt = IPDMConfig(**vars(parser.parse_args(argv)))
 
     args_input = [item[2:].split("=")[0] for item in argv if item.startswith("--")]
     if opt.load_option_path is not None:

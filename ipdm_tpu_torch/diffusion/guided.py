@@ -33,7 +33,7 @@ keeps no ensemble.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,17 +83,24 @@ _PROJ_ADAPTIVE = {"high": ([30, 25, 20], 0.6),
 
 
 def _one_iteration(model_fn, gd: GaussianDiffusion, ts: int, mode: str,
-                   clip: bool, lam_fn: Callable, x, guidance, generator):
+                   clip: bool, lam_fn: Callable, x, guidance, generator,
+                   states: Optional[list] = None):
     """q_sample to ts, reverse loop to 0, post-clamp: one outer iteration
     (guided.py:165-190). ``lam_fn(i)`` is step i's λ: a float or a
-    [B, 1, H, W] map."""
+    [B, 1, H, W] map. With ``states`` the reverse trajectory, each step's
+    x before the clamp stacked [ts, B, C, H, W], is appended to it."""
     B = x.shape[0]
     t_vec = torch.full((B,), ts, dtype=torch.long, device=x.device)
     x = gd.q_sample(x, t_vec, _diffusion.noise_like(x, generator))
+    steps = []
     for i in range(ts - 1, -1, -1):
         t = torch.full((B,), i, dtype=torch.long, device=x.device)
         x = gd.p_sample_condition(model_fn, x, guidance, t, generator,
                                   clip_denoised=clip, lambda_=lam_fn(i))
+        if states is not None:
+            steps.append(x)
+    if states is not None:
+        states.append(torch.stack(steps))
     if clip:
         x = x.clamp(0.0, 1.0) if mode == "img" else x.clamp_min(0.0)
     return x
@@ -108,14 +115,15 @@ def _guidance_update(mode: str, eta: float, x, x0, ldct):
 
 
 def _iterate(model_fn, gd, ts_list, mode, clip, eta, lam_for, x0, ldct,
-             generator) -> List[torch.Tensor]:
+             generator, states=None) -> List[torch.Tensor]:
     """Iterations from the clean condition x0 (guidance x0 at first), λ
-    from ``lam_for(ts)`` (guided.py:273-298)."""
+    from ``lam_for(ts)`` (guided.py:273-298); ``states`` as in
+    :func:`_one_iteration`."""
     x = guidance = x0
     results = []
     for ts in ts_list:
         x = _one_iteration(model_fn, gd, int(ts), mode, clip,
-                           lam_for(int(ts)), x, guidance, generator)
+                           lam_for(int(ts)), x, guidance, generator, states)
         results.append(x)
         guidance = _guidance_update(mode, eta, x, x0, ldct)
     return results
@@ -133,28 +141,34 @@ def guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
                            amplitude: float = 20.0,
                            noise_strength: Optional[str] = None,
                            ldct: Optional[torch.Tensor] = None,
-                           only_convertor: bool = False
-                           ) -> Tuple[List[torch.Tensor], Optional[str]]:
+                           only_convertor: bool = False,
+                           save_states: bool = False) -> tuple:
     """Iterative guided reverse process (guided.py:376-477).
 
     img: the condition, in the layout ``model_fn`` takes (the port's UNets:
-    [B, C, H, W]). Returns ``(img_iters, noise_strength)`` like the JAX
-    function (without its saved reverse states): with a constant λ or a
-    static ``t_start`` the ``len(t_start)`` iterations and the ensemble;
-    with ``t_start=None`` the iterations after the probe and the ensemble,
-    and in proj mode the noise class the probe chose. ``only_convertor``
-    (the engine's ``benchmark_test``) runs no diffusion and returns the
-    condition as the one iteration."""
+    [B, C, H, W]). Returns ``(img_iters, noise_strength)``: with a
+    constant λ or a static ``t_start`` the ``len(t_start)`` iterations and
+    the ensemble; with ``t_start=None`` the iterations after the probe
+    and the ensemble, and in proj mode the noise class the probe chose.
+    ``only_convertor`` (the engine's ``benchmark_test``) runs no diffusion
+    and returns the condition as the one iteration.
+
+    With ``save_states`` it returns ``(img_iters, reverse_states,
+    noise_strength)`` like the JAX function: a list of the reverse
+    trajectory [ts, B, C, H, W] of each iteration after the probe (of
+    every iteration with a constant λ)."""
     if mode not in ("img", "proj"):
         raise ValueError(f"mode {mode!r}: 'img' or 'proj'")
     if only_convertor:
-        return [img], None
+        return ([img], None, None) if save_states else ([img], None)
     x0 = img
     out_noise_strength = None
+    states = [] if save_states else None
     if constant_guidance is not None:
         lam = float(constant_guidance)
         iters = _iterate(model_fn, gd, t_start or [20], mode, clip, eta,
-                         lambda ts: (lambda i: lam), x0, ldct, generator)
+                         lambda ts: (lambda i: lam), x0, ldct, generator,
+                         states)
     else:
         if lambda_curve is None:
             raise ValueError("per-pixel lambda (constant_guidance=None) "
@@ -186,11 +200,13 @@ def guided_reverse_process(model_fn: Callable, gd: GaussianDiffusion,
         # probe restart (model.py:629-630): the map-λ iterations start
         # from the clean condition with guidance = the clean condition
         iters = [probe] + _iterate(model_fn, gd, sched, mode, clip, eta,
-                                   lam_for, x0, ldct, generator)
+                                   lam_for, x0, ldct, generator, states)
     if len(iters) > 1:
         iters.append((iters[-1] + iters[-2]) / 2)
     if constant_guidance is None and t_start is None:
         iters = iters[1:]  # drop the probe iteration
+    if save_states:
+        return iters, states, out_noise_strength
     return iters, out_noise_strength
 
 

@@ -23,15 +23,16 @@ from ipdm_tpu_torch.utils.torch_import import strip_module_prefix
 
 
 class CheckpointManager:
-    """``save_models/{name}-{epoch}`` files of model ``state_dict``s."""
+    """``save_models/{name}-{epoch}`` files of model ``state_dict``s; the
+    directory is made at the first save."""
 
     def __init__(self, models_save_dir: str):
         self.dir = models_save_dir
-        os.makedirs(models_save_dir, exist_ok=True)
 
     def save(self, name: str, epoch: int, model: torch.nn.Module) -> str:
         """Write the module's weights (on the CPU, so the file loads on any
         machine); returns the path."""
+        os.makedirs(self.dir, exist_ok=True)
         path = osp.join(self.dir, f"{name}-{epoch}")
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         torch.save(state, path)
@@ -41,6 +42,7 @@ class CheckpointManager:
                        optimizer: torch.optim.Optimizer) -> str:
         """Write the optimizer's ``state_dict`` (its tensors on the CPU);
         returns the path."""
+        os.makedirs(self.dir, exist_ok=True)
         path = osp.join(self.dir, f"{name}-{epoch}")
         state = optimizer.state_dict()
         state["state"] = {i: {k: v.detach().cpu() if torch.is_tensor(v)

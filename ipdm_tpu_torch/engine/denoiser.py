@@ -32,6 +32,15 @@ reference's. With ``display_result`` each test slice also gets the
 reference's annotated PNG grid (matplotlib, Agg backend); a
 ``sample_method_*`` other than "dense" runs that domain's sparse (DDIM)
 sampler.
+
+With ``mesh_shape`` the engine runs over a process group, one process
+per device (``torchrun --nproc-per-node N main_torch.py --mesh_shape N
+1 ...``; JAX denoiser.py:169-184): training is data-parallel
+(``parallel/mesh.py`` ``make_sharded_train_step``; every rank reads the
+global batch of the same seeded stream and keeps its rows), the test
+modes' UNet evals run on H-bands over the mesh axes that divide the
+height (``make_spatial_sharded_apply``), the convertor runs alike on
+every rank, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -66,6 +75,9 @@ from ipdm_tpu_torch.ops.sharpen import tensor_sharpen
 from ipdm_tpu_torch.recon.convertor import Convertor
 from ipdm_tpu_torch.recon.geometry import SIEMENS
 from ipdm_tpu_torch.utils.profiling import PhaseTimer
+
+# the variables torchrun sets that init_process_group("env://") reads
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 _DEFAULTS = IPDMConfig()
 
@@ -368,6 +380,41 @@ def _pyplot():
     return plt
 
 
+def _join_mesh(opt):
+    """(mesh, device) for ``opt.mesh_shape``: the process group, taken as
+    it is or initialised from torchrun's environment (NCCL on the card,
+    gloo on the CPU), and this rank's device, ``cuda:{LOCAL_RANK}`` where
+    the options say "cuda". Raises without a group and without torchrun's
+    environment: a mesh never falls back to one process."""
+    import torch.distributed as dist
+    from ipdm_tpu_torch.parallel.mesh import make_mesh
+    dev = resolve_device(opt.device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"mesh_shape {opt.mesh_shape} needs one process per device: "
+                f"launch with torchrun --nproc-per-node N main_torch.py "
+                f"--mesh_shape ... (no process group, and {missing} unset)")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    mesh = make_mesh(opt.mesh_shape, ("data", "view"), dev.type)
+    if opt.mode.startswith("train"):
+        # the sharded step splits each global batch's rows over the axis
+        ppi = (opt.patch_per_image or 1) if opt.patch else 1
+        rows, n = opt.batch_size * ppi, mesh.shape[0]
+        if rows % n:
+            raise ValueError(
+                f"a global batch of {rows} rows (batch_size "
+                f"{opt.batch_size} × {ppi} patches an image) does not "
+                f"divide over the mesh's data axis of {n} ranks: set "
+                f"--batch_size to a multiple of {n}")
+    return mesh, dev
+
+
 class ProgressiveDomainDenoiser:
     """The train/test engine. Construct with an IPDMConfig; call .fit()."""
 
@@ -375,7 +422,16 @@ class ProgressiveDomainDenoiser:
                  result_save_path: Optional[str] = None):
         if opt.mode not in _MODES:
             raise ValueError(f"mode {opt.mode!r}: one of {_MODES}")
-        self.device = resolve_device(opt.device)
+        self.mesh = None
+        self.rank = 0
+        if opt.mesh_shape:
+            import torch.distributed as dist
+            self.mesh, self.device = _join_mesh(opt)
+            self.rank = dist.get_rank()
+        else:
+            self.device = resolve_device(opt.device)
+        # rank 0 writes the run's files: options, logs, checkpoints, results
+        self.is_main = self.rank == 0
         self.trans_ldproj = None
         self.trans_ldimg = None
         self.opt = opt
@@ -388,11 +444,11 @@ class ProgressiveDomainDenoiser:
             save_root = osp.join(result_save_path,
                                  f"{opt.model_name}_{opt.run_name}")
         self.save_root = save_root
-        self.logger = LoggerX(save_root, opt)
+        self.logger = LoggerX(save_root, opt, rank=self.rank)
         self.ckpt = CheckpointManager(self.logger.models_save_dir)
         self.logger.save_option(self.opt)
         self.summer = (ScalarWriter(osp.join(save_root, "trainSummary"))
-                       if "train" in opt.mode else None)
+                       if "train" in opt.mode and self.is_main else None)
         # the samplers' and the train step's noise; the models' initial
         # weights come from the same seed without touching the process's
         # default generators
@@ -418,6 +474,8 @@ class ProgressiveDomainDenoiser:
         if self._train_domain is not None:
             self._init_training()
         self.load_model()
+        self.proj_eval = self._sharded_eval(self.proj_model)
+        self.img_eval = self._sharded_eval(self.img_model)
 
         # Section: data
         self.init_data_loader()
@@ -443,7 +501,8 @@ class ProgressiveDomainDenoiser:
         self.metric_each_sample = []
 
         self.save_root_path = osp.join(save_root, "save_test_results")
-        os.makedirs(self.save_root_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.save_root_path, exist_ok=True)
         # per-phase wall-clock profiling (absent upstream)
         self.timer = PhaseTimer()
 
@@ -499,9 +558,48 @@ class ProgressiveDomainDenoiser:
         self.train_resume_epochs = opt[f"resume_epochs_{domain}"]
         model.remat = True
         self.optimizer = make_optimizer(model.parameters(), opt.init_lr)
-        self.train_step = make_train_step(model, gd, self.optimizer,
-                                          self.partial_timesteps,
-                                          self.generator)
+        if self.mesh is not None:
+            from ipdm_tpu_torch.parallel.mesh import make_sharded_train_step
+            self.train_step = make_sharded_train_step(
+                model, gd, self.optimizer, self.partial_timesteps, self.mesh,
+                self.generator)
+        else:
+            self.train_step = make_train_step(model, gd, self.optimizer,
+                                              self.partial_timesteps,
+                                              self.generator)
+
+    def _sharded_eval(self, model):
+        """``model`` itself, or under the mesh its eval on H-bands: the
+        whole [B, C, H, W] input in and the whole output out on every
+        rank, the bands over the mesh axes, in order, whose sizes
+        accumulate to a divisor of H (JAX ``_shard_for_inference``,
+        denoiser.py:396-420); with none, every rank evaluates all of
+        it."""
+        if self.mesh is None or model is None:
+            return model
+        from ipdm_tpu_torch.parallel.mesh import (gather_rows,
+                                                  make_spatial_sharded_apply,
+                                                  shard_rows)
+        mesh = self.mesh
+        applies = {}
+
+        def sharded(x, t):
+            H = x.shape[2]
+            if H not in applies:
+                axes, prod = [], 1
+                for name, size in zip(mesh.mesh_dim_names, mesh.shape):
+                    if H % (prod * size) == 0:
+                        axes.append(name)
+                        prod *= size
+                applies[H] = tuple(axes), (make_spatial_sharded_apply(
+                    model, mesh, tuple(axes)) if axes else None)
+            axes, apply = applies[H]
+            if apply is None:
+                return model(x, t)
+            return gather_rows(apply(shard_rows(x, mesh, axes), t), mesh,
+                               axes)
+
+        return sharded
 
     # -- checkpoints (train_test_utils.py:247-251; loggerx.py:62-80) --------
 
@@ -544,7 +642,9 @@ class ProgressiveDomainDenoiser:
         """The test set and, when training, the training stream
         (denoiser.py:438-470): ``max_iter`` = slices · max_epochs //
         batch_size, resumed at ``resume_iter`` = resume_epochs ·
-        save_freq // batch_size, one replica."""
+        save_freq // batch_size. One stream: under the mesh every rank
+        reads the same global batches (the sampler's seed is the
+        options'), and the sharded step keeps each rank's rows."""
         opt = self.opt
         self.train_loader = None
         if "train" in opt.mode:
@@ -666,8 +766,11 @@ class ProgressiveDomainDenoiser:
         every 10 steps to ``train/loss``; every ``save_freq`` steps the
         checkpoints of iteration n // save_freq and, with test_numbers > 0,
         :meth:`test` on the trained module; denoiser.py:561-580), or
-        test."""
+        test. With ``display_result`` it first checks that matplotlib,
+        which draws the PNG grids, imports."""
         opt = self.opt
+        if opt.display_result:
+            _pyplot()
         if "train" not in opt.mode:
             self.test(0)
             return
@@ -678,12 +781,17 @@ class ProgressiveDomainDenoiser:
         for n_iter in range(opt.resume_iter + 1, opt.max_iter + 1):
             self.train(next(loader), n_iter, loss_temp)
             if n_iter % 10 == 0:
-                self.summer.add_scalar("train/loss", loss_temp[0] / 10,
-                                       n_iter // 10)
+                if self.summer is not None:
+                    self.summer.add_scalar("train/loss", loss_temp[0] / 10,
+                                           n_iter // 10)
                 loss_temp = [0.0]
             if n_iter % opt.save_freq == 0:
                 it = n_iter // opt.save_freq
-                self.checkpoints(it)
+                if self.is_main:
+                    self.checkpoints(it)
+                if self.mesh is not None:
+                    import torch.distributed as dist
+                    dist.barrier()
                 if opt.test_numbers > 0:
                     self.test(it)
 
@@ -725,12 +833,16 @@ class ProgressiveDomainDenoiser:
             else:
                 self.progressive_denoiser()
                 figure_mode = "progressive"
+            if not self.is_main:
+                continue
             with self.timer.phase("metrics"):
                 self.result_figure_save(mode=figure_mode, display=False,
                                         only_metric=only_metric)
             with self.timer.phase("save"):
                 self.result_data_save(data_save=opt.test_result_data_save)
             self.metric_update()
+        if not self.is_main:
+            return
         self.metric_total_save(epoch)
         if self.timer.totals:
             print("[phases]", self.timer.report())
@@ -753,7 +865,7 @@ class ProgressiveDomainDenoiser:
         stores, else only the returned one."""
         opt = self.opt
         result, self.noise_strength = proj_iterations(
-            opt, self.proj_model, x, self.generator, device=self.device,
+            opt, self.proj_eval, x, self.generator, device=self.device,
             trans=self.trans_ldproj, gd=self.proj_gaussian_diffusion,
             curve=self.proj_lambda_curve)
         self.proj_temp_clear()
@@ -779,7 +891,7 @@ class ProgressiveDomainDenoiser:
         ``return_idx`` iteration, NHWC; the store is the progressive one
         or, for any other ``mode``, the image-only one."""
         result = img_iterations(
-            self.opt, self.img_model, x, self.generator, noise_strength,
+            self.opt, self.img_eval, x, self.generator, noise_strength,
             device=self.device, trans=self.trans_ldimg,
             gd=self.img_gaussian_diffusion, curve=self.img_lambda_curve)
         self.img_temp_clear()
@@ -840,7 +952,8 @@ class ProgressiveDomainDenoiser:
     def save_path_load(self, epoch, patient_name, slice_name):
         self.save_path = osp.join(self.save_root_path, f"Save_Iter_{epoch}",
                                   str(patient_name), str(slice_name))
-        os.makedirs(self.save_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.save_path, exist_ok=True)
 
     def result_figure_save(self, mode="progressive", display=True,
                            only_metric=False):

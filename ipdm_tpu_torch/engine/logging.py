@@ -51,14 +51,20 @@ class ScalarWriter:
 
 
 class LoggerX:
+    """The run's option snapshot and stdout lines; a rank other than 0
+    writes and prints nothing."""
+
     def __init__(self, save_root: str, opt=None, rank: int = 0):
         self.models_save_dir = osp.join(save_root, "save_models")
-        os.makedirs(self.models_save_dir, exist_ok=True)
         self.rank = rank
+        if rank == 0:
+            os.makedirs(self.models_save_dir, exist_ok=True)
         self.save_root = save_root
 
     def save_option(self, opt) -> None:
-        """Dump the full config (loggerx.py:82-86)."""
+        """Dump the full config (loggerx.py:82-86); rank-0 only."""
+        if self.rank != 0:
+            return
         d = opt.to_dict() if hasattr(opt, "to_dict") else dict(opt.__dict__)
         with open(osp.join(self.models_save_dir, "option.json"), "w") as f:
             json.dump(d, f, sort_keys=False, indent=4, separators=(",", ": "))

@@ -36,29 +36,38 @@ def nhwc_to_nchw(x, device) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+def train_inputs(images, t, noise, partial_timesteps: int,
+                 generator: Optional[torch.Generator], device):
+    """The step's (x, t, noise), NCHW on ``device``: images NHWC clamped
+    to ≥ 0; t [B] integers in [0, partial_timesteps) and noise of the
+    images' shape, drawn from ``generator`` (t first, then the noise)
+    where not given."""
+    x = nhwc_to_nchw(images, device).clamp_min(0.0)
+    B = x.shape[0]
+    if t is None:
+        t = torch.randint(0, partial_timesteps, (B,), generator=generator,
+                          device=device)
+    else:
+        t = torch.as_tensor(np.asarray(t), dtype=torch.long, device=device)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=device)
+    else:
+        noise = nhwc_to_nchw(noise, device)
+    return x, t, noise
+
+
 def make_train_step(model: torch.nn.Module, gd: GaussianDiffusion,
                     optimizer: torch.optim.Optimizer, partial_timesteps: int,
                     generator: Optional[torch.Generator]) -> Callable:
     """The train step over ``model``'s parameters.
 
     ``step(images, t=None, noise=None)``: images NHWC [B, H, W, C]
-    (patch-flattened), clamped to ≥ 0; t [B] integers in [0,
-    partial_timesteps) and noise NHWC of the images' shape, drawn from
-    ``generator`` (t first, then the noise) where not given. One Adam
-    update; returns the loss, a 0-d tensor on the model's device."""
+    (patch-flattened), t and noise as :func:`train_inputs` takes them.
+    One Adam update; returns the loss, a 0-d tensor on the model's
+    device."""
     def train_step(images, t=None, noise=None) -> torch.Tensor:
-        dev = gd.device
-        x = nhwc_to_nchw(images, dev).clamp_min(0.0)
-        B = x.shape[0]
-        if t is None:
-            t = torch.randint(0, partial_timesteps, (B,), generator=generator,
-                              device=dev)
-        else:
-            t = torch.as_tensor(np.asarray(t), dtype=torch.long, device=dev)
-        if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
-        else:
-            noise = nhwc_to_nchw(noise, dev)
+        x, t, noise = train_inputs(images, t, noise, partial_timesteps,
+                                   generator, gd.device)
         optimizer.zero_grad(set_to_none=True)
         loss = gd.train_loss(model, x, t, noise)
         loss.backward()

@@ -21,6 +21,16 @@ takes its Pallas kernels on a TPU:
   stride 1 and C·O ≤ 160 (unet.py:257, :359-373, :795-796, :906-908);
 * :func:`ipdm_tpu_torch.ops.cuda.attention.flash_attention` takes
   attention over ≥ ``FLASH_MIN_SEQ`` tokens (unet.py:590, :655-657).
+
+``UNetModel.forward(x, t, band=...)`` evaluates the model on one H-band
+of the input, the rows of one rank of a process group
+(``parallel/mesh.py`` ``make_spatial_sharded_apply`` builds the ``band``
+object and owns its collectives). A banded level's 3×3 convs take one
+halo row from each neighbouring band (zero padding only at the slice's
+global top and bottom; ``planar_unit`` stays on, its halo output rows
+cut) and its GroupNorm statistics are summed over the group; the level
+where a band's height goes odd or attention sits, and every level below
+it, runs on the gathered tensor.
 """
 
 from __future__ import annotations
@@ -100,36 +110,60 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def _stats(self, x):
+    def _stats(self, x, band=None):
+        """f32 mean and 1/std per (batch, group); with ``band`` the sums
+        of x and x² and the element counts are summed over its group, so
+        a band gets the whole slice's statistics."""
         xg = x.float().reshape(x.shape[0], self.groups, -1)
-        mean = xg.mean(dim=-1)
-        m2 = (xg * xg).mean(dim=-1)
+        if band is None:
+            mean = xg.mean(dim=-1)
+            m2 = (xg * xg).mean(dim=-1)
+        else:
+            s = torch.stack([xg.sum(dim=-1), (xg * xg).sum(dim=-1),
+                             torch.full_like(xg[..., 0], xg.shape[-1])])
+            band.all_reduce_(s)
+            mean, m2 = s[0] / s[2], s[1] / s[2]
         rstd = torch.rsqrt(torch.clamp(m2 - mean * mean, min=0.0) + 1e-5)
         return xg, mean, rstd
 
-    def coeffs(self, x):
+    def coeffs(self, x, band=None):
         """Per-(batch, channel) f32 affine (a, b) with a·x + b == GN(x),
         the form :func:`planar_unit` consumes (unet.py:100-125)."""
-        _, mean, rstd = self._stats(x)
+        _, mean, rstd = self._stats(x, band)
         rep = self.channels // self.groups
         a = rstd.repeat_interleave(rep, dim=1) * self.weight.float()
         b = self.bias.float() - mean.repeat_interleave(rep, dim=1) * a
         return a.contiguous(), b.contiguous()
 
-    def forward(self, x):
-        xg, mean, rstd = self._stats(x)
+    def forward(self, x, band=None):
+        xg, mean, rstd = self._stats(x, band)
         y = ((xg - mean[..., None]) * rstd[..., None]).reshape(x.shape)
         y = (y * self.weight.float()[None, :, None, None]
              + self.bias.float()[None, :, None, None])
         return y.to(x.dtype)
 
 
+def _with_halo(x, band, halo=None):
+    """x with its neighbours' edge rows on top and below (``halo``, or
+    exchanged through ``band``); a band at the slice's global top or
+    bottom gets none there. Returns (rows, #top, #bottom)."""
+    top, bottom = band.halo(x) if halo is None else halo
+    parts = [p for p in (top, x, bottom) if p is not None]
+    return torch.cat(parts, dim=2), int(top is not None), int(
+        bottom is not None)
+
+
 def conv_unit(conv: nn.Conv2d, x: torch.Tensor, planar: bool,
-              gn: GroupNorm | None = None, extra_bias=None, skip=None):
+              gn: GroupNorm | None = None, extra_bias=None, skip=None,
+              band=None, halo=None):
     """conv3x3(silu(gn(x))) [+ extra_bias] [+ skip]; without ``gn`` the
     plain conv3x3(x). Goes through the planar_unit kernel where the JAX
     package's Conv3x3 takes its Pallas unit on a TPU: a planar block,
-    stride 1, C·O ≤ MAX_CO (unet.py:359-373)."""
+    stride 1, C·O ≤ MAX_CO (unet.py:359-373).
+
+    With ``band`` x is one H-band: the unit convolves it with a halo row
+    from each neighbour (``halo``, raw rows of x, where the caller holds
+    them; only without ``gn``) and cuts the halo's output rows."""
     cin, cout = conv.in_channels, conv.out_channels
     if planar and cin * cout <= MAX_CO:
         B = x.shape[0]
@@ -137,16 +171,27 @@ def conv_unit(conv: nn.Conv2d, x: torch.Tensor, planar: bool,
             a = torch.ones((B, cin), dtype=torch.float32, device=x.device)
             b = torch.zeros_like(a)
         else:
-            a, b = gn.coeffs(x)
+            a, b = gn.coeffs(x, band)
         bias = conv.bias.float()[None].expand(B, cout)
         if extra_bias is not None:
             bias = bias + extra_bias.float()
         w = conv.weight.float().permute(2, 3, 1, 0).contiguous()  # HWIO
-        return planar_unit(x.contiguous(), a, b, w, bias.contiguous(),
-                           None if skip is None else skip.contiguous(),
-                           act=gn is not None)
-    h = x if gn is None else F.silu(gn(x))
-    y = _conv(conv, h)
+        top = bottom = 0
+        if band is not None:
+            # the unit activates the neighbours' raw rows like its own;
+            # the rows its zero padding spoils are the halo's, cut below
+            x, top, bottom = _with_halo(x, band, halo)
+            if skip is not None:
+                skip = F.pad(skip, (0, 0, top, bottom))
+        y = planar_unit(x.contiguous(), a, b, w, bias.contiguous(),
+                        None if skip is None else skip.contiguous(),
+                        act=gn is not None)
+        return y[:, :, top:y.shape[2] - bottom]
+    h = x if gn is None else F.silu(gn(x, band))
+    top = bottom = 0
+    if band is not None:
+        h, top, bottom = _with_halo(h, band, halo)
+    y = _conv(conv, h)[:, :, top:h.shape[2] - bottom]
     if extra_bias is not None:
         y = y + extra_bias[:, :, None, None]
     if skip is not None:
@@ -177,15 +222,15 @@ class ResidualBlock(nn.Module):
                                    device=device)
                          if in_channels != out_channels else None)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, band=None):
         lin = self.time_emb[1]
         t = F.linear(F.silu(emb), lin.weight.to(emb.dtype),
                      lin.bias.to(emb.dtype))
         h = conv_unit(self.conv1[2], x, self.planar, gn=self.conv1[0],
-                      extra_bias=t)
+                      extra_bias=t, band=band)
         sc = x if self.shortcut is None else _conv(self.shortcut, x)
         return conv_unit(self.conv2[2], h, self.planar, gn=self.conv2[0],
-                         skip=sc)
+                         skip=sc, band=band)
 
 
 class AttentionBlock(nn.Module):
@@ -226,8 +271,19 @@ class Downsample(nn.Module):
         super().__init__()
         self.op = nn.Conv2d(channels, channels, 3, padding=1, device=device)
 
-    def forward(self, x):
-        return _conv(self.op, x, stride=2)
+    def forward(self, x, band=None):
+        """With ``band`` (input and output levels both banded, each band
+        of even height) a band's outputs read its rows and one halo row
+        from the band above."""
+        if band is None:
+            return _conv(self.op, x, stride=2)
+        top, _ = band.halo(x)
+        if top is None:
+            return _conv(self.op, x, stride=2)
+        b = None if self.op.bias is None else self.op.bias.to(x.dtype)
+        return F.conv2d(torch.cat([top, x], dim=2),
+                        self.op.weight.to(x.dtype), b, stride=2,
+                        padding=(0, 1))
 
 
 class Upsample(nn.Module):
@@ -239,8 +295,15 @@ class Upsample(nn.Module):
         self.planar = planar
         self.conv = nn.Conv2d(channels, channels, 3, padding=1, device=device)
 
-    def forward(self, x, size):
-        return conv_unit(self.conv, nearest_resize(x, size), self.planar)
+    def forward(self, x, size, band=None, split=False):
+        """With ``band`` the output level is banded: x is this rank's band
+        (resized locally: bands align while sizes double), or with
+        ``split`` the whole tensor, resized and then cut into bands."""
+        y = nearest_resize(x, size)
+        halo = None
+        if split:
+            y, *halo = band.cut(y)
+        return conv_unit(self.conv, y, self.planar, band=band, halo=halo)
 
 
 class UNetModel(nn.Module):
@@ -361,38 +424,61 @@ class UNetModel(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def forward(self, x, timesteps):
+    def forward(self, x, timesteps, band=None):
         """x: [B, C_in, H, W]; timesteps: [B] integers. Returns
-        [B, C_out, H, W] in f32."""
+        [B, C_out, H, W] in f32. With ``band`` x and the result are this
+        rank's H-band (see the module's docstring): ``band.at(level)`` is
+        the band at a banded level, else None."""
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed[0](emb)
         emb = self.time_embed[2](F.silu(emb)).to(self.dtype)
         h = x.to(self.dtype)
+        lvl = 0
+        bd = None if band is None else band.at(0)
+        if band is not None and bd is None:
+            h = band.gather(h)
         hs = []
         for mods, planar in zip(self.down_blocks, self._down_planar):
             first = mods[0]
             if isinstance(first, ResidualBlock):
-                h = self._block(first, h, emb)
+                h = self._block(first, h, emb, bd)
                 if len(mods) > 1:
                     h = self._block(mods[1], h)
             elif isinstance(first, Downsample):
-                h = first(h)
+                lvl += 1
+                nb = None if band is None else band.at(lvl)
+                if bd is not None and nb is None:
+                    h = band.gather(h)
+                h = first(h, nb)
+                bd = nb
             else:  # stem
-                h = conv_unit(first, h, planar)
+                h = conv_unit(first, h, planar, band=bd)
             hs.append(h)
-        h = self._block(self.middle_block[0], h, emb)
+        h = self._block(self.middle_block[0], h, emb, bd)
         h = self._block(self.middle_block[1], h)
-        h = self._block(self.middle_block[2], h, emb)
+        h = self._block(self.middle_block[2], h, emb, bd)
         h_ = hs.pop()
         for mods in self.up_blocks:
             cat_in = torch.cat([h, h_], dim=1)
             if hs:
                 h_ = hs.pop()
-            h = self._block(mods[0], cat_in, emb)
+            h = self._block(mods[0], cat_in, emb, bd)
             for m in mods[1:]:
-                h = (m(h, h_.shape[2:]) if isinstance(m, Upsample)
-                     else self._block(m, h))
-        h = conv_unit(self.out[2], h, self._out_planar, gn=self.out[0])
+                if isinstance(m, Upsample):
+                    lvl -= 1
+                    nb = None if band is None else band.at(lvl)
+                    if nb is not None and bd is None:
+                        h = m(h, (band.rows(lvl), h_.shape[3]), nb,
+                              split=True)
+                    else:
+                        h = m(h, h_.shape[2:], nb)
+                    bd = nb
+                else:
+                    h = self._block(m, h)
+        h = conv_unit(self.out[2], h, self._out_planar, gn=self.out[0],
+                      band=bd)
+        if band is not None and band.at(0) is None:
+            h = band.cut(h)[0]
         return h.float()
 
 

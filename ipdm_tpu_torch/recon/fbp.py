@@ -81,10 +81,13 @@ def ramp_filter(pj: torch.Tensor, h_RL, n_det: int) -> torch.Tensor:
 
 
 def fbp_convert(pj: torch.Tensor, g: FBPGeometry = SIEMENS_FBP,
-                view_block: int = 50, flip: bool = True) -> torch.Tensor:
+                view_block: int = 50, flip: bool = True,
+                theta=None) -> torch.Tensor:
     """Direct fan-beam FBP of [B, M, N] sinograms → [B, n, n] images
     (reference convert, FBP_kernel.py:86-122), ``view_block`` views at a
-    time."""
+    time. ``theta`` (radians, default ``g.theta``) are the angles of
+    pj's views: a wedge of the scan gives that wedge's share of the
+    image (``parallel/mesh.py``'s view-sharded FBP)."""
     dev = pj.device
     if flip:
         pj = pj.flip(2)
@@ -100,11 +103,12 @@ def fbp_convert(pj: torch.Tensor, g: FBPGeometry = SIEMENS_FBP,
     da = float(np.float32(g.da))
     D = float(np.float32(g.D))
     half_pi = float(np.float32(np.pi / 2))
-    theta = torch.as_tensor(g.theta, dtype=torch.float32, device=dev)
+    theta = torch.as_tensor(g.theta if theta is None else theta,
+                            dtype=torch.float32, device=dev)
     B = pj.shape[0]
     n = g.grid_n
     img = torch.zeros((B, n * n), dtype=pj.dtype, device=dev)
-    for v0 in range(0, g.M, view_block):
+    for v0 in range(0, len(theta), view_block):
         beta = theta[v0:v0 + view_block] - half_pi
         th = (half_pi + beta)[:, None] + phi                  # [vb, n²]
         denom = D + r * torch.cos(th)

@@ -1,12 +1,13 @@
-"""Per-phase wall-clock profiling (port of ipdm_tpu/utils/profiling.py
-``PhaseTimer``).
+"""Per-phase wall-clock profiling and device traces (port of
+ipdm_tpu/utils/profiling.py ``PhaseTimer`` and ``device_trace``).
 
 Named wall-clock phases with running total and count, a ``phase(...)``
 context manager, and a one-line report. The engine times the proj-stage +
 convert and img-stage segments of every slice with it, and the host-side
 metric and saving phases. CUDA launches are asynchronous, so a phase that
 launched work on the card ends with ``torch.cuda.synchronize()``: its time
-is the work's, not the launch's.
+is the work's, not the launch's. :func:`device_trace` records a
+``torch.profiler`` trace of a block.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -52,3 +53,21 @@ class PhaseTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """``torch.profiler`` trace of the block (the host and, where CUDA is
+    available, the card) → a Chrome trace in ``log_dir`` (TensorBoard's
+    profile plugin reads it). No-op when ``log_dir`` is None or empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -4,7 +4,9 @@
         --load_option_path Config/Mayo-Config/test_progressive_option.json
 
 Runs on ``cuda`` (``--device cpu`` for the plain PyTorch path at small
-sizes). The twin of ``main.py``.
+sizes). The twin of ``main.py``. Over N cards, one process per card:
+
+    torchrun --nproc-per-node N main_torch.py --mesh_shape N 1 ...
 """
 
 from ipdm_tpu_torch.config.config import default_cfg

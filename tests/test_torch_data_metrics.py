@@ -94,12 +94,10 @@ def test_config_merges_the_mayo_preset_like_jax(capsys):
     jopt = jax_config.IPDMConfig().merge(copy.deepcopy(preset))
     out = capsys.readouterr().out
     d, jd = opt.to_dict(), jopt.to_dict()
-    # the port's own device, and no TPU-only fields
+    # the port's own device; every other field, mesh_shape too, alike
     assert d.pop("device") == "cuda" and jd.pop("device") == "tpu"
     assert "device 'tpu' in config ignored" in out
-    for key in config.TPU_ONLY_KEYS:
-        jd.pop(key)
-        assert key not in d
+    assert "mesh_shape" in d
     assert d == jd
     assert opt.convertor == "ART" and opt.t_start_img == [15, 15, 15]
     assert opt["eta_img"] == 0.7 and opt.get("nope", 3) == 3
@@ -108,17 +106,23 @@ def test_config_merges_the_mayo_preset_like_jax(capsys):
 
 
 def test_config_warns_on_unknown_and_tpu_only_keys(capsys):
+    """Unknown keys warn; the JAX package's mesh_shape is a field of the
+    port's too (the process mesh), from a preset and from the CLI, as
+    JAX's default_cfg parses it."""
     opt = config.IPDMConfig().merge({"mesh_shape": [4, 2], "bogus": 1,
                                      "ntv": 3})
     out = capsys.readouterr().out
-    assert "no key names mesh_shape" in out and "no key names bogus" in out
-    assert opt.ntv == 3 and not hasattr(opt, "mesh_shape")
-    cli = config.default_cfg(["--mesh_shape", "4", "2", "--mode",
-                              "test_prog", "--native_loader", "false"])
+    assert "no key names bogus" in out and "mesh_shape" not in out
+    assert opt.ntv == 3 and opt.mesh_shape == [4, 2]
+    assert config.IPDMConfig().mesh_shape is None
+    argv = ["--mesh_shape", "4", "2", "--mode", "test_prog",
+            "--native_loader", "false"]
+    cli = config.default_cfg(argv)
     out = capsys.readouterr().out
-    assert "no key names mesh_shape" in out
+    assert "no key names" not in out
+    assert cli.mesh_shape == jax_config.default_cfg(argv).mesh_shape == [4, 2]
     # the native prefetching loader is the training path's: a field now
-    assert "native_loader" not in out and cli.mode == "test_prog"
+    assert cli.mode == "test_prog"
     assert cli.native_loader is False and config.IPDMConfig().native_loader
 
 

@@ -151,3 +151,33 @@ def test_grids_without_matplotlib_are_refused_by_name(tmp_path, monkeypatch):
         eng.result_figure_save(mode="dimg", display=False, only_metric=False)
     eng.result_figure_save(mode="dimg", display=False, only_metric=True)
     assert "psnr_iter_1" in eng.metric_instance["deImg"]
+
+
+@pytest.mark.parametrize("mode", ["test_prog", "train_img"])
+def test_fit_refuses_display_result_without_matplotlib_at_start(
+        monkeypatch, mode):
+    """With display_result and no matplotlib, fit() raises the grids'
+    ImportError before it trains or denoises a slice; without
+    display_result it goes on."""
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    eng = port_engine_mod.ProgressiveDomainDenoiser.__new__(
+        port_engine_mod.ProgressiveDomainDenoiser)
+    eng.opt = IPDMConfig(mode=mode, display_result=True)
+    ran = []
+    eng.test = lambda epoch: ran.append(epoch)
+    eng._native_train_iter = lambda: ran.append("train") or iter(())
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *a, **kw):
+        if name == "matplotlib" or name.startswith("matplotlib."):
+            raise ImportError(f"No module named {name!r}")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    with pytest.raises(ImportError, match="display_result.*matplotlib"):
+        eng.fit()
+    assert ran == []
+    if mode == "test_prog":
+        eng.opt.display_result = False
+        eng.fit()
+        assert ran == [0]

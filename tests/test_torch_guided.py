@@ -137,3 +137,43 @@ def test_adaptive_lambda_is_the_next_slice(zero_noise):
     assert got_ns == want_ns == "low"
     assert len(got) == 4
     _assert_iters_close(got, want)
+
+
+@pytest.mark.parametrize("constant", [0.45, None],
+                         ids=["constant-lambda", "per-pixel-lambda"])
+def test_save_states_matches_jax(zero_noise, constant):
+    """save_states=True returns (iterations, reverse states, noise class)
+    as JAX does (guided.py:386, :416-468): one [ts, B, C, H, W]
+    trajectory per iteration, every iteration with a constant λ, the
+    iterations after the probe with the per-pixel λ; each state the
+    step's x before the iteration's clamp, equal to JAX's (NHWC)."""
+    jfn, model = tiny_pair(TINY, seed=5)
+    x = np.random.default_rng(12).random((1, 16, 16, 1)).astype(
+        np.float32) * 0.8
+    kw = dict(t_start=[3, 2, 2], clip=True, eta=0.5, mode="img",
+              constant_guidance=constant, kernel_size=4, amplitude=30.0,
+              lambda_ratio=10)
+    want, want_states, _ = jax_guided(
+        jfn, JaxDiffusion(50, "cosine"), jnp.asarray(x),
+        jax.random.PRNGKey(0), lambda_curve=jax_curve.curve_init(),
+        save_states=True, **kw)
+    got, states, ns = guided_reverse_process(
+        model, GaussianDiffusion(50, "cosine", device="cpu"),
+        torch.from_numpy(x).permute(0, 3, 1, 2), None,
+        lambda_curve=lambda_curve.curve_init(), save_states=True, **kw)
+    assert ns is None
+    _assert_iters_close(got, want)
+    n = 3 if constant is not None else 2
+    assert len(states) == len(want_states) == n
+    for s, w in zip(states, want_states):
+        assert s.shape == (w.shape[0], 1, 1, 16, 16)
+        np.testing.assert_allclose(s.permute(0, 1, 3, 4, 2).numpy(),
+                                   np.asarray(w), rtol=1e-4, atol=1e-4)
+    # without save_states: the same iterations, two values back
+    again = guided_reverse_process(
+        model, GaussianDiffusion(50, "cosine", device="cpu"),
+        torch.from_numpy(x).permute(0, 3, 1, 2), None,
+        lambda_curve=lambda_curve.curve_init(), **kw)
+    assert len(again) == 2
+    for a, g in zip(again[0], got):
+        torch.testing.assert_close(a, g, rtol=0, atol=0)

@@ -50,6 +50,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ipdm_tpu_torch.engine.trainer",
                  "ipdm_tpu_torch.data.sampler",
                  "ipdm_tpu_torch.utils.native",
+                 "ipdm_tpu_torch.parallel.mesh",
+                 "ipdm_tpu_torch.data.dicom",
                  "main_torch.py", "examples/synthetic_e2e_torch.py",
                  "examples/bench_train_torch.py", "chip_smoke.py"):
         assert name in out["modules"]
