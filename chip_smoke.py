@@ -52,12 +52,14 @@ exits non-zero without a result line:
    launched twice on the same inputs (the results must be bit-equal);
    the deposit through all three of its wrappers (bit-equal) with one
    row dropped from one band as a planted fault, anterp_taps with its
-   last tap dropped, each timed on the device and through its wrapper;
+   heaviest tap dropped, each timed on the device and through its wrapper;
    beside the sweep two planted faults its tolerance must see (its last
    subset dropped; one tile's row range cut short by one live row), and
    its profile split: device µs per launch of the FP and the BP kernel and
    the idle time between its launches; bp_shift on the OS-SART norms'
-   calls (V=16, B=1), timed into bp_shift's row;
+   calls (V=16, B=1), timed into bp_shift's row; every bp_shift check,
+   here and in kernels, beside a planted fault (one view's s1 moved by
+   one bin);
 9. reference-ART — the ART-mode pipeline at a small size (per-pixel proj
    λ, OS-SART, ultra pass), f32, card against CPU: with the same noise on
    both; with zero noise, where the convert's output is held to 1e-3 of
@@ -121,6 +123,27 @@ exits non-zero without a result line:
    both anterpolation forms, then ``sart_fast_convert`` of that sinogram
    back to an image, f32 and bf16 sweeps, with its PSNR against the
    phantom (a physics check);
+13b. unfused — the unfused OS-SART and the unfolded view set at full
+   width: four random-ellipse phantoms (512²) projected by project_fast,
+   then ``sart_fast_convert`` (10 sweeps of 40 subsets) fused and folded
+   (the ART slice's), ``fused=False`` (the natural Kf = 2 plan: 80 subset
+   branches of 12-13 views, each an fp_plane_deposit and a
+   bp_shift_accumulate_batched call per sweep), ``fold=False`` (63 fused
+   subsets per drive) and ``fused=False, fold=False`` (24-26 views a
+   branch), each with its plan built in the run and its launches counted
+   around it; every deposit and BP call of each unfused convert's last
+   sweep, every anterp_taps call (the resample onto the two-plane fine
+   grids and nt_full) and every norms call, and the unfolded fused
+   convert's last sweep, against the plain versions at their rules, each
+   beside a planted fault (a dropped row, one view's s1 moved by one bin,
+   a dropped tap, a dropped subset and a cut row range) that must fail;
+   two runs bit-equal; the plan, norms and convert times; the images
+   against each other at 10 sweeps of 40 subsets and at 8 and 4 of 18
+   (gated: the unfused sweep folded vs unfolded > 30 dB at 8 and 4 of
+   18, and > 90 dB at 10 of 40, where the two are the same sums; printed
+   beside the JAX package's 64² floors: unfused vs fused, the fused sweep
+   folded vs unfolded) and against the phantoms at 2, 4 and 10 sweeps;
+   the unfused convert at 64² on the card against the CPU;
 14. engine — the steps of examples/synthetic_e2e_torch.py at full width
    in a temporary directory: a corpus of two slices (phantom →
    project_fast → add_noise at dose 0.25 → OS-SART), two checkpoints
@@ -185,7 +208,9 @@ exits non-zero without a result line:
    train_img with mesh_shape [1, 1] for 2 steps in a 1-rank NCCL group
    that the engine joins from torchrun's variables;
 19. the ``kernels`` JSON line (the mesh phase's launches under
-   ``launches_mesh``, with planar_unit's max |diff| on the bands), the
+   ``launches_mesh``, with planar_unit's max |diff| on the bands; the
+   unfused phase's under ``launches_unfused`` / ``launches_unfolded``,
+   with its checked shapes under ``shapes_unfused``), the
    nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -195,6 +220,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import importlib.util
@@ -272,13 +298,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 class Recorder:
     """Replaces ``module.name`` by a wrapper that records each call's
     arguments (the first ``limit`` calls, all by default; with ``key``,
-    only the first call of each ``key(args)``), for as long as the
-    ``with`` block runs."""
+    only the first call of each ``key(args)``; with ``tail``, the last
+    ``tail`` calls), for as long as the ``with`` block runs."""
 
-    def __init__(self, module, name, limit=None, key=None):
+    def __init__(self, module, name, limit=None, key=None, tail=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.calls = []
+        self.calls = [] if tail is None else collections.deque(maxlen=tail)
         self.limit = limit
         self.key, self.keys = key, set()
 
@@ -388,7 +414,7 @@ def phase_kernels(calls, reps):
     its times and bound. Returns the rows of the kernels JSON line."""
     import torch
     import torch.nn.functional as F
-    from ipdm_tpu_torch.ops.cuda import attention, planar, shift
+    from ipdm_tpu_torch.ops.cuda import attention, planar
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -490,37 +516,19 @@ def phase_kernels(calls, reps):
                  max_abs_err=v["err"]) for k, v in seen.items()]
         flash_ragged(reps)
 
-        # BP: f32 sums over ~500 views in another order; two launches on
-        # the same inputs must give the same bits
+        # BP: f32 sums over ~500 views in another order (bp_check)
         stats = []
         for args, kw in bp_calls:
-            Q, s0, s1, fr, n = args
-            got = shift.bp_shift_accumulate_batched(*args, **kw)
-            repeat_check("bp_shift", got,
-                         shift.bp_shift_accumulate_batched(*args, **kw))
-            want = shift.bp_shift_accumulate_plain(Q, s0, s1, fr, n)
-            torch.cuda.synchronize()
-            atol = 1e-5 * float(want.abs().max())
-            ok, err = _within(got, want, 1e-4, atol)
-            V, B, L = Q.shape
-            nbytes = 4 * (V * B * L + 3 * V * n + B * n * n)
-            flops = 4 * V * B * n * n
-            s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.bp_shift_accumulate_batched(
-                         *args, **kw), reps),
-                     device_ms=queued_ms(
-                         lambda: shift.bp_shift_accumulate_batched(
-                             *args, **kw), reps),
-                     plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
-                         Q, s0, s1, fr, n), max(2, reps // 4)))
-            log(f"kernels: bp_shift V={V} B={B} L={L} n={n}: max |diff| "
-                f"{err:.3e} (tol {atol:.2e} + 1e-4·|plain|); two launches "
-                f"bit-equal; {s['ms']:.4f} ms (kernel {s['device_ms']:.4f} "
-                f"ms on the device), plain {s['plain_ms']:.4f} ms, bound "
+            err, over = bp_check("kernels", args, kw)
+            s = dict(err=err, **_bp_stats(args, kw, reps))
+            V, B, L = args[0].shape
+            log(f"kernels: bp_shift V={V} B={B} L={L} n={args[4]}: max "
+                f"|diff| {err:.3e} (tol 1e-5·max|plain| + 1e-4·|plain|); "
+                f"two launches bit-equal; one view's s1 moved by one bin: "
+                f"{over:.1f}× the tolerance; {s['ms']:.4f} ms (kernel "
+                f"{s['device_ms']:.4f} ms on the device), plain "
+                f"{s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
-            if not ok:
-                raise AssertionError(f"bp_shift disagrees at V={V}: "
-                                     f"max |diff| {err}")
             stats.append(s)
         summarise(rows, "kernels", "bp_shift", "ipdm_tpu_torch/csrc/bp_shift.cu",
                   "ipdm_tpu/ops/pallas/shift.py:119", stats, False)
@@ -1280,48 +1288,11 @@ def phase_kernels_art(calls, reps, bp_row):
         rows[-1]["shapes"] = [shape_entry(v, B=k[0], Wt=k[1])
                               for k, v in shapes.items()]
 
-        # the sweep on the last sweep of each drive (x != 0; the first
-        # sweep starts from x = 0 and its FP is all zeros). 2·32 dependent
-        # subset updates of f32 sums in another order: 1e-5 of the largest
-        # pixel plus 1e-4 of each. Beside it, how far a sweep that drops
-        # its last subset lands from the plain one (a fault the tolerance
-        # has to see)
-        stats = []
+        # the sweep on the last sweep of each drive
         sweeps = calls["os_sart_sweep"]
-        for args, kw in sweeps[-2:]:
-            x, rf, inv2, frac, s0, nrmi, lam = args
-            if not float(x.abs().max()) > 0:
-                raise AssertionError("os_sart_sweep held on x = 0")
-            want = shift.os_sart_sweep_plain(*args)
-            got = shift.os_sart_sweep(*args, **kw)
-            repeat_check("os_sart_sweep", got, shift.os_sart_sweep(*args, **kw))
-            err, msg = check("os_sart_sweep", got, want, 1e-4, 1e-5)
-            short = shift.os_sart_sweep_plain(
-                x, *(a[:-1] for a in (rf, inv2, frac, s0, nrmi)), lam)
-            over = sweep_over(short, want)
-            log(f"kernels-ART: os_sart_sweep with its last subset dropped: "
-                f"max |diff| {float((short - want).abs().max()):.3e}, "
-                f"{over:.1f}× the tolerance at its worst pixel")
-            row_range_control(args, kw, want)
-            S, Vp, B, L = rf.shape
-            n = x.shape[-1]
-            live = int((inv2 != 0).any(dim=2).sum())
-            nbytes = 4 * (2 * B * n * n + S * Vp * B * L + S * Vp * L
-                          + 2 * S * Vp * n + S * n * n)
-            flops = 8 * live * B * n * n + 2 * S * Vp * B * L + 4 * S * B * n * n
-            s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
-                     ms=cuda_ms(lambda: shift.os_sart_sweep(*args, **kw),
-                                reps),
-                     plain_ms=cuda_ms(
-                         lambda: shift.os_sart_sweep_plain(*args), 2, 1))
-            log(f"kernels-ART: os_sart_sweep S={S} Vp={Vp} ({live} live "
-                f"views) B={B} n={n} L={L} lam={lam:.4f} max|x|="
-                f"{float(x.abs().max()):.4f}: {msg} {s['ms']:.4f} ms, plain "
-                f"{s['plain_ms']:.4f} ms, bound "
-                f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms "
-                f"(bytes {s['bytes_ms']:.4f}, operations {s['ops_ms']:.4f}); "
-                f"two launches bit-equal")
-            stats.append(s)
+        stats = [sweep_checks("kernels-ART", args, kw, reps)
+                 for args, kw in sweeps[-2:]]
+        S, Vp, B, _ = sweeps[-1][0][1].shape
         row("os_sart_sweep", "ipdm_tpu_torch/csrc/os_sart_sweep.cu",
             "ipdm_tpu/ops/pallas/shift.py:544", stats)
         rows[-1]["shapes"] = [shape_entry(stats, S=S, Vp=Vp, B=B)]
@@ -1335,31 +1306,76 @@ def phase_kernels_art(calls, reps, bp_row):
         half = len(bp) // 2
         stats = []
         for args, kw in (bp[0], bp[half - 1], bp[half], bp[-1]):
-            Q, s0, s1, fr, n = args
-            got = shift.bp_shift_accumulate_batched(*args, **kw)
-            repeat_check("bp_shift (norms)", got,
-                         shift.bp_shift_accumulate_batched(*args, **kw))
-            err, msg = check("bp_shift (norms)", got,
-                             shift.bp_shift_accumulate_plain(*args), 1e-4,
-                             1e-5)
-            V, B, L = Q.shape
-            s = dict(err=err, **bound_ms(
-                4 * (V * B * L + 3 * V * n + B * n * n), 4 * V * B * n * n,
-                F32_FLOPS),
-                ms=cuda_ms(lambda: shift.bp_shift_accumulate_batched(
-                    *args, **kw), reps),
-                device_ms=queued_ms(lambda: shift.bp_shift_accumulate_batched(
-                    *args, **kw), reps),
-                plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
-                    *args), 5))
-            log(f"kernels-ART: bp_shift (norms) V={V} B={B} L={L} n={n}: "
-                f"{msg}; two launches bit-equal; {s['ms']:.4f} ms (kernel "
-                f"{s['device_ms']:.4f} ms on the device), plain "
+            err, over = bp_check("kernels-ART norms", args, kw)
+            s = dict(err=err, **_bp_stats(args, kw, reps))
+            V, B, L = args[0].shape
+            log(f"kernels-ART: bp_shift (norms) V={V} B={B} L={L} "
+                f"n={args[4]}: max |diff| {err:.3e} (tol 1e-5·max|plain| + "
+                f"1e-4·|plain|); two launches bit-equal; one view's s1 moved "
+                f"by one bin: {over:.1f}× the tolerance; {s['ms']:.4f} ms "
+                f"(kernel {s['device_ms']:.4f} ms on the device), plain "
                 f"{s['plain_ms']:.4f} ms, bound "
                 f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms")
             stats.append(s)
         bp_row["shapes"].append(shape_entry(stats, V=V, B=B))
     return rows
+
+
+def sweep_checks(tag, args, kw, reps, row_control: bool = True) -> dict:
+    """The f32 sweep on one recorded call (a late sweep, x != 0; the first
+    starts from x = 0 and its FP is all zeros) against its plain version:
+    2·S dependent subset updates of f32 sums in another order, so 1e-5 of
+    the largest pixel plus 1e-4 of each; two launches bit-equal. Beside it
+    two planted faults the tolerance has to see: the last subset dropped,
+    and one tile's row range cut short by a live row
+    (:func:`row_range_control`, required unless not ``row_control``).
+    Returns the call's stats."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    x, rf, inv2, frac, s0, nrmi, lam = args
+    if not float(x.abs().max()) > 0:
+        raise AssertionError("os_sart_sweep held on x = 0")
+    want = shift.os_sart_sweep_plain(*args)
+    got = shift.os_sart_sweep(*args, **kw)
+    repeat_check("os_sart_sweep", got, shift.os_sart_sweep(*args, **kw))
+    torch.cuda.synchronize()
+    atol = 1e-5 * float(want.abs().max())
+    ok, err = _within(got, want, 1e-4, atol)
+    if not ok:
+        raise AssertionError(f"os_sart_sweep ({tag}) disagrees: max |diff| "
+                             f"{err} (tol {atol:.3e} + 1e-4·|plain|)")
+    short = shift.os_sart_sweep_plain(
+        x, *(a[:-1] for a in (rf, inv2, frac, s0, nrmi)), lam)
+    over = sweep_over(short, want)
+    log(f"{tag}: os_sart_sweep with its last subset dropped: max |diff| "
+        f"{float((short - want).abs().max()):.3e}, {over:.1f}× the "
+        f"tolerance at its worst pixel")
+    if not over > 1.0:
+        raise AssertionError(f"the sweep's tolerance does not see its last "
+                             f"subset dropped ({over})")
+    row_range_control(tag, args, kw, want, required=row_control)
+    S, Vp, B, L = rf.shape
+    n = x.shape[-1]
+    live = int((inv2 != 0).any(dim=2).sum())
+    nbytes = 4 * (2 * B * n * n + S * Vp * B * L + S * Vp * L
+                  + 2 * S * Vp * n + S * n * n)
+    flops = 8 * live * B * n * n + 2 * S * Vp * B * L + 4 * S * B * n * n
+    fn = lambda: shift.os_sart_sweep(*args, **kw)
+    # device time over 3 calls: their 3·(2·S + 1) launches are enqueued
+    # well inside queued_ms's spin
+    s = dict(err=err, **bound_ms(nbytes, flops, F32_FLOPS),
+             ms=cuda_ms(fn, reps), device_ms=queued_ms(fn, 3),
+             plain_ms=cuda_ms(lambda: shift.os_sart_sweep_plain(*args), 2, 1))
+    log(f"{tag}: os_sart_sweep S={S} Vp={Vp} ({live} live views) B={B} "
+        f"n={n} L={L} lam={lam:.4f} max|x|={float(x.abs().max()):.4f}: max "
+        f"|diff| {err:.3e} (tol {atol:.2e} + 1e-4·|plain|) {s['ms']:.4f} ms "
+        f"(device {s['device_ms']:.4f} ms), plain {s['plain_ms']:.4f} ms, "
+        f"bound "
+        f"{max(s['bytes_ms'], s['ops_ms']):.4f} ms (bytes "
+        f"{s['bytes_ms']:.4f}, operations {s['ops_ms']:.4f}); two launches "
+        f"bit-equal")
+    return s
 
 
 def sweep_over(got, want) -> float:
@@ -1369,15 +1385,19 @@ def sweep_over(got, want) -> float:
     return float(((got - want).abs() / tol).max())
 
 
-def row_range_control(args, kw, want) -> None:
+def row_range_control(tag, args, kw, want, required: bool = True) -> None:
     """A planted fault the sweep's tolerance has to see: the kernel rerun
     with one tile's row range cut short by one live row (a row whose taps
     land in the tile), in the last subset, whose update reaches the output
     directly. The cut is the first or the last row of a range (only those
-    can go while the range stays a range); it is placed where the row's
-    taps weigh most against the ray sum they join (|taps|·inv2 over the
-    tile's bins, on the sweep's input image), and the three heaviest
-    candidates are run. The best must miss the tolerance."""
+    can go while the range stays a range). Every such cut is first made in
+    plain PyTorch (the last subset's FP without the row's taps in the
+    tile, its BP, the relaxed update and the clamp) and the three whose
+    output lies farthest outside the tolerance are run on the kernel. The
+    best must miss the tolerance. Where no cut misses it even in plain
+    PyTorch (a smooth image whose range ends lie where it is near 0) the
+    control can test nothing: unless ``required``, that is printed and
+    the kernel is not run."""
     import torch
     from ipdm_tpu_torch.ops.cuda import shift
 
@@ -1387,31 +1407,45 @@ def row_range_control(args, kw, want) -> None:
     rows = kw["row_ranges"]
     s = S - 1
     r = rows[s].long()                                   # [Vp, nt, 2]
-    nt = r.shape[1]
-    t = (torch.arange(nt, device=x.device)[:, None] * shift.SWEEP_TILE
-         + torch.arange(shift.SWEEP_TILE, device=x.device))   # [nt, tile]
-    w_inv = torch.where(t < L, inv2[s][:, t.clamp_max(L - 1)],
-                        torch.zeros((), device=x.device))     # [Vp, nt, T]
-    cands = []
-    for end, y in ((0, r[..., 0]), (1, r[..., 1] - 1)):
-        live = r[..., 1] > r[..., 0]
-        y = y.clamp(0, n - 1)
-        sy = s0[s].long().gather(1, y)                       # [Vp, nt]
-        f = frac[s].gather(1, y)
-        u = t[None] - sy[..., None]                          # [Vp, nt, T]
+    # the image before the last subset and that subset's update before
+    # the clamp, in plain PyTorch
+    xp = shift.os_sart_sweep_plain(
+        x, *(a[:-1] for a in (rf, inv2, frac, s0, nrmi)), lam)
+    s1 = s0[s] + 1
+    T = shift.fp_plane_deposit_plain(xp.transpose(0, 1).contiguous(), s0[s],
+                                     s1, 1 - frac[s], frac[s], L)
+    pre = xp + lam * nrmi[s] * shift.bp_shift_accumulate_plain(
+        rf[s] - T * inv2[s][:, None, :], s0[s], s1, frac[s], n)
+    tol = 1e-5 * float(want.abs().max()) + 1e-4 * want.abs()
+    zero = torch.zeros((), device=x.device)
 
-        def val(uu):
-            ok = (uu >= 0) & (uu < n)
-            g = x[:, y[..., None], uu.clamp(0, n - 1)]       # [B, Vp, nt, T]
-            return torch.where(ok, g, torch.zeros((), device=x.device))
+    def effect(v, k, y):
+        """The cut's output over the tolerance, at its worst pixel."""
+        tk = torch.arange(k * shift.SWEEP_TILE,
+                          min((k + 1) * shift.SWEEP_TILE, L), device=x.device)
+        sy, f = int(s0[s, v, y]), float(frac[s, v, y])
+        taps = sum(w * torch.where((u >= 0) & (u < n),
+                                   xp[:, y, u.clamp(0, n - 1)], zero)
+                   for u, w in ((tk - sy, 1 - f), (tk - sy - 1, f)))
+        dq = torch.zeros((1, B, L), device=x.device)
+        dq[0, :, tk] = taps * inv2[s, v, tk]             # the lost FP taps
+        dbp = shift.bp_shift_accumulate_plain(dq, s0[s, v:v + 1],
+                                              s1[v:v + 1],
+                                              frac[s, v:v + 1], n)
+        got = (pre + lam * nrmi[s] * dbp).clamp_min(0.0)
+        return float(((got - want).abs() / tol).max())
 
-        taps = (1 - f)[..., None] * val(u) + f[..., None] * val(u - 1)
-        score = (taps.abs() * w_inv).amax(dim=(0, 3)) * live
-        cands += [(float(score[v, k]), end, int(v), int(k))
-                  for v, k in zip(*torch.nonzero(score > 0, as_tuple=True))]
-    cands.sort(reverse=True)
+    cands = sorted(((effect(v, k, int(r[v, k, end]) - end), end, v, k)
+                    for v, k in torch.nonzero(r[..., 1] > r[..., 0]).tolist()
+                    for end in (0, 1)), reverse=True)
+    if not required and not cands[0][0] > 1.0:
+        log(f"{tag}: os_sart_sweep: no cut of one row from a tile's row "
+            f"range in the last subset lies outside the tolerance even in "
+            f"plain PyTorch on these inputs (the farthest of {len(cands)}: "
+            f"{cands[0][0]:.2f}×), so that control is not run here")
+        return
     best = None
-    for _, end, v, k in cands[:3]:
+    for plain_over, end, v, k in cands[:3]:
         cut = rows.clone()
         if end == 0:
             cut[s, v, k, 0] += 1
@@ -1420,12 +1454,14 @@ def row_range_control(args, kw, want) -> None:
         got = shift.os_sart_sweep(*args, **dict(kw, row_ranges=cut))
         over = sweep_over(got, want)
         if best is None or over > best[0]:
-            best = (over, (end, v, k, tuple(rows[s, v, k].tolist())))
-    over, (end, v, k, rng) = best
-    log(f"kernels-ART: os_sart_sweep with one tile's row range cut short by "
+            best = (over, plain_over, (end, v, k,
+                                       tuple(rows[s, v, k].tolist())))
+    over, plain_over, (end, v, k, rng) = best
+    log(f"{tag}: os_sart_sweep with one tile's row range cut short by "
         f"one live row (subset {s}, view {v}, tile {k}, range {rng}, its "
-        f"{'first' if end == 0 else 'last'} row dropped; the heaviest of 3 "
-        f"tried): {over:.1f}× the tolerance at its worst pixel")
+        f"{'first' if end == 0 else 'last'} row dropped; the best of the 3 "
+        f"of {len(cands)} cuts farthest out in plain PyTorch, there "
+        f"{plain_over:.1f}×): {over:.1f}× the tolerance at its worst pixel")
     if not over > 1.0:
         raise AssertionError(f"the sweep's tolerance does not see a row "
                              f"dropped from a tile ({over})")
@@ -1659,13 +1695,58 @@ def _sum_bound_check(label, got, want, absum, nterms):
                  f"(bound 2·{nterms}·2^-24·Σ|terms|)")
 
 
+def deposit_check(tag, args, kw):
+    """fp_plane_deposit on one recorded input against the plain version at
+    the summation-order bound, repeated bit-equal, and a planted fault
+    (one live row dropped from one band: its two weights zeroed in the
+    middle live view) that the bound must see. Returns (max |diff|, the
+    check's message, the fault's worst ratio to the bound, its (view,
+    row), the kernel's output)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    rows_, s0, s1, w0, w1, L = args
+    n = rows_.shape[0]
+    want = shift.fp_plane_deposit_plain(*args)
+    absum = shift.fp_plane_deposit_plain(rows_.abs(), s0, s1, w0.abs(),
+                                         w1.abs(), L)
+    plane = shift.fp_plane_deposit(*args, **kw)
+    repeat_check("fp_plane_deposit", plane,
+                 shift.fp_plane_deposit(*args, **kw))
+    err, msg = _sum_bound_check(f"fp_plane_deposit ({tag})", plane, want,
+                                absum, 2 * n)
+    live = (w0 != 0).any(dim=1) | (w1 != 0).any(dim=1)
+    v = int(torch.nonzero(live)[int(live.sum()) // 2])
+    y = n // 2
+    cut0, cut1 = w0.clone(), w1.clone()
+    cut0[v, y] = cut1[v, y] = 0.0
+    dropped = shift.fp_plane_deposit(rows_, s0, s1, cut0, cut1, L, **kw)
+    torch.cuda.synchronize()
+    tol = 2 * (2 * n) * 2.0 ** -24 * absum
+    over = float(((dropped - want).abs() / tol.clamp_min(1e-30)).max())
+    if not over > 1.0:
+        raise AssertionError(f"the deposit's bound does not see a dropped "
+                             f"row ({over})")
+    return err, msg, over, (v, y), plane
+
+
+def deposit_bound(args, b: int) -> dict:
+    """The deposit's bound at b images: each row, table and output once;
+    4 flops per tap and element of the live views."""
+    rows_, s0, s1, w0, w1, L = args
+    n, _, W = rows_.shape
+    V = s0.shape[0]
+    nv = int(((w0 != 0).any(dim=1) | (w1 != 0).any(dim=1)).sum())
+    return bound_ms(4 * (n * b * W + 4 * V * n + V * b * L),
+                    4 * nv * n * b * W, F32_FLOPS)
+
+
 def deposit_checks(tag, args, kw, reps, timed) -> dict:
     """The deposit kernel on one recorded input through its three wrappers:
-    fp_plane_deposit against the plain version at the summation-order
-    bound, fp_shift_deposit_batched and fp_shift_deposit (each item) bit-
-    equal to it, every launch repeated bit-equal; a planted fault (one
-    live row dropped from one band: its two weights zeroed in one view)
-    that the bound must see. For each wrapper named in ``timed``, the
+    fp_plane_deposit as :func:`deposit_check` holds it (with its planted
+    dropped row), fp_shift_deposit_batched and fp_shift_deposit (each
+    item) bit-equal to it, every launch repeated bit-equal. For each
+    wrapper named in ``timed``, the
     device time (stream held by a spin kernel), the wrapper's and the
     plain version's (fp_shift_deposit on the last item). Returns {wrapper:
     stats}."""
@@ -1675,14 +1756,7 @@ def deposit_checks(tag, args, kw, reps, timed) -> dict:
     rows_, s0, s1, w0, w1, L = args
     n, B, W = rows_.shape
     V = s0.shape[0]
-    want = shift.fp_plane_deposit_plain(*args)
-    absum = shift.fp_plane_deposit_plain(rows_.abs(), s0, s1, w0.abs(),
-                                         w1.abs(), L)
-    plane = shift.fp_plane_deposit(*args, **kw)
-    repeat_check("fp_plane_deposit", plane,
-                 shift.fp_plane_deposit(*args, **kw))
-    err, msg = _sum_bound_check(f"fp_plane_deposit ({tag})", plane, want,
-                                absum, 2 * n)
+    err, msg, over, (v, y), plane = deposit_check(tag, args, kw)
     batched = shift.fp_shift_deposit_batched(*args, **kw)
     repeat_check("fp_shift_deposit_batched", batched,
                  shift.fp_shift_deposit_batched(*args, **kw))
@@ -1698,20 +1772,6 @@ def deposit_checks(tag, args, kw, reps, timed) -> dict:
     if d8 != 0.0 or d9 != 0.0:     # one kernel, one sum order
         raise AssertionError(f"the deposits differ: batched − plane {d8}, "
                              f"single − plane {d9}")
-    # the planted fault: the middle row of the middle live view
-    live = (w0 != 0).any(dim=1) | (w1 != 0).any(dim=1)
-    v = int(torch.nonzero(live)[int(live.sum()) // 2])
-    y = n // 2
-    cut0, cut1 = w0.clone(), w1.clone()
-    cut0[v, y] = cut1[v, y] = 0.0
-    dropped = shift.fp_plane_deposit(rows_, s0, s1, cut0, cut1, L, **kw)
-    torch.cuda.synchronize()
-    tol = 2 * (2 * n) * 2.0 ** -24 * absum
-    over = float(((dropped - want).abs() / tol.clamp_min(1e-30)).max())
-    if not over > 1.0:
-        raise AssertionError(f"the deposit's bound does not see a dropped "
-                             f"row ({over})")
-    nv = int(live.sum())
     calls = {"fp_plane_deposit": (lambda: shift.fp_plane_deposit(*args, **kw),
                                   lambda: shift.fp_plane_deposit_plain(*args),
                                   B),
@@ -1724,15 +1784,14 @@ def deposit_checks(tag, args, kw, reps, timed) -> dict:
     out, times = {}, []
     for name in timed:
         fn, plain, b = calls[name]
-        st = dict(err=err, **bound_ms(4 * (n * b * W + 4 * V * n + V * b * L),
-                                      4 * nv * n * b * W, F32_FLOPS),
-                  ms=cuda_ms(fn, reps), device_ms=queued_ms(fn, reps),
-                  plain_ms=cuda_ms(plain, 3))
+        st = dict(err=err, **deposit_bound(args, b), ms=cuda_ms(fn, reps),
+                  device_ms=queued_ms(fn, reps), plain_ms=cuda_ms(plain, 3))
         out[name] = st
         times.append(f"{name} (B={b}) {st['ms']:.4f} ms (kernel "
                      f"{st['device_ms']:.4f} ms on the device), plain "
                      f"{st['plain_ms']:.4f} ms, bound "
                      f"{max(st['bytes_ms'], st['ops_ms']):.4f} ms")
+    nv = int(((w0 != 0).any(dim=1) | (w1 != 0).any(dim=1)).sum())
     log(f"{tag}: deposit V={V} ({nv} live) B={B} n={n} W={W} L={L}: {msg}; "
         f"fp_shift_deposit_batched and fp_shift_deposit (each item) "
         f"bit-equal to fp_plane_deposit, every launch repeated bit-equal; "
@@ -1741,39 +1800,53 @@ def deposit_checks(tag, args, kw, reps, timed) -> dict:
     return out
 
 
-def anterp_checks(tag, args, kw, reps) -> dict:
-    """anterp_taps on one recorded input: against the plain version at the
-    summation-order bound, repeated bit-equal; a planted fault (the last
-    tap dropped: its weights zeroed) that the bound must see; the device
-    time and the wrapper's. Returns the call's stats."""
+def anterp_check(tag, args, kw):
+    """anterp_taps on one recorded input against the plain version at the
+    summation-order bound, repeated bit-equal, and a planted fault (the
+    heaviest tap dropped: the weights of the tap with the largest sum
+    zeroed) that the bound must see. Returns (max |diff|, the check's
+    message, the fault's worst ratio to the bound)."""
     import torch
     from ipdm_tpu_torch.ops.cuda import shift
 
     P, qi0, W = args
-    V, B, Ntp = P.shape
-    Wt, Lp = W.shape[1], W.shape[2]
+    Wt = W.shape[1]
     want = shift.anterp_taps_plain(*args)
     absum = shift.anterp_taps_plain(P.abs(), qi0, W.abs())
     got = shift.anterp_taps(*args, **kw)
     repeat_check("anterp_taps", got, shift.anterp_taps(*args, **kw))
     err, msg = _sum_bound_check(f"anterp_taps ({tag})", got, want, absum, Wt)
     cut = W.clone()
-    cut[:, -1] = 0.0
+    cut[:, int(W.abs().sum(dim=(0, 2)).argmax())] = 0.0
     short = shift.anterp_taps(P, qi0, cut, **kw)
     torch.cuda.synchronize()
     tol = 2 * Wt * 2.0 ** -24 * absum
     over = float(((short - want).abs() / tol.clamp_min(1e-30)).max())
     if not over > 1.0:
-        raise AssertionError(f"anterp_taps' bound does not see its last tap "
-                             f"dropped ({over})")
-    st = dict(err=err, **bound_ms(
-        4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp),
-        2 * Wt * V * B * Lp, F32_FLOPS),
-        ms=cuda_ms(lambda: shift.anterp_taps(*args, **kw), reps),
-        device_ms=queued_ms(lambda: shift.anterp_taps(*args, **kw), reps),
-        plain_ms=cuda_ms(lambda: shift.anterp_taps_plain(*args), 5))
+        raise AssertionError(f"anterp_taps' bound does not see a dropped "
+                             f"tap ({over})")
+    return err, msg, over
+
+
+def anterp_bound(args) -> dict:
+    """anterp_taps' bound: each input and output once, 2 flops a tap."""
+    P, qi0, W = args
+    V, B, Ntp = P.shape
+    Wt, Lp = W.shape[1], W.shape[2]
+    return bound_ms(4 * (V * B * Ntp + V * Lp + V * Wt * Lp + V * B * Lp),
+                    2 * Wt * V * B * Lp, F32_FLOPS)
+
+
+def anterp_checks(tag, args, kw, reps) -> dict:
+    """anterp_taps on one recorded input as :func:`anterp_check` holds it,
+    with the device time and the wrapper's. Returns the call's stats."""
+    P, qi0, W = args
+    V, B, Ntp = P.shape
+    Wt, Lp = W.shape[1], W.shape[2]
+    err, msg, over = anterp_check(tag, args, kw)
+    st = dict(err=err, **_anterp_stats(args, kw, reps))
     log(f"{tag}: anterp_taps V={V} B={B} Wt={Wt} Lp={Lp} Ntp={Ntp}: {msg}; "
-        f"two launches bit-equal; last tap dropped: {over:.1f}× the bound "
+        f"two launches bit-equal; heaviest tap dropped: {over:.1f}× the bound "
         f"at its worst output; {st['ms']:.4f} ms (kernel "
         f"{st['device_ms']:.4f} ms on the device), plain "
         f"{st['plain_ms']:.4f} ms, bound "
@@ -2064,6 +2137,413 @@ def phase_reference_fp(seed: int) -> None:
               "os_sart_sweep_bf16"):
         if used[k] <= 0:
             raise AssertionError(f"reference-FP skipped {k}")
+
+
+# the three converts of the unfused phase: label → sart_fast_convert options
+UNFUSED_CONVERTS = (("unfused", dict(fused=False)),
+                    ("fused_unfolded", dict(fold=False)),
+                    ("unfused_unfolded", dict(fused=False, fold=False)))
+# the kernels each convert runs (the fused one's deposit and BP run in its
+# norms only)
+UNFUSED_KERNELS = {"unfused": ("fp_plane_deposit", "bp_shift", "anterp_taps"),
+                   "fused_unfolded": ("os_sart_sweep", "anterp_taps"),
+                   "unfused_unfolded": ("fp_plane_deposit", "bp_shift",
+                                        "anterp_taps")}
+UNFUSED_TIMED = 4   # calls timed per (convert, kernel, part)
+
+
+def bp_check(tag, args, kw):
+    """bp_shift_accumulate_batched on one recorded input against the plain
+    version: f32 sums over the views in another order, 1e-4 of each output
+    plus 1e-5 of the largest; two launches bit-equal. Beside it a planted
+    fault the tolerance must see: one view's second taps s1 moved by one
+    bin (the view with the largest Σ frac). Returns (max |diff|, the
+    fault's worst ratio to the tolerance)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    Q, s0, s1, fr, n = args
+    got = shift.bp_shift_accumulate_batched(*args, **kw)
+    repeat_check(f"bp_shift ({tag})", got,
+                 shift.bp_shift_accumulate_batched(*args, **kw))
+    want = shift.bp_shift_accumulate_plain(*args)
+    torch.cuda.synchronize()
+    atol = 1e-5 * float(want.abs().max())
+    ok, err = _within(got, want, 1e-4, atol)
+    if not ok:
+        raise AssertionError(f"bp_shift ({tag}) disagrees: max |diff| {err} "
+                             f"(tol {atol:.3e} + 1e-4·|plain|)")
+    v = int(fr.sum(dim=1).argmax())
+    moved = s1.clone()
+    lo, hi = kw["bounds"]
+    moved[v] += 1 if hi + 1 + n <= Q.shape[-1] else -1
+    cut = shift.bp_shift_accumulate_batched(
+        Q, s0, moved, fr, n, bounds=(min(lo, int(moved[v].min())),
+                                     max(hi, int(moved[v].max()))))
+    torch.cuda.synchronize()
+    over = float(((cut - want).abs() / (atol + 1e-4 * want.abs())).max())
+    if not over > 1.0:
+        raise AssertionError(f"bp_shift's tolerance does not see view {v}'s "
+                             f"s1 moved by one bin ({over})")
+    return err, over
+
+
+def _bp_stats(args, kw, reps) -> dict:
+    """bp_shift's times and bound on one recorded call."""
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    Q, s0, s1, fr, n = args
+    V, B, L = Q.shape
+    fn = lambda: shift.bp_shift_accumulate_batched(*args, **kw)
+    return dict(**bound_ms(4 * (V * B * L + 3 * V * n + B * n * n),
+                           4 * V * B * n * n, F32_FLOPS),
+                ms=cuda_ms(fn, reps), device_ms=queued_ms(fn, reps),
+                plain_ms=cuda_ms(lambda: shift.bp_shift_accumulate_plain(
+                    *args), 3))
+
+
+def _deposit_stats(args, kw, reps) -> dict:
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    fn = lambda: shift.fp_plane_deposit(*args, **kw)
+    return dict(**deposit_bound(args, args[0].shape[1]), ms=cuda_ms(fn, reps),
+                device_ms=queued_ms(fn, reps),
+                plain_ms=cuda_ms(lambda: shift.fp_plane_deposit_plain(*args),
+                                 3))
+
+
+def _anterp_stats(args, kw, reps) -> dict:
+    from ipdm_tpu_torch.ops.cuda import shift
+
+    fn = lambda: shift.anterp_taps(*args, **kw)
+    return dict(**anterp_bound(args), ms=cuda_ms(fn, reps),
+                device_ms=queued_ms(fn, reps),
+                plain_ms=cuda_ms(lambda: shift.anterp_taps_plain(*args), 3))
+
+
+def unfused_kernel_checks(tag, kernel, part, calls, reps) -> dict:
+    """Every recorded call of one kernel in one part of a convert against
+    its plain version at the kernel's rule, each beside its planted fault
+    (:func:`deposit_check`, :func:`bp_check`, :func:`anterp_check`); the
+    times and bound of UNFUSED_TIMED of them, spread over the calls.
+    Prints one line; returns the shape entry of the kernels JSON line."""
+    def check(a, k):
+        """(max |diff|, the planted fault's ratio to the tolerance)."""
+        if kernel == "bp_shift":
+            return bp_check(tag, a, k)
+        r = (deposit_check if kernel == "fp_plane_deposit"
+             else anterp_check)(tag, a, k)
+        return r[0], r[2]
+
+    timing = {"fp_plane_deposit": _deposit_stats, "bp_shift": _bp_stats,
+              "anterp_taps": _anterp_stats}[kernel]
+    errs, overs = zip(*(check(a, k) for a, k in calls))
+    err, control = max(errs), min(overs)
+    step = max(1, len(calls) // UNFUSED_TIMED)
+    stats = [dict(err=err, **timing(a, k, reps)) for a, k in calls[::step]]
+    # (views, images, length) of each call: the deposit's rows [n, B, W]
+    # land on [V, B, L]; the BP reads Q [V, B, L]; anterp_taps reads P
+    # [V, B, Ntp] into [V, B, Lp]
+    if kernel == "fp_plane_deposit":
+        dims = [(a[1].shape[0], a[0].shape[1], a[5]) for a, _ in calls]
+    elif kernel == "bp_shift":
+        dims = [tuple(a[0].shape) for a, _ in calls]
+    else:
+        dims = [(*a[0].shape[:2], a[2].shape[2]) for a, _ in calls]
+    span = lambda i: [min(d[i] for d in dims), max(d[i] for d in dims)]
+    shape = dict(V=span(0), B=int(dims[0][1]), L=span(2))
+    if kernel == "anterp_taps":
+        shape["Wt"] = int(calls[0][0][2].shape[1])
+    entry = dict(convert=tag, part=part, **shape_entry(stats, **shape),
+                 checked_calls=len(calls), control_min=control)
+    log(f"unfused: {tag}: {kernel} ({part}, {shape}): {len(calls)} calls "
+        f"within the rule of the plain version, max |diff| {err:.3e}, every "
+        f"planted fault at least {control:.1f}× the tolerance; {len(stats)} "
+        f"timed: {entry['ms']:.4f} ms per launch (kernel "
+        f"{entry['device_ms']:.4f} ms on the device), plain "
+        f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms")
+    return entry
+
+
+def _crop_psnr(a, b, c: int) -> float:
+    """tests/test_sart_fast.py's PSNR on the images cropped by c: the range
+    of ``a`` over the RMS of a − b."""
+    a = a[c:-c, c:-c].double()
+    b = b[c:-c, c:-c].double()
+    rng = max(float(a.max() - a.min()), 1e-9)
+    return 10 * math.log10(rng ** 2 / float(((a - b) ** 2).mean()))
+
+
+def phase_unfused(seed: int, reps: int) -> dict:
+    """The unfused OS-SART and the unfolded view set at full width
+    (SIEMENS_FBP; 4 random-ellipse phantoms projected by project_fast;
+    the Mayo preset's 10 sweeps of 40 subsets): the fused convert the ART
+    slice runs, then three converts, each with its plan built anew in the
+    run and the launch counters set to 0 just before it and read just
+    after: ``fused=False``, ``fold=False`` and ``fused=False,
+    fold=False``. Every kernel call of each convert's last sweep, of its
+    resample and of its norms against the plain version beside a planted
+    fault; two runs of each bit-equal; plan, norms and convert times; the
+    images against each other and the phantoms (:func:`_unfused_compare`);
+    then the unfused convert at 64², card vs CPU. Returns {"launches":
+    {convert: counts}, "shapes": {kernel: [shape entries]}, "times":
+    {convert: times}}."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.fbp import SIEMENS_FBP
+    from ipdm_tpu_torch.recon.phantom import random_ellipse_phantom
+
+    g = SIEMENS_FBP
+    n = g.grid_n
+    rng = np.random.default_rng(seed)
+    vol = torch.as_tensor(np.stack([random_ellipse_phantom(n, rng)
+                                    for _ in range(4)]).astype(np.float32),
+                          device="cuda")
+    kw = dict(nstart=ART_SLICE_OPT["sart_nstart"],
+              nsubsets=ART_SLICE_OPT["sart_subsets"])
+    with torch.inference_mode():
+        pj = sart_fast.project_fast(vol, g, g.N, float(g.nda[0]),
+                                    float(g.da))
+        imgs = {"fused": sart_fast.sart_fast_convert(pj, g, **kw)}
+        ms = {"fused": cuda_ms(lambda: sart_fast.sart_fast_convert(
+            pj, g, **kw), 3, warmup=1)}
+    launches, shapes, times = {}, {}, {}
+    for label, opt in UNFUSED_CONVERTS:
+        fused = opt.get("fused", True)
+        fold = opt.get("fold", True)
+        run = lambda: sart_fast.sart_fast_convert(pj, g, **kw, **opt)
+        # the main-path run: plan and norms built in it; the last sweep's
+        # calls of the per-subset kernels (at most two branches a subset)
+        # and every anterp_taps call recorded
+        tail = 2 if fused else 2 * kw["nsubsets"]
+        sweep_names = (("os_sart_sweep",) if fused else
+                       ("fp_plane_deposit", "bp_shift_accumulate_batched"))
+        recs = {nm: Recorder(sart_fast, nm, tail=tail) for nm in sweep_names}
+        recs["anterp_taps"] = Recorder(sart_fast, "anterp_taps")
+        sart_fast._SPLANS.clear()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), contextlib.ExitStack() as stack:
+            for r in recs.values():
+                stack.enter_context(r)
+            img = run()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches[label] = dict(_build.LAUNCHES)
+        if tuple(img.shape) != (4, n, n) or not torch.isfinite(img).all():
+            raise AssertionError(f"{label} convert output {tuple(img.shape)}")
+        imgs[label] = img
+        # the plan and its norms built again, timed, their calls recorded
+        sart_fast._SPLANS.clear()
+        norm_names = ("fp_plane_deposit", "bp_shift_accumulate_batched",
+                      "anterp_taps")
+        nrecs = {nm: Recorder(sart_fast, nm) for nm in norm_names}
+        with torch.inference_mode(), contextlib.ExitStack() as stack:
+            for r in nrecs.values():
+                stack.enter_context(r)
+            t0 = time.perf_counter()
+            sp = sart_fast._splan_for(g, kw["nsubsets"], fold=fold,
+                                      kf=1 if fused else None)
+            t_plan = time.perf_counter() - t0
+            sart_fast._norms_for(sp, pj.device, fused)
+            torch.cuda.synchronize()
+            t_norms = time.perf_counter() - t0 - t_plan
+        with torch.inference_mode():
+            _build.reset_launches()
+            again = run()
+            torch.cuda.synchronize()
+            warm = dict(_build.LAUNCHES)
+            repeat = run()
+            torch.cuda.synchronize()
+            if not torch.equal(again, repeat) or not torch.equal(again, img):
+                raise AssertionError(f"{label}: two runs of the convert "
+                                     f"differ")
+            ms[label] = cuda_ms(run, 3, warmup=1)
+        grps = [grp for pair in sp.groups for grp in pair]
+        live = sum(grp.V > 0 for grp in grps)
+        times[label] = dict(cold_s=cold, plan_s=t_plan, norms_s=t_norms,
+                            ms=ms[label])
+        log(f"unfused: {label} convert of 4 sinograms (fused={fused}, "
+            f"fold={fold}; plan Kf={sp.Kf}, "
+            + (f"{sp.dsub['x'][0]}+{sp.dsub['y'][0]} drive subsets of "
+               f"Vp={sp.dsub['x'][1]}" if fused else
+               f"{live} subset branches of V "
+               f"{min(grp.V for grp in grps)}-{max(grp.V for grp in grps)}, "
+               f"L {min(grp.L for grp in grps)}-"
+               f"{max(grp.L for grp in grps)}")
+            + f"): first run {cold:.3f} s (plan {t_plan:.3f} s, norms "
+            f"{t_norms:.3f} s when built alone), warm {ms[label]:.3f} ms; "
+            f"launches in the main-path run {launches[label]}, per warm "
+            f"convert {warm}; two warm runs bit-equal to the first")
+        missing = [k for k in UNFUSED_KERNELS[label]
+                   if launches[label][k] <= 0]
+        if missing:
+            raise AssertionError(f"the {label} convert skipped {missing}")
+        # each kernel's recorded calls against its plain version
+        with torch.inference_mode():
+            an = recs["anterp_taps"].calls
+            n_nt = len(nrecs["anterp_taps"].calls)   # nt_full's come first
+            parts = [("anterp_taps", "nt_full", an[:n_nt]),
+                     ("anterp_taps", "resample", an[n_nt:])]
+            if fused:
+                # the row-range control where a one-row cut can show
+                stats = [sweep_checks(f"unfused: {label}", a, k, reps,
+                                      row_control=False)
+                         for a, k in recs["os_sart_sweep"].calls]
+                S, Vp, B, _ = recs["os_sart_sweep"].calls[-1][0][1].shape
+                shapes.setdefault("os_sart_sweep", []).append(dict(
+                    convert=label, part="last sweep",
+                    **shape_entry(stats, S=S, Vp=Vp, B=B)))
+            else:
+                for nm, kernel in (("fp_plane_deposit", "fp_plane_deposit"),
+                                   ("bp_shift_accumulate_batched",
+                                    "bp_shift")):
+                    calls = list(recs[nm].calls)[-live:]
+                    parts.append((kernel, "last sweep", calls))
+            parts += [("fp_plane_deposit", "norms",
+                       nrecs["fp_plane_deposit"].calls),
+                      ("bp_shift", "norms",
+                       nrecs["bp_shift_accumulate_batched"].calls)]
+            for kernel, part, calls in parts:
+                shapes.setdefault(kernel, []).append(unfused_kernel_checks(
+                    label, kernel, part, list(calls), reps))
+    log(f"unfused: warm ms per convert of 4 sinograms {ms}")
+    _unfused_compare(imgs, vol, pj, g)
+    _small_unfused_check(seed)
+    return dict(launches=launches, shapes=shapes, times=times)
+
+
+def _unfused_compare(imgs, vol, pj, g) -> None:
+    """The converts against each other and against the phantoms (4
+    random-ellipse phantoms; crop n/16 pixels a side; PSNR over the range
+    of the first image, as tests/test_sart_fast.py scores), at the Mayo
+    settings (10 sweeps of 40 subsets) and at that test's own (8 and 4
+    sweeps of 18 subsets). Gated: the unfused sweep's folded vs unfolded
+    PSNR above 30 dB (that test's floor) at 8 and at 4 sweeps of 18
+    subsets, where the two view sets' subsets differ (the plan takes the
+    largest count at most 18 that divides its views: 10 subsets of the
+    1000 folded views, 16 of the 2000 unfolded ones); at 10 sweeps of 40
+    subsets every unfolded subset holds both views φ and φ + π of each
+    folded view, so the two updates are the same sums and that reading
+    is an identity, gated above 90 dB (f32 rounding only). Printed beside the floor the
+    JAX package's test sets at 64² (25 dB and scale Σ(f·u)/Σu² within 5%
+    for unfused vs fused, 30 dB for the fused sweep's folded vs unfolded):
+    the fused sweep drifts from the phantom after a few sweeps (the JAX
+    package's does too: tests/test_torch_sart_unfolded.py holds the port
+    to it where it does), so these say how far the two sweeps' images lie
+    apart, not whether the port is right; beside them each sweep's PSNR
+    against the phantoms at 2, 4 and 10 sweeps."""
+    import torch
+    from ipdm_tpu_torch.recon import sart_fast
+
+    n = g.grid_n
+    c = n // 16
+    ref = vol.transpose(1, 2)                          # recon orientation
+
+    def psnrs(xs, ys):
+        return [round(_crop_psnr(x, y, c), 3) for x, y in zip(xs, ys)]
+
+    def scales(old, new):
+        return [round(float((y[c:-c, c:-c].double() * x[c:-c, c:-c]).sum()
+                            / (x[c:-c, c:-c].double() ** 2).sum()), 4)
+                for x, y in zip(old, new)]
+
+    def verdict(ps, floor, sc=None):
+        ok = min(ps) > floor and (sc is None or
+                                  max(abs(v - 1.0) for v in sc) < 0.05)
+        return "meets" if ok else "misses"
+
+    conv = lambda ns, nsub, **o: sart_fast.sart_fast_convert(
+        pj, g, nstart=ns, nsubsets=nsub, **o)
+    with torch.inference_mode():
+        runs = {(10, 40): imgs}
+        for ns, nsub in ((8, 18), (4, 18)):
+            runs[ns, nsub] = {
+                "fused": conv(ns, nsub),
+                "unfused": conv(ns, nsub, fused=False),
+                "fused_unfolded": conv(ns, nsub, fold=False),
+                "unfused_unfolded": conv(ns, nsub, fused=False, fold=False)}
+        track = {ns: (conv(ns, 40), conv(ns, 40, fused=False))
+                 for ns in (2, 4)}
+    fold_gate = {}
+    for (ns, nsub), r in runs.items():
+        ps, sc = psnrs(r["unfused"], r["fused"]), scales(r["unfused"],
+                                                         r["fused"])
+        pf = psnrs(r["fused_unfolded"], r["fused"])
+        pu = psnrs(r["unfused_unfolded"], r["unfused"])
+        floor = 90.0 if (ns, nsub) == (10, 40) else 30.0
+        fold_gate[ns, nsub] = (pu, floor)
+        log(f"unfused: {ns} sweeps of {nsub} subsets, PSNR (dB): unfused "
+            f"vs fused {ps}, scale {sc} ({verdict(ps, 25.0, sc)} JAX's 25 "
+            f"dB / 5% floor); fused folded vs unfolded {pf} "
+            f"({verdict(pf, 30.0)} its 30 dB floor); unfused folded vs "
+            f"unfolded {pu} (gated > {floor:.0f} dB"
+            + (", an identity here)" if floor > 30.0 else ")"))
+    track[10] = (imgs["fused"], imgs["unfused"])
+    log("unfused: PSNR against the phantoms (dB), fused / unfused sweep, "
+        "40 subsets: " + "; ".join(
+            f"{ns} sweeps {psnrs(ref, f)} / {psnrs(ref, u)}"
+            for ns, (f, u) in sorted(track.items())))
+    for (ns, nsub), (pu, floor) in fold_gate.items():
+        if min(pu) <= floor:
+            raise AssertionError(f"the unfused convert's folded and "
+                                 f"unfolded images differ at {ns} sweeps of "
+                                 f"{nsub} subsets: PSNR {pu} dB (floor "
+                                 f"{floor} dB)")
+
+
+def _small_unfused_check(seed: int) -> None:
+    """The unfused convert at 64² (180 views of 128 detectors, 10 sweeps of
+    18 subsets) on the card against the CPU, on a Shepp-Logan phantom
+    projected by project_fast: within 1e-3 of the CPU image's max, as
+    phase_reference_art holds the fused convert, and its PSNR against the
+    phantom. Then the same on a uniform random sinogram, printed only:
+    there the rays that graze the grid's corners carry huge ratios, where
+    sums in another order can move the corner pixels."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.recon import sart_fast
+    from ipdm_tpu_torch.recon.convertor import fbp_geom_from_fan
+    from ipdm_tpu_torch.recon.geometry import FanBeamGeometry
+    from ipdm_tpu_torch.recon.phantom import shepp_logan
+
+    geom = FanBeamGeometry(nx=64, ny=64, dx=42 / 64, dy=42 / 64, nr=128,
+                           dr=0.0010125 * 912 / 128, na=180)
+    g = fbp_geom_from_fan(geom)
+    ph = shepp_logan(64).astype(np.float32)
+    kw = dict(nstart=10, nsubsets=18, fused=False)
+    before = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        fan = sart_fast.project_fast(torch.from_numpy(ph[None]), g, geom.nr,
+                                     float(g.nda[0]), float(g.da))
+        noise = torch.from_numpy(np.random.default_rng(seed).random(
+            (1, 180, 128)).astype(np.float32))
+        res = {}
+        for name, x in (("phantom", fan), ("random", noise)):
+            cpu = sart_fast.sart_fast_convert(x, g, **kw)[0]
+            gpu = sart_fast.sart_fast_convert(x.cuda(), g, **kw)[0].cpu()
+            d = (cpu - gpu).abs()
+            res[name] = (float(d.max()), float(cpu.abs().max()),
+                         int((d > 1e-3 * cpu.abs().max()).sum()), gpu)
+    used = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    err, top, _, gpu = res["phantom"]
+    ref = torch.from_numpy(ph.T.copy())
+    psnr = 10 * math.log10(float(ref.max()) ** 2
+                           / float(((gpu - ref) ** 2).mean()))
+    r_err, r_top, r_over, _ = res["random"]
+    log(f"unfused: 64² sart_fast_convert(fused=False), 10 sweeps of 18 "
+        f"subsets, of a projected Shepp-Logan phantom: card vs CPU max "
+        f"|diff| {err:.3e} (tol 1e-3·max|cpu| = {1e-3 * top:.3e}); PSNR "
+        f"against the phantom {psnr:.2f} dB; of a uniform random sinogram "
+        f"(printed only): max |diff| {r_err:.3e} at max|cpu| {r_top:.3e}, "
+        f"{r_over} of 4096 pixels past 1e-3·max|cpu|; card launches {used}")
+    if not (torch.isfinite(gpu).all() and err <= 1e-3 * top):
+        raise AssertionError(f"64² unfused convert: card and CPU differ by "
+                             f"{err}")
+    if used["fp_plane_deposit"] <= 0 or used["bp_shift"] <= 0:
+        raise AssertionError(f"64² unfused convert skipped kernels: {used}")
 
 
 def _example():
@@ -3844,6 +4324,7 @@ def main() -> int:
     fp_calls, fp_run, bf16_run = phase_record_fp(SEED)
     rows += phase_kernels_fp(fp_calls, art_calls, REPS)
     phase_reference_fp(SEED)
+    unfused = phase_unfused(SEED, REPS)
     del models
     with tempfile.TemporaryDirectory(prefix="ipdm_engine_") as out:
         eng_run, fbp_one, bp1_calls, corpus_calls = phase_engine(SEED, out)
@@ -3934,6 +4415,30 @@ def main() -> int:
                     e[d]["planar"]["max_abs_err"] for e in mesh_evals
                     for d in ("img", "proj"))
             log(f"kernels: {name}: under the mesh {row['launches_mesh']}")
+    # the unfused phase's converts, each run with the counters set to 0
+    # just before it and read just after (plan and norms built in it):
+    # launches_unfused in sart_fast_convert(fused=False), launches_unfolded
+    # in the two fold=False converts; the shapes checked there
+    unf = unfused["launches"]
+    for row in rows:
+        name = row["name"]
+        if name not in unfused["shapes"]:
+            continue
+        if name != "os_sart_sweep":
+            row["launches_unfused"] = unf["unfused"][name]
+        row["launches_unfolded"] = (unf["fused_unfolded"][name]
+                                    + unf["unfused_unfolded"][name])
+        row["shapes_unfused"] = unfused["shapes"][name]
+        log(f"kernels: {name}: "
+            + (f"{row['launches_unfused']} launches in the unfused convert's "
+               f"run, " if "launches_unfused" in row else "")
+            + f"{row['launches_unfolded']} in the two unfolded converts' "
+            f"(fused {unf['fused_unfolded'][name]}, unfused "
+            f"{unf['unfused_unfolded'][name]})")
+        if (row.get("launches_unfused", 1) <= 0
+                or row["launches_unfolded"] <= 0):
+            raise AssertionError(f"{name} was not launched in the unfused "
+                                 f"phase's converts")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,10 @@ def _entry(fn, rank, n, tmp, args, threads, timeout):
         "gloo", store=store, rank=rank, world_size=n,
         timeout=datetime.timedelta(seconds=timeout))
     try:
+        # every rank's connections are up before any rank can finish and
+        # close its own: gloo's init on a slower rank fails when a peer
+        # that returned from init has already closed the group
+        dist.barrier()
         out = fn(rank, tmp, *args)
         torch.save(out, osp.join(tmp, f"rank{rank}.pt"))
     except BaseException:

@@ -1,10 +1,10 @@
-"""Fast OS-SART on the rebinned parallel geometry (port of the fused path
-of ipdm_tpu/recon/sart_fast.py).
+"""Fast OS-SART on the rebinned parallel geometry (port of
+ipdm_tpu/recon/sart_fast.py).
 
 * The measured fan sinogram is rebinned once to parallel geometry
-  (recon/fbp_fast.py at t-oversampling 1) and folded to a half turn:
-  parallel views φ and φ+π sample the same rays with t reversed, so the
-  two halves are averaged.
+  (recon/fbp_fast.py at t-oversampling 1) and folded to a half turn
+  (``fold=True``, an even view count): parallel views φ and φ+π sample
+  the same rays with t reversed, so the two halves are averaged.
 * The iteration runs on each view's fine ray grid in ratio space. Once
   per convert the measured sinogram becomes the ray-average ratio
   R = m_t / n_t (n_t = FP of ones, static) and is resampled onto the fine
@@ -12,10 +12,16 @@ of ipdm_tpu/recon/sart_fast.py).
   elementwise, ``corr = R_fine − T·scale/n_fine`` on the live rays.
 * Views split into an x-driven and a y-driven set (by which pixel axis
   moves the ray fastest); each set is cut into angle-interleaved ordered
-  subsets. One sweep runs the x-driven subsets on the image and the
-  y-driven ones on its transpose, each drive as one
-  :func:`os_sart_sweep` call (FP by two-tap row deposits, correction, BP,
-  relaxed update, clamp per subset).
+  subsets. The fused sweep (``fused=True``, on the Kf = 1 fine grid) runs
+  the x-driven subsets on the image and the y-driven ones on its
+  transpose, each drive as one :func:`os_sart_sweep` call (FP by two-tap
+  row deposits, correction, BP, relaxed update, clamp per subset).
+* The unfused sweep (``fused=False``, the cross-check of the fused one)
+  runs the plan's own ordered subsets on the natural Kf fine grid: per
+  subset, each drive's views (one :class:`_Group` per branch) are
+  deposited (:func:`fp_plane_deposit`), corrected and backprojected
+  (:func:`bp_shift_accumulate_batched`), and the two branches' sum
+  updates the image.
 * SART constants follow the reference: relaxation 0.24·0.95^sweep,
   correction (m−p)/n, nonnegativity clamp, the post-SART image of the last
   sweep returned, NSL0-TV steps with annealed σ (recon/sart.py).
@@ -25,14 +31,12 @@ of ipdm_tpu/recon/sart_fast.py).
   ray spacing ≤ 1 t-bin): image rows deposited onto each view's fine grid
   (:func:`fp_shift_deposit_batched`), anterpolated onto the t bins
   (:func:`anterp_taps`), the half turn mirrored to the full one and
-  rebinned back to the fan (:func:`_inverse_rebin`). The OS-SART convert
-  runs at Kf = 1.
+  rebinned back to the fan (:func:`_inverse_rebin`).
 
 The static tables are host numpy (as in the JAX package) or f32 tensors
 computed once on the CPU and copied to each device at first use; the
-static norms are computed once per (plan, device). The unfused sweep is
-ported with a later slice. Output orientation matches
-``fbp_convert_fast``.
+static norms are computed once per (plan, sweep kind, device). Output
+orientation matches ``fbp_convert_fast``.
 """
 
 from __future__ import annotations
@@ -209,13 +213,25 @@ class _Group:
             self._bounds[name] = (int(t.min()), int(t.max()))
         return self._bounds[name]
 
+    def start_bounds(self) -> tuple:
+        """(low, high) over both row-start tables s0 and s1."""
+        (lo0, hi0), (lo1, hi1) = self.bounds("s0"), self.bounds("s1")
+        return min(lo0, lo1), max(hi0, hi1)
+
 
 class _SartFastPlan:
     """Static tables for one (geometry, nsubsets, view subset)
     (sart_fast.py:206-355). ``kf`` sets the fine-grid refinement: None
     takes ceil(dp_pix/dt), which keeps the fine ray spacing ≤ 1 t-bin (the
-    forward projector's plan); kf=1 sets it to the view's per-row advance,
-    the grid the fused sweep runs on (its second tap starts at s0 + 1)."""
+    forward projector's and the unfused sweep's plan); kf=1 sets it to the
+    view's per-row advance, the grid the fused sweep runs on (its second
+    tap starts at s0 + 1).
+
+    ``groups[s]`` is subset s's (x-driven, y-driven) pair of view groups
+    (the unfused sweep's); ``gx_all`` / ``gy_all`` hold every view of one
+    drive (the projector's and the norms'), and ``dsub`` cuts each drive
+    into the fused sweep's subsets. A group's tables are built at its
+    first use."""
 
     def __init__(self, g: FBPGeometry, nsubsets: int,
                  view_ids: np.ndarray = None, kf: int = None):
@@ -231,6 +247,14 @@ class _SartFastPlan:
             nsubsets -= 1
         self.nsubsets = nsubsets
         xd = p.group_xdrive
+        # subset s takes views s, s + nsubsets, s + 2·nsubsets, ...
+        self.order = np.arange(nv).reshape(nv // nsubsets, nsubsets).T
+        self.groups = []
+        for loc in self.order:
+            m = xd[self.view_ids[loc]]
+            self.groups.append(tuple(
+                _Group(p, self.view_ids[loc[sel]], loc[sel], drive, self.Kf)
+                for sel, drive in ((m, True), (~m, False))))
         loc_all = np.arange(nv)
         m = xd[self.view_ids]
         self.gx_all = _Group(p, self.view_ids[m], loc_all[m], True, self.Kf)
@@ -297,9 +321,8 @@ class _SartFastPlan:
                          torch.zeros((), device=img.device))
         w1 = tb["frac"] * scale
         taps = (tb["s0"], tb["s1"], w0.contiguous(), w1.contiguous(), grp.L)
-        (lo0, hi0), (lo1, hi1) = grp.bounds("s0"), grp.bounds("s1")
-        return (deposit or fp_plane_deposit)(
-            rows, *taps, bounds=(min(lo0, lo1), max(hi0, hi1)))
+        return (deposit or fp_plane_deposit)(rows, *taps,
+                                              bounds=grp.start_bounds())
 
     def fp_group(self, img: torch.Tensor, grp: _Group, anterp: bool = True,
                  deposit=None) -> torch.Tensor:
@@ -358,6 +381,23 @@ class _SartFastPlan:
             out = out + torch.gather(T, 2, idx) * (w * valid)[:, None, :]
         return out.transpose(0, 1)                             # [B, V, Nt]
 
+    # -- BP ------------------------------------------------------------
+
+    def bp_group_fine(self, corr: torch.Tensor, grp: _Group) -> torch.Tensor:
+        """The adjoint of :meth:`fp_group_fine` without the area scale
+        (sart_fast.py:382-392): corr [Vpad, B, L] on the group's flat fine
+        grid → [B, n, n] (fbp frame), one
+        :func:`bp_shift_accumulate_batched` call whose window check reads
+        the starts' bounds from the host tables."""
+        n = self.p.n
+        if grp.V == 0:
+            return corr.new_zeros((corr.shape[1], n, n))
+        tb = grp.tables(corr.device)
+        out = bp_shift_accumulate_batched(corr, tb["s0"], tb["s1"],
+                                          tb["frac"], n,
+                                          bounds=grp.start_bounds())
+        return out if grp.xdrive else out.transpose(1, 2)
+
     # -- the measured ratios on the fine grid -----------------------------
 
     def resample_to_fine(self, R: torch.Tensor, grp: _Group) -> torch.Tensor:
@@ -391,13 +431,56 @@ def _splan_for(g: FBPGeometry, nsubsets: int, fold: bool = False,
     return _SPLANS[k]
 
 
-def _norms_for(sp: _SartFastPlan, device):
-    """The static norms of the fused sweep on ``device``, computed at the
-    first request and kept on the plan."""
-    key = str(torch.device(device))
+def _norms_for(sp: _SartFastPlan, device, fused: bool = True):
+    """The static norms of the fused (:func:`_compute_norms_fused`) or the
+    unfused (:func:`_compute_norms`) sweep on ``device``, computed at the
+    first request and kept on the plan (sart_fast.py:480-511)."""
+    key = (bool(fused), str(torch.device(device)))
     if key not in sp._norms:
-        sp._norms[key] = _compute_norms_fused(sp, device)
+        sp._norms[key] = (_compute_norms_fused if fused else
+                          _compute_norms)(sp, device)
     return sp._norms[key]
+
+
+def _nt_full(sp: _SartFastPlan, ones_img: torch.Tensor) -> torch.Tensor:
+    """[nv, Nt]: the t-grid FP of ones per view, the denominator of the
+    measured ratio R (sart_fast.py:524-530)."""
+    nt_full = ones_img.new_zeros((len(sp.view_ids), sp.p.Nt))
+    for grp in (sp.gx_all, sp.gy_all):
+        if grp.V:
+            nt_full[torch.as_tensor(grp.local_ids, device=ones_img.device)] \
+                = sp.fp_group(ones_img, grp)[0]
+    return nt_full
+
+
+def _compute_norms(sp: _SartFastPlan, device):
+    """Static tables of the unfused sweep (sart_fast.py:514-546):
+
+      nt_full  [nv, Nt] — t-grid FP of ones per view (the R denominator)
+      fine[s][br] = (inv_nf, valid) [Vpad, L] — per subset branch, the
+                  fine-ray norm's reciprocal and the live-ray mask
+      bp_norms [nsubsets, n, n] — per subset, the BP of the live masks
+                  (the update's denominator)
+    """
+    n = sp.p.n
+    ones_img = torch.ones((1, n, n), dtype=torch.float32, device=device)
+    nt_full = _nt_full(sp, ones_img)
+    zero = torch.zeros((), device=device)
+    fine, bp_norms = [], []
+    for groups in sp.groups:
+        per_branch = []
+        bp = ones_img.new_zeros((1, n, n))
+        for grp in groups:
+            nf = sp.fp_group_fine(ones_img, grp)[:, 0, :]      # [Vpad, L]
+            valid = ((nf > _EPS).float() * grp.tables(device)["qvalid"]
+                     if grp.V else torch.zeros_like(nf))
+            per_branch.append((torch.where(valid > 0,
+                                           1.0 / nf.clamp_min(_EPS), zero),
+                               valid))
+            bp = bp + sp.bp_group_fine(valid[:, None, :], grp)
+        fine.append(per_branch)
+        bp_norms.append(bp[0])
+    return nt_full, fine, torch.stack(bp_norms)
 
 
 def _compute_norms_fused(sp: _SartFastPlan, device):
@@ -417,18 +500,15 @@ def _compute_norms_fused(sp: _SartFastPlan, device):
     """
     p = sp.p
     n = p.n
-    nv = len(sp.view_ids)
     scale = float(np.float32(p.dp_pix * p.dp_pix / p.dt))
     ones_img = torch.ones((1, n, n), dtype=torch.float32, device=device)
-    nt_full = torch.zeros((nv, p.Nt), dtype=torch.float32, device=device)
+    nt_full = _nt_full(sp, ones_img)
     zero = torch.zeros((), device=device)
     per_drive = {}
     for key in ("x", "y"):
         grp = sp.group(key)
         if grp.V == 0:
             continue
-        nt = sp.fp_group(ones_img, grp)[0]                     # [V, Nt]
-        nt_full[torch.as_tensor(grp.local_ids, device=device)] = nt
         S = sp.dsub[key][0]
         nf = sp.fp_group_fine(ones_img, grp)[:, 0, :]          # [Vpad, L]
         valid = (nf > _EPS).float() * grp.tables(device)["qvalid"]
@@ -468,41 +548,28 @@ def _tv_steps(x, ntv: int, sigma: float, dtvg):
     return x
 
 
-def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
-                        nstart: int, ntv: int,
-                        mm_bf16: bool = False) -> torch.Tensor:
-    """OS-SART of a batch of parallel sinograms par [B, nv, Nt] →
-    [B, n, n] (fbp frame), one :func:`os_sart_sweep` call per drive axis
-    per sweep (sart_fast.py:599-671), in its bf16 operand mode when
-    ``mm_bf16``. The relaxation and σ are host f32 numbers, updated as
-    the JAX scan updates them."""
-    n = sp.p.n
-    B = par.shape[0]
-    nt_full, per_drive = norms
-    R = torch.where(nt_full[None] > _EPS, par / nt_full[None].clamp_min(_EPS),
-                    torch.zeros((), device=par.device))
-    rf = {}
-    for key, d in per_drive.items():
-        rfa = sp.resample_to_fine(R, sp.group(key)) * d["valid"][:, None, :]
-        rf[key] = sp.subset_take(key, rfa).contiguous()       # [S,Vp,B,L]
+def _ratios(par: torch.Tensor, nt_full: torch.Tensor) -> torch.Tensor:
+    """The measured ray-average ratio R = m_t / n_t, 0 where n_t is not."""
+    return torch.where(nt_full[None] > _EPS,
+                       par / nt_full[None].clamp_min(_EPS),
+                       torch.zeros((), device=par.device))
 
+
+def _os_sart(sweep, B: int, n: int, device, nstart: int,
+             ntv: int) -> torch.Tensor:
+    """The sweep loop both sweeps share (sart_fast.py:628-671, 692-738):
+    ``sweep(x, lam)`` is one OS-SART sweep of the [B, n, n] image at
+    relaxation lam; after each, σ is annealed and ntv NSL0-TV steps run
+    with their step length and α adapted as the JAX scan adapts them.
+    λ and σ are host f32 numbers; the post-SART image of the last sweep
+    is returned."""
     lam, sigma = np.float32(0.24), np.float32(0.8)
-    alpha = torch.full((B,), 0.1, dtype=torch.float32, device=par.device)
-    x = torch.zeros((B, n, n), dtype=torch.float32, device=par.device)
+    alpha = torch.full((B,), 0.1, dtype=torch.float32, device=device)
+    x = torch.zeros((B, n, n), dtype=torch.float32, device=device)
     x_res = x
     for _ in range(int(nstart)):
         x_back = x
-        for key, d in per_drive.items():
-            args = (rf[key], d["inv2"], d["frac"], d["s0"], d["nrmi"],
-                    float(lam))
-            kw = dict(s0_bounds=d["s0_bounds"], bf16=mm_bf16,
-                      row_ranges=d["rows"],
-                      row_ranges_bounds=d["rows_bounds"])
-            if key == "x":
-                x = os_sart_sweep(x.contiguous(), *args, **kw)
-            else:   # the y-driven views run on the transposed image
-                x = os_sart_sweep(x.transpose(1, 2).contiguous(), *args,
-                                  **kw).transpose(1, 2)
+        x = sweep(x, float(lam))
         x_res = x
         sigma = max(np.float32(sigma * np.float32(0.9)), np.float32(0.1))
         if ntv > 0:
@@ -515,29 +582,101 @@ def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
     return x_res
 
 
+def _sart_iterate_fused(sp: _SartFastPlan, par: torch.Tensor, norms,
+                        nstart: int, ntv: int,
+                        mm_bf16: bool = False) -> torch.Tensor:
+    """OS-SART of a batch of parallel sinograms par [B, nv, Nt] →
+    [B, n, n] (fbp frame), one :func:`os_sart_sweep` call per drive axis
+    per sweep (sart_fast.py:599-671), in its bf16 operand mode when
+    ``mm_bf16``."""
+    nt_full, per_drive = norms
+    R = _ratios(par, nt_full)
+    rf = {}
+    for key, d in per_drive.items():
+        rfa = sp.resample_to_fine(R, sp.group(key)) * d["valid"][:, None, :]
+        rf[key] = sp.subset_take(key, rfa).contiguous()       # [S,Vp,B,L]
+
+    def sweep(x, lam):
+        for key, d in per_drive.items():
+            args = (rf[key], d["inv2"], d["frac"], d["s0"], d["nrmi"], lam)
+            kw = dict(s0_bounds=d["s0_bounds"], bf16=mm_bf16,
+                      row_ranges=d["rows"],
+                      row_ranges_bounds=d["rows_bounds"])
+            if key == "x":
+                x = os_sart_sweep(x.contiguous(), *args, **kw)
+            else:   # the y-driven views run on the transposed image
+                x = os_sart_sweep(x.transpose(1, 2).contiguous(), *args,
+                                  **kw).transpose(1, 2)
+        return x
+
+    return _os_sart(sweep, par.shape[0], sp.p.n, par.device, nstart, ntv)
+
+
+def _sart_iterate(sp: _SartFastPlan, par: torch.Tensor, norms,
+                  nstart: int, ntv: int) -> torch.Tensor:
+    """OS-SART of a batch of parallel sinograms par [B, nv, Nt] →
+    [B, n, n] (fbp frame) by the unfused sweep (sart_fast.py:674-738): per
+    subset and branch an FP onto the group's fine grid, the elementwise
+    ratio correction corr = (R_fine − T / n_fine) on the live rays, and its
+    BP; the branches' sum, over the subset's BP norm, is the relaxed
+    update, then the clamp. R is resampled to every group's fine grid once
+    per convert."""
+    nt_full, fine, bp_norms = norms
+    R = _ratios(par, nt_full)
+    Rf = [[sp.resample_to_fine(R, grp) for grp in groups]
+          for groups in sp.groups]
+    zero = torch.zeros((), device=par.device)
+
+    def sweep(x, lam):
+        for s, groups in enumerate(sp.groups):
+            bp = torch.zeros_like(x)
+            for br, grp in enumerate(groups):
+                if grp.V == 0:
+                    continue
+                inv_nf, valid = fine[s][br]
+                T = sp.fp_group_fine(x, grp)                   # [Vpad, B, L]
+                corr = (Rf[s][br] - T * inv_nf[:, None, :]) * valid[:, None, :]
+                bp = bp + sp.bp_group_fine(corr, grp)
+            nbp = bp_norms[s][None]
+            upd = torch.where(nbp > _EPS, lam * bp / nbp.clamp_min(_EPS), zero)
+            x = (x + upd).clamp_min(0.0)
+        return x
+
+    return _os_sart(sweep, par.shape[0], sp.p.n, par.device, nstart, ntv)
+
+
 def sart_fast_convert(pj: torch.Tensor, g: FBPGeometry, nstart: int = 10,
                       ntv: int = 0, nsubsets: int = 40,
-                      sample_rate: int = 1,
+                      sample_rate: int = 1, fold: bool = True,
+                      fused: bool = True,
                       mm_bf16: bool = False) -> torch.Tensor:
     """[B, na, nr] fan sinograms → [B, n, n] images in fbp_convert_fast
     orientation (sart_fast.py:741-772): the reference's recons_torch
     semantics (nstart sweeps, ntv TV steps per sweep, every sample_rate-th
-    view) on the rebinned-parallel geometry, folded to a half turn when
-    the view count is even, the fused sweep on the Kf=1 fine grid, the
-    whole batch at once. ``mm_bf16`` runs the sweeps with bf16-rounded
-    product operands (:func:`os_sart_sweep`)."""
+    view) on the rebinned-parallel geometry, the whole batch at once.
+    ``fold`` averages the two half turns when the view count is even.
+    ``fused`` runs the fused sweep on the Kf = 1 fine grid, with
+    bf16-rounded product operands when ``mm_bf16`` (:func:`os_sart_sweep`);
+    ``fused=False`` runs the unfused per-subset kernel chain on the
+    natural-Kf grid (the fused sweep's cross-check) and ignores
+    ``mm_bf16``."""
     sample_rate = int(sample_rate)
-    fold = g.M % 2 == 0
-    sp = _splan_for(g, nsubsets, fold=fold, sample_rate=sample_rate, kf=1)
-    norms = _norms_for(sp, pj.device)
+    fold = bool(fold) and g.M % 2 == 0
+    fused = bool(fused)
+    sp = _splan_for(g, nsubsets, fold=fold, sample_rate=sample_rate,
+                    kf=1 if fused else None)
+    norms = _norms_for(sp, pj.device, fused)
     par = _rebin(pj.float().flip(-1), sp.p)  # detector flip (fbp convention)
     if fold:
         M = g.M
         par = 0.5 * (par[:, :M // 2] + par[:, M // 2:].flip(-1))
     if sample_rate > 1:
         par = par[:, ::sample_rate]
-    img = _sart_iterate_fused(sp, par, norms, int(nstart), int(ntv),
-                              mm_bf16=bool(mm_bf16))
+    if fused:
+        img = _sart_iterate_fused(sp, par, norms, int(nstart), int(ntv),
+                                  mm_bf16=bool(mm_bf16))
+    else:
+        img = _sart_iterate(sp, par, norms, int(nstart), int(ntv))
     return img.flip(-1)                      # x flip (fbp convention)
 
 

@@ -16,7 +16,8 @@ plan and projector paths hand the wrappers:
   batch item's taps summed in k order) at Wt = 2, 4 and 6;
 * the plan's norms, the OS-SART convert and project_fast pass every
   deposit and anterp wrapper bounds from the host, so no window check
-  reads the device.
+  reads the device; the unfused convert (its norms, and its deposit, BP
+  and resample calls, folded and not) passes every wrapper bounds too.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by chip_smoke.py."""
@@ -224,3 +225,30 @@ def test_plan_and_projector_pass_host_bounds(monkeypatch):
             "anterp_taps"} <= names, names
     assert all(ok for nm, ok in seen
                if nm.startswith("fp_") or nm == "anterp_taps"), seen
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_unfused_convert_passes_host_bounds(monkeypatch, fold):
+    """sart_fast_convert(fused=False), its plan and norms built in the
+    call: every deposit, BP and anterp wrapper call gets its (low, high)
+    from the host tables (a device read per call would serialise the
+    ~1600 launches of a full-width convert)."""
+    seen = []
+    real = shift._check_windows
+
+    def spy(s0, s1, n, L, name="bp_shift_accumulate", bounds=None):
+        seen.append((name, bounds is not None))
+        return real(s0, s1, n, L, name, bounds)
+
+    monkeypatch.setattr(shift, "_check_windows", spy)
+    g = FBPGeometry(**SMALL)
+    sart_fast._SPLANS.clear()
+    sino = torch.rand((1, 360, 128),
+                      generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        sart_fast.sart_fast_convert(sino, g, nstart=1, nsubsets=6,
+                                    fused=False, fold=fold)
+    names = {nm for nm, _ in seen}
+    assert names == {"fp_plane_deposit", "bp_shift_accumulate",
+                     "anterp_taps"}, names
+    assert all(ok for _, ok in seen), seen
