@@ -207,12 +207,26 @@ exits non-zero without a result line:
    process's at B = 2 and B = 1); then ``fit()`` of
    train_img with mesh_shape [1, 1] for 2 steps in a 1-rank NCCL group
    that the engine joins from torchrun's variables;
+   quality — the port trained on the card from seeded weights, through
+   examples/synthetic_e2e_torch.py's steps, in two runs. The contract of
+   tests/test_quality.py: a 16-slice 64² corpus built on the card,
+   train_img and train_proj at SMALL_ARCH for 200 iterations (12 epochs
+   of 16 slices at batch 1), test_prog on 4 slices with the FBP
+   convertor (gated: deProg > LDCT + 1 dB, deProj > LDCT − 3 dB) and
+   with the ART convertor on the same checkpoints (printed). Then full
+   width, at docs/PERF.md's full-scale demonstration's settings: an
+   8-slice 512² corpus on the SIEMENS scanner built by FBP, FULL_ARCH
+   UNets trained 100 iterations, test_prog on 4 slices with FBP (gated
+   the same). Each run prints its PSNR / SSIM beside the JAX package's
+   reading at its settings, its seconds by step, peak memory and
+   launches (each kernel of its path > 0);
 19. the ``kernels`` JSON line (the mesh phase's launches under
    ``launches_mesh``, with planar_unit's max |diff| on the bands; the
    unfused phase's under ``launches_unfused`` / ``launches_unfolded``,
-   with its checked shapes under ``shapes_unfused``), the
-   nvidia-smi line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   with its checked shapes under ``shapes_unfused``; the quality
+   phase's under ``launches_quality`` and ``launches_quality_full``),
+   the nvidia-smi line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero when no CUDA device is present. It imports nothing of
 JAX or of the JAX package.
@@ -275,8 +289,13 @@ ENGINE_KERNELS = ART_KERNELS + ("fp_shift_deposit",)
 DOSE = 0.25   # the synthetic corpus's low dose
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the report, after the script's seconds so far (where
+    the 1200 s budget goes)."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1032,8 +1051,10 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
         vals = [sp[k] for sp in splits]
         log(f"{tag}: {name} {[round(v, 4) for v in vals]} s, mean "
             f"{sum(vals) / n_timed:.4f} s")
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # device activity alone: the host ops' events add nothing to the
+    # device time and the idle share, and their post-processing took
+    # ~130 s of the script's budget per profiled slice
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(seed + 9)
         torch.cuda.synchronize()
@@ -4281,6 +4302,148 @@ def _mesh_engine(seed: int, out: str, dev: str, size: int) -> dict:
 
 
 
+QUALITY_ARGV = ["--n", "16", "--size", "64", "--iters", "200",
+                "--test-slices", "4", "--device", "cuda"]
+# the kernels the contract run's path launches: project_fast of each
+# phantom (#9; one image a call, so not #8), the corpus's OS-SART (#4,
+# its plan's #5, #6 and the norms' #2), the FBP test's convert of its one
+# kept iteration (#7), the ART test's sweeps, and planar_unit in both
+# SMALL_ARCH UNets' stem (1 → 16 channels) and output (16 → 1)
+# convolutions; no flash kernel (64 tokens at 64², under FLASH_MIN_SEQ)
+QUALITY_KERNELS = ("fp_shift_deposit", "os_sart_sweep", "anterp_taps",
+                   "fp_plane_deposit", "bp_shift", "bp_shift_accumulate",
+                   "planar_unit")
+# the settings of docs/PERF.md's "Full-scale quality demonstration": the
+# SIEMENS scanner (512², 2000×912), the presets' widths (FULL_ARCH), an
+# FBP-built corpus of 8 slices, 100 iterations (12 epochs of 8 slices)
+QUALITY_FULL_ARGV = ["--n", "8", "--size", "512", "--full-arch", "--recon",
+                     "FBP", "--iters", "100", "--test-slices", "4",
+                     "--device", "cuda"]
+# its path: project_fast of each phantom (#9 and its #5), the FBP of the
+# corpus and of the test's kept iteration at B = 1 (#7), planar_unit in
+# the proj UNet's narrow levels; no OS-SART, and no flash kernel (img
+# attention at ds 16 has 1024 tokens, proj at ds 32 under 2000)
+QUALITY_FULL_KERNELS = ("fp_shift_deposit", "anterp_taps",
+                        "bp_shift_accumulate", "planar_unit")
+# LDCT, deProj, deProg PSNR (dB) of the JAX package at these settings:
+# docs/PERF.md's table for QUALITY_FULL_ARGV (a TPU), and the 64² runs
+# of scripts/jax_quality_reading.py (a CPU; FBP, then ART on the same
+# checkpoints)
+JAX_QUALITY_FULL = (25.87, 25.86, 30.89)
+JAX_QUALITY = {"FBP": (29.7011, 31.4041, 32.8132),
+               "ART": (29.7011, 26.8666, 30.2175)}
+
+
+def _quality_groups(m: dict) -> str:
+    """LDCT / deProj / deProg PSNR and SSIM of an aggregate metric.json."""
+    return "; ".join(
+        f"{g} " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(m[g].items())
+                            if not k.endswith("_std"))
+        for g in ("LDCT", "deProj", "deProg"))
+
+
+def _quality_run(label: str, argv, convs, kernels, jax_ref: dict,
+                 seed: int, out: str) -> dict:
+    """``examples/synthetic_e2e_torch.py``'s steps at ``argv``, through
+    the engine as a user calls it: the corpus built on the card,
+    ``ProgressiveDomainDenoiser(opt).fit()`` in train_img and train_proj,
+    then test_prog on the same checkpoints with each convertor of
+    ``convs``, the first the gated one: deProg > LDCT + 1 dB and deProj >
+    LDCT − 3 dB. PyTorch's default precision, as the example runs (cuDNN
+    in TF32). Prints each run's LDCT / deProj / deProg PSNR and SSIM
+    beside the JAX package's (``jax_ref``), the seconds and launches of
+    each step, the peak memory. Returns the launches (the counters set to
+    0 just before the run); each kernel of ``kernels`` must have run."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    ex = _example()
+    args = ex.parse_args(["--out", out, "--seed", str(seed)] + argv)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    marks = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+
+        def mark(step):
+            torch.cuda.synchronize()
+            marks.append((step, time.perf_counter() - t0,
+                          dict(_build.LAUNCHES)))
+
+        ex.build_dataset(out, args.n, args.size, args.dose, seed=args.seed,
+                         recon=args.recon, device=args.device)
+        mark("corpus")
+        common = ex.common_options(args)
+        dirs = ex.train_models(args, common)
+        mark("train img + proj")
+        runs = {}
+        for conv in convs:
+            runs[conv] = ex.progressive_test(args, common, dirs, conv)
+            mark(f"test_prog {conv}")
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    split, before, t_before = [], {k: 0 for k in launches}, 0.0
+    for step, t, counts in marks:
+        diff = {k: v - before[k] for k, v in counts.items() if v - before[k]}
+        split.append(f"{step} {t - t_before:.3f} s {diff}")
+        before, t_before = counts, t
+    steps = 2 * common["max_epochs"] * args.n
+    log(f"{label}: {args.n} slices {args.size}², "
+        f"{'FULL_ARCH' if args.full_arch else 'SMALL_ARCH'}, {args.recon} "
+        f"corpus, --iters {args.iters} ({common['max_epochs']} epochs at "
+        f"batch 1, {steps} steps in all), test_prog on {args.test_slices} "
+        f"slices; cuDNN TF32 on: {seconds:.3f} s, peak memory {peak:.3f} "
+        f"GiB, {(marks[1][1] - marks[0][1]) / steps:.4f} s per step of "
+        f"fit() (engines, checkpoints and logging included); "
+        + "; ".join(split))
+    for conv, (ldct, deproj, deprog, m) in runs.items():
+        ref = jax_ref.get(conv)
+        log(f"{label}: {conv}{' (gated)' if conv == convs[0] else ''}: "
+            + _quality_groups(m)
+            + (f"; the JAX package: LDCT {ref[0]} → deProj {ref[1]} → "
+               f"deProg {ref[2]} dB" if ref else ""))
+    ldct, deproj, deprog, _ = runs[convs[0]]
+    log(f"{label}: {convs[0]} gates: deProg {deprog:.4f} > LDCT {ldct:.4f} "
+        f"+ 1 dB: {deprog > ldct + 1.0} (margin {deprog - ldct - 1.0:+.4f} "
+        f"dB); deProj {deproj:.4f} > LDCT − 3 dB: {deproj > ldct - 3.0}")
+    log(f"{label}: launches {launches}")
+    if not (deprog > ldct + 1.0 and deproj > ldct - 3.0):
+        raise AssertionError(f"{label}: the trained port misses the "
+                             f"contract: LDCT {ldct}, deProj {deproj}, "
+                             f"deProg {deprog} dB")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    return launches
+
+
+def phase_quality(seed: int, out: str):
+    """The port's quality on the card, trained from seeded weights. The
+    contract run (tests/test_quality.py's settings): a 16-slice 64²
+    random-ellipse corpus, SMALL_ARCH UNets trained 200 iterations a
+    domain, test_prog on 4 slices with the FBP convertor (gated) and the
+    ART convertor. The full-width run (docs/PERF.md's full-scale
+    demonstration): an 8-slice 512² corpus on the SIEMENS scanner, built
+    by FBP, FULL_ARCH UNets trained 100 iterations a domain, test_prog on
+    4 slices with the FBP convertor (gated). Returns each run's launches,
+    the counters set to 0 just before it and read just after."""
+    return (_quality_run("quality", QUALITY_ARGV, ("FBP", "ART"),
+                         QUALITY_KERNELS, JAX_QUALITY, seed,
+                         osp.join(out, "contract")),
+            _quality_run("quality-full", QUALITY_FULL_ARGV, ("FBP",),
+                         QUALITY_FULL_KERNELS, {"FBP": JAX_QUALITY_FULL},
+                         seed, osp.join(out, "full")))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4335,6 +4498,8 @@ def main() -> int:
         phase_figures(SEED, out)
         fwd_calls, bwd_calls, train_runs = phase_train(SEED, out)
         mesh_evals, mesh_train, mesh_engine = phase_mesh(SEED, out)
+        quality, quality_full = phase_quality(SEED,
+                                              osp.join(out, "quality"))
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
     # the f32 forward's row is the f32 ART slice's (its main path); the
@@ -4439,6 +4604,16 @@ def main() -> int:
                 or row["launches_unfolded"] <= 0):
             raise AssertionError(f"{name} was not launched in the unfused "
                                  f"phase's converts")
+    # the quality phase's launches, each run's counters set to 0 just
+    # before it and read just after (corpus, both train runs, the test
+    # runs): the 64² contract run and the full-width run
+    for row in rows:
+        row["launches_quality"] = quality[row["name"]]
+        row["launches_quality_full"] = quality_full[row["name"]]
+    log("kernels: launches in the quality phase (64² contract / full "
+        "width): " + ", ".join(
+            f"{row['name']} {row['launches_quality']} / "
+            f"{row['launches_quality_full']}" for row in rows))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Steps (sizes configurable):
      them (``project_fast``) and simulate the low dose (recon.simulate, the
      reference's noise model) to build the four-stream dataset layout
      ``SiemensDatasetNpz`` expects;
-  2. train the image-domain DDPM (mode ``train_img``) for ``--iters``
-     steps on the full-dose images;
+  2. train the image-domain DDPM (mode ``train_img``) on the full-dose
+     images for ``max(1, iters // n)`` whole epochs of the ``n`` slices at
+     batch 1 (192 steps at ``--n 16 --iters 200``);
   3. train the projection-domain DDPM (mode ``train_proj``) on the
      full-dose sinograms;
   4. run the progressive dual-domain test (mode ``test_prog``) on those
@@ -127,14 +128,16 @@ def write_checkpoints(out: str, opt, seed: int = 0, device=None) -> str:
     return ckpt.dir
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="/tmp/ipdm_synth_torch")
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--dose", type=float, default=0.25)
     ap.add_argument("--iters", type=int, default=20,
-                    help="training steps per domain")
+                    help="training budget per domain: the script runs "
+                    "max(1, iters // n) whole epochs of the n slices at "
+                    "batch 1 (192 steps at n = 16, iters = 200)")
     ap.add_argument("--recon", default="SART", choices=["SART", "FBP"])
     ap.add_argument("--convertor", default="FBP", choices=["FBP", "ART"])
     ap.add_argument("--full-arch", action="store_true",
@@ -143,26 +146,29 @@ def main(argv=None):
     ap.add_argument("--skip-build", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def common_options(args) -> dict:
+    """The IPDMConfig fields that the train and test runs share."""
+    return dict(device=args.device, seed=args.seed, test_numbers=0,
+                geometry=geometry_overrides(args.size),
+                metrics=["psnr", "ssim"], timesteps_img=1000,
+                timesteps_proj=1000, partial_timesteps_img=50,
+                partial_timesteps_proj=50, batch_size=1,
+                patch=None, patch_per_image=None, init_lr=2e-4,
+                save_freq=max(1, args.iters),
+                max_epochs=max(1, args.iters // args.n),
+                **(FULL_ARCH if args.full_arch else SMALL_ARCH),
+                **dataset_paths(args.out))
+
+
+def train_models(args, common: dict) -> dict:
+    """Steps 2-3: train_img then train_proj through the engine; returns
+    each domain's checkpoint directory."""
     from ipdm_tpu_torch.config.config import IPDMConfig
     from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
 
-    if not args.skip_build:
-        print("[1/4] building synthetic dataset...", flush=True)
-        build_dataset(args.out, args.n, args.size, args.dose,
-                      seed=args.seed, recon=args.recon, device=args.device)
-
-    common = dict(device=args.device, seed=args.seed, test_numbers=0,
-                  geometry=geometry_overrides(args.size),
-                  metrics=["psnr", "ssim"], timesteps_img=1000,
-                  timesteps_proj=1000, partial_timesteps_img=50,
-                  partial_timesteps_proj=50, batch_size=1,
-                  patch=None, patch_per_image=None, init_lr=2e-4,
-                  save_freq=max(1, args.iters),
-                  max_epochs=max(1, args.iters // args.n),
-                  **(FULL_ARCH if args.full_arch else SMALL_ARCH),
-                  **dataset_paths(args.out))
     dirs = {}
     for step, domain in ((2, "img"), (3, "proj")):
         print(f"[{step}/4] training the {domain} model...", flush=True)
@@ -172,10 +178,18 @@ def main(argv=None):
         eng.fit()
         eng.checkpoints(1)
         dirs[domain] = eng.logger.models_save_dir
+    return dirs
 
-    print("[4/4] progressive test...", flush=True)
+
+def progressive_test(args, common: dict, dirs: dict, convertor: str):
+    """Step 4: test_prog on the checkpoints in ``dirs`` with
+    ``convertor``; returns (LDCT PSNR, best deProj PSNR, best deProg
+    PSNR, the aggregate metric.json)."""
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
+
     opt = IPDMConfig(mode="test_prog", run_name="synth_prog",
-                     convertor=args.convertor, fbp_sharpen=False,
+                     convertor=convertor, fbp_sharpen=False,
                      ultra_img_denoise=False,
                      t_start_img=[10, 10], constant_guidance_img=0.45,
                      t_start_proj=[10, 10], constant_guidance_proj=0.5,
@@ -188,13 +202,29 @@ def main(argv=None):
     agg = osp.join(eng.save_root_path, "Save_Iter_0", "metric.json")
     with open(agg) as f:
         m = json.load(f)
+    best = {g: max(v for k, v in m[g].items()
+                   if k.startswith("psnr") and not k.endswith("_std"))
+            for g in ("deProj", "deProg")}
+    return (float(m["LDCT"]["psnr_iter_0"]), float(best["deProj"]),
+            float(best["deProg"]), m)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not args.skip_build:
+        print("[1/4] building synthetic dataset...", flush=True)
+        build_dataset(args.out, args.n, args.size, args.dose,
+                      seed=args.seed, recon=args.recon, device=args.device)
+    common = common_options(args)
+    dirs = train_models(args, common)
+    print("[4/4] progressive test...", flush=True)
+    ldct, deproj, deprog, m = progressive_test(args, common, dirs,
+                                               args.convertor)
     print(json.dumps(m, indent=2))
-    ldct = m["LDCT"].get("psnr_iter_0")
-    prog = {k: v for k, v in m["deProg"].items()
-            if k.startswith("psnr") and not k.endswith("_std")}
-    print(f"LDCT PSNR {ldct:.2f} → deProg {max(prog.values()):.2f} "
-          f"(after {args.iters} steps: deProg need not beat LDCT)")
-    return float(ldct), float(max(prog.values())), m
+    print(f"LDCT PSNR {ldct:.2f} → deProj {deproj:.2f} → deProg "
+          f"{deprog:.2f} (after {args.iters} iterations: deProg need not "
+          f"beat LDCT)")
+    return ldct, deproj, deprog, m
 
 
 if __name__ == "__main__":
