@@ -220,11 +220,39 @@ exits non-zero without a result line:
    the same). Each run prints its PSNR / SSIM beside the JAX package's
    reading at its settings, its seconds by step, peak memory and
    launches (each kernel of its path > 0);
+   ablations — examples/ablations_torch.py's main at the SIEMENS
+   scanner's full size (``--size 512``: 512² images, 2000×912
+   sinograms; the studies' fixed UNets, whose middle attention runs the
+   f32 flash kernels at head dim 8 over 128² and 500×228 tokens; depth
+   cut in --n 4, --iters 8, --test-slices 1): all six studies in main's
+   order, each study's JSON, seconds and launches, peak memory; the
+   run's head-dim-8 flash forward and backward, planar_unit,
+   os_sart_sweep and fp_shift_deposit each launched; then at 32², zero
+   sampler noise, f32 with TF32 off, the five engine studies on one card
+   engine and one CPU engine from the same checkpoints, in main's order:
+   every float within 1e-3 relative, each histogram within an L1
+   distance of 1% of the pixel count;
+   flash-hd — (after kernels-train) the flash forward (bf16, f32) and
+   both backward kernels at head dims 8, 16 and 32, T = 4097 and 7125,
+   on the ragged inputs (q, k scaled so live scores stay ≈ −8) at the
+   main path's rules, beside the planted controls of flash_ragged and
+   bwd_ragged; then the f32 head-dim-8 kernels at T = 16 384 and
+   114 000 against a plain forward and backward over query blocks in
+   f64 (out at the f32 rule, the lse within lse_check's bound, dq, dk,
+   dv at the f32 rule plus the f64 witness allowance), two launches
+   bit-equal, beside planted controls (the pad columns read from the
+   next row, the lse in log2 units, D dropped); each call's ms, its
+   bound (products or exp2, whichever is longer) and SDPA's ms;
+   graft — __graft_entry_torch__.py: entry()'s step on the card against
+   the CPU at zero noise, then dryrun_multichip(2) on two gloo ranks
+   that share the card;
 19. the ``kernels`` JSON line (the mesh phase's launches under
    ``launches_mesh``, with planar_unit's max |diff| on the bands; the
    unfused phase's under ``launches_unfused`` / ``launches_unfolded``,
    with its checked shapes under ``shapes_unfused``; the quality
-   phase's under ``launches_quality`` and ``launches_quality_full``),
+   phase's under ``launches_quality`` and ``launches_quality_full``;
+   the ablations phase's under ``launches_ablations``; the head-dim-8
+   f32 flash rows, and every flash row's ``head_dims``),
    the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -596,7 +624,60 @@ def flash_tol(want, dtype_name):
                   share * float(want.float().abs().max()))
 
 
-def flash_ragged(reps, dtype_name="bfloat16", counts=(4097, 4159, 7125)):
+# MUFU.EX2 on an H100 SXM: 16 a clock on each of the 132 SMs at the
+# 1.98 GHz boost clock (the softmax's exp2 in the flash kernels)
+EXP2_PER_S = 16 * 132 * 1.98e9
+
+
+def flash_bound(BH, T, hd, dtype_name, kind) -> float:
+    """The least time of a flash kernel on the card, in ms: the larger of
+    the function's products (``kind`` fwd 2, dq 3, dkv 4 of 2·T²·hd flops
+    a head, three bf16 passes in f32) at the bf16 tensor-core rate, its
+    T² exp2 a head on the special-function units, and its bytes (each
+    input read once, each output written once) over the memory rate. The
+    kernels run head dim 8 at 16 columns, twice the products counted
+    here: that work is a gap from the bound."""
+    f32 = dtype_name == "float32"
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = products * 2.0 * T * T * hd * BH * (3 if f32 else 1)
+    tensors = {"fwd": 4, "dq": 6, "dkv": 6}[kind]
+    nbytes = tensors * BH * T * hd * (4 if f32 else 2)
+    return max(flops / BF16_FLOPS, T * T * BH / EXP2_PER_S,
+               nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def sdpa_ms(q, k, v, scale, reps, do=None):
+    """SDPA's time at [1, BH, T, hd] (forward, or forward + backward with
+    ``do``) on its flash or memory-efficient kernel; None where neither
+    takes the shape and dtype (the math kernel would hold the T × T
+    matrix)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, T, hd = q.shape
+    q4, k4, v4 = (t_.detach().view(1, BH, T, hd).requires_grad_(
+        do is not None) for t_ in (q, k, v))
+
+    def run():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            if do is None:
+                F.scaled_dot_product_attention(q4, k4, v4,
+                                               scale=scale * scale)
+                return
+            with torch.enable_grad():
+                o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                    scale=scale * scale)
+                torch.autograd.grad(o4, (q4, k4, v4), do.view(1, BH, T, hd))
+    try:
+        return cuda_ms(run, reps)
+    except RuntimeError:
+        return None
+
+
+def flash_ragged(reps, dtype_name="bfloat16", counts=(4097, 4159, 7125),
+                 hd=64, tag="kernels"):
     """The flash kernel at ragged token counts against the plain version
     at the main path's tolerance, on inputs where a key that escaped the
     mask would dominate: q ≈ +1 and k ≈ −1 plus noise, so every live score
@@ -609,20 +690,27 @@ def flash_ragged(reps, dtype_name="bfloat16", counts=(4097, 4159, 7125)):
     tile (a stray write of that tile's dead rows would land on the next
     head's first rows, whose values differ by 1); T = 4159 (64·64 + 63) a
     last key tile one short of full; T = 7125 is the proj UNet's count
-    (43 dead keys in the last tile)."""
+    (43 dead keys in the last tile). At a head dim hd below 64, q and k
+    are scaled by a = (64 / hd)^¼, so that live scores stay ≈ −8. (A pad
+    fault at hd 8 is :func:`flash_long`'s control: on these near-constant
+    q and k a pad read from the next row shifts every score alike.)
+    Returns one dict per T: max |diff|, the kernel's ms, SDPA's ms (None
+    where it does not run) and the bound."""
     import torch
     from ipdm_tpu_torch.ops.cuda import attention
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
-    hd = attention.HEAD_DIM
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    a = (64 / hd) ** 0.25
+    stats = []
     for T in counts:
         def rnd(mean, sd):
-            return (mean + sd * torch.randn((4, T, hd), generator=gen,
-                                            device="cuda")).to(dtype)
+            return (a * (mean + sd * torch.randn(
+                (4, T, hd), generator=gen, device="cuda"))).to(dtype)
         q, k = rnd(1.0, 0.25), rnd(-1.0, 0.25)
-        v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1), 0.5)
+        v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1) / a,
+                0.5 / a)
         got = attention.flash_attention(q, k, v, scale)
         want = attention.attention_plain(q, k, v, scale)
         pad = torch.zeros((4, -T % 64, hd), dtype=q.dtype, device="cuda")
@@ -633,19 +721,27 @@ def flash_ragged(reps, dtype_name="bfloat16", counts=(4097, 4159, 7125)):
         ok, err = _within(got, want, rtol, atol)
         ctrl_ok, ctrl_err = _within(unmasked, want, rtol, atol)
         ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale), reps)
+        lib = sdpa_ms(q, k, v, scale, reps)
         size = float(want.float().abs().mean())
-        log(f"kernels: flash_attn ragged [4,{T},64] {SHORT[dtype_name]} "
+        bound = flash_bound(4, T, hd, dtype_name, "fwd")
+        stats.append(dict(T=T, hd=hd, dtype=dtype_name, err=err, ms=ms,
+                          library_ms=lib, bound_ms=bound))
+        log(f"{tag}: flash_attn ragged [4,{T},{hd}] {SHORT[dtype_name]} "
             f"(live scores ≈ −8, {-T % 64} dead keys): max |diff| "
             f"{err:.3e} (tol {atol:.2e} + {rtol:g}·|plain|, mean |plain| "
-            f"{size:.3f}) {ms:.4f} ms; planted control without the mask: "
+            f"{size:.3f}) {ms:.4f} ms, SDPA "
+            + ("not run" if lib is None else f"{lib:.4f} ms")
+            + f", bound {bound:.4f} ms; planted control without the mask: "
             f"max |diff| {ctrl_err:.3e}, "
             f"{'passes' if ctrl_ok else 'fails'}")
         if not ok:
-            raise AssertionError(f"flash attention disagrees at T={T}: "
-                                 f"max |diff| {err}")
+            raise AssertionError(f"flash attention disagrees at T={T} "
+                                 f"hd={hd}: max |diff| {err}")
         if ctrl_ok:
-            raise AssertionError(f"the unmasked control passes at T={T}: "
-                                 "the check cannot see a missing mask")
+            raise AssertionError(f"the unmasked control passes at T={T} "
+                                 f"hd={hd}: the check cannot see a "
+                                 "missing mask")
+    return stats
 
 
 # planar_unit off the main path's shapes, (C, O, H, W, act, skip): W % 8
@@ -3127,7 +3223,7 @@ BWD_BODY = {"bfloat16": "wgmma bf16", "float32": "wgmma, 3 bf16 passes"}
 BWD_PASSES = {"bfloat16": 1, "float32": 3}
 
 
-def bwd_ragged(reps):
+def bwd_ragged(reps, counts=(4097, 7125), hd=64, tag="kernels-train"):
     """The backward kernels at T = 4097 (the last 64-row tile holds one
     live row: a wrong mask or zero-fill shows there first) and T = 7125
     on the forward's ragged inputs
@@ -3143,21 +3239,25 @@ def bwd_ragged(reps):
     (rule: :data:`RAGGED_F32_EPS`). Planted controls that must
     fail the same check: the plain forward and backward on K and V
     zero-padded to whole 64-key tiles (the kernels with the last key tile
-    unmasked), and the dK kernel with D dropped from dS."""
+    unmasked), and the dK kernel with D dropped from dS. At a head dim hd
+    below 64, q and k are scaled by a = (64 / hd)^¼ (live scores ≈ −8).
+    Returns one dict per (T, dtype): the largest of dq/dk/dv over its
+    tolerance and max |diff|, the two kernels' ms, SDPA forward +
+    backward's ms (None where it does not run) and the bounds."""
     import torch
     from ipdm_tpu_torch.ops.cuda import attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    scale = 1.0 / math.sqrt(math.sqrt(attention.HEAD_DIM))
-    hd = attention.HEAD_DIM
-    for T, dtype_name in itertools.product((4097, 7125),
-                                           ("bfloat16", "float32")):
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    a = (64 / hd) ** 0.25
+    stats = []
+    for T, dtype_name in itertools.product(counts, ("bfloat16", "float32")):
         dtype = getattr(torch, dtype_name)
 
-        def rnd(mean, sd):
-            return (mean + sd * torch.randn((4, T, hd), generator=gen,
-                                            device="cuda")).to(dtype)
-        q, k, do = rnd(1.0, 0.25), rnd(-1.0, 0.25), rnd(0.0, 1.0)
+        def rnd(mean, sd, amp=1.0):
+            return (amp * (mean + sd * torch.randn(
+                (4, T, hd), generator=gen, device="cuda"))).to(dtype)
+        q, k, do = rnd(1.0, 0.25, a), rnd(-1.0, 0.25, a), rnd(0.0, 1.0)
         v = rnd(torch.arange(1.0, 5.0, device="cuda").view(4, 1, 1), 0.5)
         out, lse = attention._forward(q, k, v, scale, with_lse=True)
         lse_over, lse_ctrl = lse_check(lse, q, k, scale, dtype_name)
@@ -3221,7 +3321,17 @@ def bwd_ragged(reps):
                        f"the f32 plain at {alone[3]:.3f} / {alone[4]:.3f} / "
                        f"{alone[5]:.3f}; planted control, the f32 plain "
                        f"with dS rounded to bf16: {ctrl_r:.2f}×")
-        log(f"kernels-train: flash_bwd ragged [4,{T},64] "
+        times = dict(
+            dq_ms=cuda_ms(lambda: attention.flash_bwd_dq(
+                q, k, v, out, lse, do, scale), reps),
+            dkv_ms=cuda_ms(lambda: attention.flash_bwd_dkv(
+                q, k, v, lse, do, D, scale), reps),
+            library_ms=sdpa_ms(q, k, v, scale, reps, do=do))
+        stats.append(dict(
+            T=T, hd=hd, dtype=dtype_name, over=max(res), err=max(err),
+            **times, dq_bound_ms=flash_bound(4, T, hd, dtype_name, "dq"),
+            dkv_bound_ms=flash_bound(4, T, hd, dtype_name, "dkv")))
+        log(f"{tag}: flash_bwd ragged [4,{T},{hd}] "
             f"{SHORT[dtype_name]} (live scores ≈ −8, {-T % 64} dead keys; "
             f"reference {ref}, tolerance {rule}): "
             f"dq/dk/dv at {res[0]:.3f} / {res[1]:.3f} / {res[2]:.3f} of the "
@@ -3229,7 +3339,12 @@ def bwd_ragged(reps):
             f"{err[2]:.3e}){witness}; the forward's lse at {lse_over:.4f} "
             f"of its bound, in log2 units {lse_ctrl:.1f}×; planted "
             f"controls: the last key tile unmasked {ctrl:.1f}×, D dropped "
-            f"from dS {ctrl_d:.1f}× the tolerance")
+            f"from dS {ctrl_d:.1f}× the tolerance; dq {times['dq_ms']:.4f} "
+            f"ms (bound {stats[-1]['dq_bound_ms']:.4f}), dkv "
+            f"{times['dkv_ms']:.4f} ms (bound "
+            f"{stats[-1]['dkv_bound_ms']:.4f}), SDPA forward + backward "
+            + ("not run" if times["library_ms"] is None else
+               f"{times['library_ms']:.4f} ms"))
         if max(res) > 1.0:
             raise AssertionError(f"flash backward disagrees at ragged T: "
                                  f"{res}")
@@ -3237,6 +3352,7 @@ def bwd_ragged(reps):
             raise AssertionError(f"a ragged control passes: unmasked "
                                  f"{ctrl}, D dropped {ctrl_d}, dS in bf16 "
                                  f"{ctrl_r}")
+    return stats
 
 
 # the f32 ragged backward's allowance for rounding before the
@@ -4444,6 +4560,559 @@ def phase_quality(seed: int, out: str):
                          seed, osp.join(out, "full")))
 
 
+# -- the flash kernels at every head dim, the ablation studies,
+# __graft_entry_torch__.py --------------------------------------------------
+
+# the ablation UNets' middle block (head dim 8, 4 heads): the img UNet at
+# 512² (128² tokens), the proj UNet on 2000×912 sinograms (500×228)
+FLASH_HD_LONG = (16384, 114000)
+LONG_BLOCK = 512                   # query rows per block of the plain loop
+# the ablations phase's main-path run: the SIEMENS scanner's full size
+# (--size 512: 512² images, 2000×912 sinograms) and examples/ablations.py's
+# fixed UNets; depth cut in the slices, the iterations and the test slices
+ABLATION_ARGV = ["--size", "512", "--study", "all", "--n", "4", "--iters",
+                 "8", "--test-slices", "1"]
+ABLATION_KERNELS = ("flash_attn_f32_hd8", "flash_bwd_dq_hd8",
+                    "flash_bwd_dkv_hd8", "planar_unit", "os_sart_sweep",
+                    "fp_shift_deposit")
+ABLATION_STUDIES = ("nfe", "guidance", "recon", "hu-drift", "noise-hist",
+                    "dose")
+ABLATION_FUNCS = {"nfe": "study_nfe", "guidance": "study_guidance",
+                  "recon": "study_recon", "hu-drift": "study_hu_drift",
+                  "noise-hist": "study_noise_hist", "dose": "study_dose"}
+ABLATION_SMALL = 32   # the card-vs-CPU check's size
+# the card-vs-CPU check's planted controls, each an engine on the first
+# device held to the first engine by the same check, which must miss in
+# each listed study (hu-drift's two means are of the inputs, no control
+# moves them): (noise seed offset, options set as the engine was built
+# with them, studies). "noise": another noise draw; "lambda": the image
+# sampler's λ moved by 2%, 0.45 → 0.46 (the guidance study sets its own)
+ABLATION_CONTROLS = {
+    "noise": (1, {}, ("nfe", "guidance", "recon", "noise-hist")),
+    "lambda": (0, dict(constant_guidance_img=0.46),
+               ("nfe", "recon", "noise-hist"))}
+
+
+def _plain_long(q, k, v, do, scale, f64=True):
+    """The plain forward and backward of attention on [BH, T, hd] inputs
+    too long for the T × T matrix, one block of LONG_BLOCK query rows at a
+    time over all keys (in f64; or, with ``f64=False``, the forward alone
+    as attention_plain computes it in q's dtype): out, lse, dq per row;
+    dk, dv summed over the blocks; R (lse_check's size of the scores) and
+    Σ|terms before the cancellation| of dq, dk, dv (:func:`_bwd_sizes`)
+    for the f64 witness rule."""
+    import torch
+
+    dt = torch.float64 if f64 else q.dtype
+    BH, T, hd = q.shape
+    ks, vv = (k.to(dt) * scale if f64 else k * scale), v.to(dt)
+    out = torch.empty((BH, T, v.shape[-1]), dtype=dt, device=q.device)
+    res = dict(out=out)
+    if f64:
+        for name in ("dq", "dk", "dv", "zq", "zk", "zv"):
+            res[name] = torch.zeros((BH, T, hd), dtype=dt, device=q.device)
+        res["lse"] = torch.empty((BH, T), dtype=dt, device=q.device)
+        res["R"] = torch.empty((BH, T), dtype=dt, device=q.device)
+        dof, va = do.to(dt), vv.abs()
+    for r0 in range(0, T, LONG_BLOCK):
+        sl = slice(r0, min(T, r0 + LONG_BLOCK))
+        qs = q[:, sl].to(dt) * scale if f64 else q[:, sl] * scale
+        s = torch.matmul(qs, ks.transpose(1, 2))
+        if not f64:   # attention_plain on the block
+            out[:, sl] = torch.matmul(torch.softmax(s, -1).to(q.dtype), vv)
+            continue
+        lse_b = torch.logsumexp(s, -1)
+        res["lse"][:, sl] = lse_b
+        p = torch.exp(s.sub_(lse_b[..., None]))
+        del s
+        o = torch.matmul(p, vv)
+        out[:, sl] = o
+        res["R"][:, sl] = (qs.abs() * torch.matmul(p, ks.abs())).sum(-1)
+        dob = dof[:, sl]
+        Db = (o * dob).sum(-1)
+        dp = torch.matmul(dob, vv.transpose(1, 2))
+        pre = p * (torch.matmul(dob.abs(), va.transpose(1, 2))
+                   + (o.abs() * dob.abs()).sum(-1)[..., None])
+        ds = p * dp.sub_(Db[..., None])
+        del dp
+        res["dq"][:, sl] = torch.matmul(ds, ks) * scale
+        res["dk"] += torch.matmul(ds.transpose(1, 2), qs) * scale
+        res["dv"] += torch.matmul(p.transpose(1, 2), dob)
+        res["zq"][:, sl] = torch.matmul(pre, ks.abs()) * scale
+        res["zk"] += torch.matmul(pre.transpose(1, 2), qs.abs()) * scale
+        res["zv"] += torch.matmul(p.transpose(1, 2), dob.abs())
+        del p, pre, ds
+    return res
+
+
+def flash_long(T, reps):
+    """The f32 kernels at head dim 8 and 4 heads at the ablation UNets'
+    token counts, on seeded random q, k (sd 1), v (head h: mean h + 1) and
+    dO, against the plain forward and backward in f64 over query blocks
+    (:func:`_plain_long`): out at the f32 rule, the lse within lse_check's
+    bound, dq, dk and dv at the f32 rule plus the f64 witness allowance
+    (2⁻²⁰·Σ|terms before the cancellation|, :func:`bwd_ragged`'s), two
+    launches bit-equal; beside planted controls that must fail: the plain
+    forward on q and k whose pad columns hold the next row's values, the
+    lse in log2 units, and the dK kernel with D dropped. Times: the
+    kernels, the plain forward over query blocks in f32, SDPA's forward
+    and forward + backward, and each kernel's bound."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    hd, BH = 8, 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + T)
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+
+    def rnd(mean=0.0):
+        return mean + torch.randn((BH, T, hd), generator=gen, device="cuda")
+    q, k, do = rnd(), rnd(), rnd()
+    v = rnd(torch.arange(1.0, BH + 1, device="cuda").view(BH, 1, 1))
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+    out2, lse2 = attention._forward(q, k, v, scale, with_lse=True)
+    dq2, D2 = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk2, dv2 = attention.flash_bwd_dkv(q, k, v, lse, do, D2, scale)
+    for name, a_, b_ in (("out", out, out2), ("lse", lse, lse2),
+                         ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        repeat_check(f"flash-hd T={T} {name}", a_, b_)
+    del out2, lse2, dq2, D2, dk2, dv2
+    ctrl_dk, _ = attention.flash_bwd_dkv(q, k, v, lse, do,
+                                         torch.zeros_like(D), scale)
+    ref = _plain_long(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    rtol, atol = flash_tol(ref["out"], "float32")
+    out_over = float(((out.double() - ref["out"]).abs()
+                      / (atol + rtol * ref["out"].abs())).max())
+    ltol = LSE_EPS["float32"] * ref["R"] + T * 2.0 ** -23
+    lse_over = float(((lse.double() - ref["lse"]).abs() / ltol).max())
+    lse_ctrl = float(((lse.double() * math.log2(math.e) - ref["lse"]).abs()
+                      / ltol).max())
+    rel, share = BWD_TOL["float32"]
+    over, alone = {}, {}
+    for name, g in (("dq", dq), ("dk", dk), ("dv", dv)):
+        w = ref[name]
+        rule = share * float(w.abs().max()) + rel * w.abs()
+        d = (g.double() - w).abs()
+        alone[name] = float((d / rule).max())
+        over[name] = float((d / (rule + RAGGED_F32_EPS
+                                 * ref["z" + name[1]])).max())
+    w = ref["dk"]
+    dk_ctrl = float(((ctrl_dk.double() - w).abs()
+                     / (share * float(w.abs().max()) + rel * w.abs()
+                        + RAGGED_F32_EPS * ref["zk"])).max())
+    err = dict(out=float((out.double() - ref["out"]).abs().max()),
+               **{n: float((g.double() - ref[n]).abs().max())
+                  for n, g in (("dq", dq), ("dk", dk), ("dv", dv))})
+    del ref
+
+    def next_row_pad(x):
+        return torch.cat([x, x.roll(-1, 1)[..., :16 - hd]], -1)
+    pad = _plain_long(next_row_pad(q), next_row_pad(k), v, None, scale,
+                      f64=False)["out"]
+    pad_ok, pad_err = _within(pad, out.double(), rtol, atol)
+    del pad
+    # the plain versions: attention_plain and attention_bwd_plain where
+    # their T × T matrices fit (T = 16 384: 4.3 GB each), else the plain
+    # forward over query blocks (the backward's f32 plain is not timed)
+    if T * T * BH * 4 <= 2 ** 33:
+        plain_ms = cuda_ms(lambda: attention.attention_plain(
+            q, k, v, scale), 1, warmup=1)
+        plain_bwd_ms = cuda_ms(lambda: attention.attention_bwd_plain(
+            q, k, v, out, lse, do, scale), 1, warmup=1)
+    else:
+        plain_ms = cuda_ms(lambda: _plain_long(q, k, v, None, scale,
+                                               f64=False), 1, warmup=0)
+        plain_bwd_ms = None
+    t = dict(fwd_ms=cuda_ms(lambda: attention._forward(
+                 q, k, v, scale, with_lse=True), reps),
+             dq_ms=cuda_ms(lambda: attention.flash_bwd_dq(
+                 q, k, v, out, lse, do, scale), reps),
+             dkv_ms=cuda_ms(lambda: attention.flash_bwd_dkv(
+                 q, k, v, lse, do, D, scale), reps),
+             plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
+             sdpa_fwd_ms=sdpa_ms(q, k, v, scale, reps),
+             sdpa_fwd_bwd_ms=sdpa_ms(q, k, v, scale, reps, do=do))
+    bounds = {kd: flash_bound(BH, T, hd, "float32", kd)
+              for kd in ("fwd", "dq", "dkv")}
+    sd = lambda x: "not run" if x is None else f"{x:.3f} ms"
+    log(f"flash-hd: f32 [{BH},{T},{hd}] (plain over query blocks of "
+        f"{LONG_BLOCK} in f64): out at {out_over:.4f} of the f32 rule "
+        f"(max |diff| {err['out']:.3e}), lse at {lse_over:.4f} of its "
+        f"bound; dq/dk/dv at {over['dq']:.3f} / {over['dk']:.3f} / "
+        f"{over['dv']:.3f} of the f32 rule + 2⁻²⁰·Σ|terms| (the relative "
+        f"rule alone: {alone['dq']:.3f} / {alone['dk']:.3f} / "
+        f"{alone['dv']:.3f}); repeats bit-equal; planted controls: the pad "
+        f"read from the next row max |diff| {pad_err:.3e} "
+        f"({'passes' if pad_ok else 'fails'}), the lse in log2 units "
+        f"{lse_ctrl:.1f}×, D dropped {dk_ctrl:.1f}×; ms fwd "
+        f"{t['fwd_ms']:.3f} (bound {bounds['fwd']:.3f}), dq "
+        f"{t['dq_ms']:.3f} (bound {bounds['dq']:.3f}), dkv "
+        f"{t['dkv_ms']:.3f} (bound {bounds['dkv']:.3f}); the plain forward "
+        f"{plain_ms:.3f} ms, backward "
+        + ("not run (T × T too large)" if plain_bwd_ms is None else
+           f"{plain_bwd_ms:.3f} ms")
+        + "; SDPA forward "
+        f"{sd(t['sdpa_fwd_ms'])}, forward + backward "
+        f"{sd(t['sdpa_fwd_bwd_ms'])}")
+    if out_over > 1.0 or lse_over > 1.0 or max(over.values()) > 1.0:
+        raise AssertionError(f"flash-hd T={T}: out {out_over}, lse "
+                             f"{lse_over}, backward {over}")
+    if pad_ok or lse_ctrl <= 1.0 or dk_ctrl <= 1.0:
+        raise AssertionError(f"flash-hd T={T}: a planted control passes")
+    return dict(T=T, hd=hd, err=err, over=dict(over, out=out_over,
+                                               lse=lse_over),
+                bound_ms=bounds, **t)
+
+
+def head_dim_rows(rows, short, long, abl):
+    """The kernels JSON line's rows of the head-dim-8 f32 kernels (the
+    ablation path's: their launches in the ablations phase's main-path
+    run; numbers at T = 16 384, where the plain versions fit, with
+    T = 114 000 under ``shapes``), and each existing flash row's
+    ``head_dims``: its kernel at head dims 8, 16 and 32 on the ragged
+    inputs of phase_flash_hd (launched by no main path but the
+    head-dim-8 f32 ones)."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    src = {"fwd": "ipdm_tpu_torch/csrc/flash_attn.cu",
+           "dq": "ipdm_tpu_torch/csrc/flash_bwd.cu",
+           "dkv": "ipdm_tpu_torch/csrc/flash_bwd.cu"}
+    rep = {"fwd": "ipdm_tpu/models/unet.py:601",
+           "dq": "ipdm_tpu/models/unet.py:601 → jax/experimental/pallas/"
+                 "ops/tpu/flash_attention.py:1287",
+           "dkv": "ipdm_tpu/models/unet.py:601 → jax/experimental/pallas/"
+                  "ops/tpu/flash_attention.py:941"}
+    names = {"fwd": "flash_attn_f32", "dq": "flash_bwd_dq",
+             "dkv": "flash_bwd_dkv"}
+    out = []
+    for kind, base in names.items():
+        name = _build.flash_counter(base, 8)
+        lib = "sdpa_fwd_ms" if kind == "fwd" else "sdpa_fwd_bwd_ms"
+        plain = "plain_ms" if kind == "fwd" else "plain_bwd_ms"
+        errs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[kind]
+        shapes = [dict(T=x["T"], ms=x[f"{kind}_ms"], plain_ms=x[plain],
+                       library_ms=x[lib], bound_ms=x["bound_ms"][kind],
+                       max_abs_err=max(x["err"][e] for e in errs))
+                  for x in long]
+        top = shapes[0]
+        out.append(dict(
+            name=name, route="cuda", source=src[kind], replaces=rep[kind],
+            launches=abl[name], max_abs_err=max(x["max_abs_err"]
+                                                for x in shapes),
+            ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by="operations",
+            library_ms=top["library_ms"], head_dim=8, dtype="float32",
+            shapes=shapes))
+        log(f"kernels: {name}: {abl[name]} launches in the ablations "
+            f"phase's main-path run; at T = {top['T']} {top['ms']:.4f} ms "
+            f"(plain {top['plain_ms']:.4f}, bound {top['bound_ms']:.4f}, "
+            f"SDPA " + ("not run" if top["library_ms"] is None else
+                        f"{top['library_ms']:.4f} ms") + ")")
+        if abl[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the "
+                                 f"ablations phase's main-path run")
+    for row in rows:
+        if row["name"] in ("flash_attn", "flash_attn_f32"):
+            dtype = "bfloat16" if row["name"] == "flash_attn" else "float32"
+            row["head_dims"] = [dict(
+                hd=x["hd"], T=x["T"], ms=x["ms"], library_ms=x["library_ms"],
+                bound_ms=x["bound_ms"], max_abs_err=x["err"],
+                launches_ablations=abl[_build.flash_counter(row["name"],
+                                                            x["hd"])])
+                for x in short if "ms" in x and x["dtype"] == dtype]
+        elif row["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
+            kind = row["name"][len("flash_bwd_"):]
+            row["head_dims"] = [dict(
+                hd=x["hd"], T=x["T"], dtype=x["dtype"], ms=x[f"{kind}_ms"],
+                library_ms=x["library_ms"], bound_ms=x[f"{kind}_bound_ms"],
+                max_abs_err=x["err"], over=x["over"],
+                launches_ablations=abl[_build.flash_counter(row["name"],
+                                                            x["hd"])])
+                for x in short if f"{kind}_ms" in x]
+    return out
+
+
+def phase_flash_hd(reps):
+    """The flash kernels at head dims 8, 16 and 32: the forward in bf16
+    and f32 and both backward kernels at T = 4097 and 7125 on the ragged
+    inputs (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its
+    planted controls), then the f32 kernels at head dim 8 at the ablation
+    UNets' T = 16 384 and 114 000 (:func:`flash_long`). Returns (the
+    ragged stats, the long-T stats)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    short = []
+    r = max(2, reps // 4)
+    with torch.no_grad():
+        for hd in (h for h in _build.FLASH_HEAD_DIMS if h != 64):
+            for dtype_name in ("bfloat16", "float32"):
+                short += flash_ragged(r, dtype_name, (4097, 7125), hd,
+                                      tag="flash-hd")
+            short += bwd_ragged(r, (4097, 7125), hd, tag="flash-hd")
+        long = [flash_long(T, 3) for T in FLASH_HD_LONG]
+    log(f"flash-hd: {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return short, long
+
+
+def _ablation_numbers(res) -> str:
+    """A study's JSON with floats to 4 places and histograms summed."""
+    if isinstance(res, dict):
+        return "{" + ", ".join(f"{k}: {_ablation_numbers(v)}"
+                               for k, v in res.items()) + "}"
+    if isinstance(res, list):
+        return f"[{len(res)} values, sum {sum(res):g}]"
+    return f"{res:.4f}" if isinstance(res, float) else str(res)
+
+
+def phase_ablations(seed: int, out: str):
+    """examples/ablations_torch.py's main at the scanner's full size on the
+    card (:data:`ABLATION_ARGV`): all six studies, with the launch counts
+    set to 0 just before main and read just after; each study's seconds,
+    launches and JSON; peak memory. Raises if a kernel of
+    :data:`ABLATION_KERNELS` was not launched. Then the 32² card-vs-CPU
+    check (:func:`_ablation_card_vs_cpu`). Returns the main-path run's
+    launches."""
+    import torch
+    from examples import ablations_torch as abl
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    smi = nvidia_smi_line()
+    per = {}
+    funcs = {n: getattr(abl, f) for n, f in ABLATION_FUNCS.items()}
+
+    def timed(name, fn):
+        def run(*a):
+            before = dict(_build.LAUNCHES)
+            _sync("cuda")
+            t0 = time.perf_counter()
+            res = fn(*a)
+            _sync("cuda")
+            per[name] = dict(s=time.perf_counter() - t0, launches={
+                k: v - before[k] for k, v in _build.LAUNCHES.items()
+                if v - before[k]})
+            return res
+        return run
+
+    d = osp.join(out, "ablations")
+    for n, f in ABLATION_FUNCS.items():
+        setattr(abl, f, timed(n, funcs[n]))
+    try:
+        _peak_reset("cuda")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        abl.main(["--out", d, "--device", "cuda", "--seed", str(seed),
+                  *ABLATION_ARGV])
+        _sync("cuda")
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for n, f in ABLATION_FUNCS.items():
+            setattr(abl, f, funcs[n])
+    peak = _peak_gib("cuda")
+    log(f"ablations: main({' '.join(ABLATION_ARGV)}) on the card: "
+        f"{secs:.1f} s, peak memory {peak:.2f} GiB ({smi})")
+    for name in ABLATION_STUDIES:
+        with open(osp.join(d, f"ablation_{name}.json")) as f:
+            res = json.load(f)
+        log(f"ablations: {name}: {per[name]['s']:.1f} s, launches "
+            f"{per[name]['launches']}; {_ablation_numbers(res)}")
+    log(f"ablations: launches in the main-path run "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in ABLATION_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"ablations: {missing} not launched")
+    _ablation_card_vs_cpu(seed, out)
+    return launches
+
+
+def _same_study(got, want, path, bad):
+    """Card-vs-CPU of one study's JSON: floats within 1e-3 relative,
+    histograms within 1% of the pixel count in L1; mismatches into
+    ``bad``."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            bad.append((path, "keys"))
+            return
+        for k in want:
+            _same_study(got[k], want[k], f"{path}/{k}", bad)
+    elif isinstance(want, list):
+        if path.endswith("bins"):
+            if got != want:
+                bad.append((path, "bins"))
+        elif (sum(abs(a - b) for a, b in zip(got, want))
+              > 0.01 * ABLATION_SMALL ** 2):
+            bad.append((path, got, want))
+    elif isinstance(want, float):
+        if not (math.isfinite(got)
+                and abs(got - want) <= 1e-3 * max(abs(want), 1e-12)):
+            bad.append((path, got, want))
+    elif got != want:
+        bad.append((path, got, want))
+
+
+def _ablation_card_vs_cpu(seed: int, out: str,
+                          devs=("cuda", "cpu")) -> None:
+    """At 32², f32 with TF32 off: one card engine and one CPU engine built
+    by the twin's _test_engine from the same seeded checkpoints, each
+    sampler drawing the same noise (:func:`_shared_noise`); the five
+    engine studies on each in main's order; every float of each JSON
+    within 1e-3 relative, each histogram within an L1 distance of 1% of
+    the pixel count. Not at zero noise: there the chain is
+    ill-conditioned (a one-ulp change of the CPU's own sinogram moved its
+    noise histogram by L1 18 of 1024 pixels and a float by 3.2e-4; with
+    one shared noise by nothing and 1.6e-7), and the card missed the
+    rule at dense_3x15's PSNR (3.5e-3) and the histogram (L1 14). Beside
+    it the planted controls (:data:`ABLATION_CONTROLS`): engines on the
+    first device drawing another noise, or with the image λ moved by 2%,
+    must each miss the same check in the studies listed. (``devs``: a CPU
+    rehearsal passes ("cpu", "cpu").)"""
+    import torch
+    from examples import ablations_torch as abl
+    from examples.synthetic_e2e_torch import (build_dataset, dataset_paths,
+                                              geometry_overrides,
+                                              write_checkpoints)
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.diffusion import diffusion
+
+    t0 = time.perf_counter()
+    d = osp.join(out, "ablations_small")
+    build_dataset(osp.join(d, "data"), 2, ABLATION_SMALL, DOSE, seed=seed,
+                  device="cpu")
+    common = dict(seed=seed, batch_size=1, save_freq=1, test_numbers=0,
+                  init_lr=2e-4, geometry=geometry_overrides(ABLATION_SMALL),
+                  metrics=["psnr", "ssim"], patch=None, patch_per_image=None,
+                  timesteps_img=1000, partial_timesteps_img=50,
+                  timesteps_proj=1000, partial_timesteps_proj=50,
+                  max_epochs=1, **abl.ARCH,
+                  **dataset_paths(osp.join(d, "data")))
+    ckpt = write_checkpoints(d, IPDMConfig(device="cpu", **common),
+                             seed=seed, device="cpu")
+    args = collections.namedtuple("Args", "test_slices")(1)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    noise_like = diffusion.noise_like
+    res = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        runs = [(0, devs[0], 0, {}), (1, devs[1], 0, {})] + [
+            (k, devs[0], dn, opts)
+            for k, (dn, opts, _) in ABLATION_CONTROLS.items()]
+        for key, dev, dn, opts in runs:
+            diffusion.noise_like = _shared_noise(seed + dn)
+            eng = abl._test_engine(osp.join(d, str(key)),
+                                   dict(common, device=dev), ckpt, ckpt)
+            for k, v in opts.items():   # as built: reset_opt keeps it
+                setattr(eng.opt, k, v)
+                setattr(eng.opt_temp, k, v)
+            res[key] = {n: getattr(abl, ABLATION_FUNCS[n])(args, eng)
+                        for n in ABLATION_STUDIES[:5]}
+    finally:
+        diffusion.noise_like = noise_like
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    bad = []
+    for n in ABLATION_STUDIES[:5]:
+        _same_study(res[1][n], res[0][n], f"/{n}", bad)
+    misses, passed = {}, []
+    for k, (_, _, studies) in ABLATION_CONTROLS.items():
+        misses[k] = {}
+        for n in ABLATION_STUDIES[:5]:
+            miss = []
+            _same_study(res[k][n], res[0][n], f"/{n}", miss)
+            misses[k][n] = len(miss)
+        passed += [(k, n) for n in studies if not misses[k][n]]
+
+    def worst(a):
+        return max(abs(g - w) / max(abs(w), 1e-12)
+                   for n in ABLATION_STUDIES[:5]
+                   for g, w in _floats(res[a][n], res[0][n]))
+    log(f"ablations: {ABLATION_SMALL}² card vs CPU, one shared noise, the "
+        f"five engine studies in main's order: largest relative "
+        f"difference of a float {worst(1):.3e} (tol 1e-3), histograms "
+        f"within 1% of the pixels in L1: {'all' if not bad else bad}; "
+        f"planted controls on {devs[0]} against the first engine: "
+        + "; ".join(f"{k} largest {worst(k):.3e}, entries missed by study "
+                    f"{misses[k]}" for k in ABLATION_CONTROLS)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"ablations card vs CPU: {bad}")
+    if passed:
+        raise AssertionError(f"ablations card vs CPU: a planted control "
+                             f"passes: {passed}")
+
+
+def _shared_noise(seed: int):
+    """A noise_like that returns, for its n-th call, the standard normal
+    draws of a CPU generator seeded with (seed, n), on the tensor's
+    device: the same noise for two engines on two devices."""
+    import torch
+    calls = itertools.count(1)
+
+    def noise_like(x, generator):
+        g = torch.Generator().manual_seed(seed * 1_000_003 + next(calls))
+        return torch.randn(x.shape, generator=g, dtype=x.dtype).to(x.device)
+    return noise_like
+
+
+def _floats(got, want):
+    """Pairs of the floats of two study JSONs, in order."""
+    if isinstance(want, dict):
+        for k in want:
+            yield from _floats(got[k], want[k])
+    elif isinstance(want, float):
+        yield got, want
+
+
+def phase_graft(seed: int) -> None:
+    """__graft_entry_torch__.py on the card: entry()'s step at zero noise
+    against the same step on the CPU with the card model's weights (f32,
+    TF32 off: within 1e-4 + 1e-4·|CPU|), then dryrun_multichip(2) on two
+    gloo ranks that share the card."""
+    import torch
+    from ipdm_tpu_torch.diffusion import diffusion
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    import __graft_entry_torch__ as graft   # the ranks import it by name
+
+    t0 = time.perf_counter()
+    fn, args = graft.entry()
+    cfn, cargs = graft.entry(device="cpu")
+    cargs[0].load_state_dict({k: v.cpu()
+                              for k, v in args[0].state_dict().items()})
+    tf32 = torch.backends.cudnn.allow_tf32
+    noise_like = diffusion.noise_like
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        diffusion.noise_like = lambda x, generator: torch.zeros_like(x)
+        _build.reset_launches()
+        got = fn(*args)
+        _sync("cuda")
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        want = cfn(*cargs)
+    finally:
+        diffusion.noise_like = noise_like
+        torch.backends.cudnn.allow_tf32 = tf32
+    ok, err = _within(got.cpu(), want, 1e-4, 1e-4)
+    log(f"graft: entry() step {tuple(got.shape)} on the card against the "
+        f"CPU, zero noise: max |diff| {err:.3e} (tol 1e-4 + 1e-4·|CPU|), "
+        f"finite {bool(torch.isfinite(got).all())}, launches {launches}")
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"graft: entry() on the card: {err}")
+    if launches.get("planar_unit", 0) <= 0:
+        raise AssertionError("graft: entry() launched no planar_unit")
+    r = graft.dryrun_multichip(2)
+    log(f"graft: dryrun_multichip(2) on two gloo ranks sharing the card: "
+        f"mesh {r['mesh']}, loss {r['loss']:.5f}, sp-eval max|d| "
+        f"{r['eval_d']:.2e}, sharded-sampler max|d| {r['sampler_d']:.2e}; "
+        f"graft phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4500,8 +5169,11 @@ def main() -> int:
         mesh_evals, mesh_train, mesh_engine = phase_mesh(SEED, out)
         quality, quality_full = phase_quality(SEED,
                                               osp.join(out, "quality"))
+        abl = phase_ablations(SEED, out)
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
+    hd_short, hd_long = phase_flash_hd(REPS)
+    phase_graft(SEED)
     # the f32 forward's row is the f32 ART slice's (its main path); the
     # train runs' counts and checked shapes beside them
     f32_row["launches_train_img"] = train_runs["img"]["flash_attn_f32"]
@@ -4614,6 +5286,15 @@ def main() -> int:
         "width): " + ", ".join(
             f"{row['name']} {row['launches_quality']} / "
             f"{row['launches_quality_full']}" for row in rows))
+    rows += head_dim_rows(rows, hd_short, hd_long, abl)
+    # the ablations phase's main-path run (ablations_torch.main at the
+    # scanner's full size), its counters set to 0 just before it and read
+    # just after
+    for row in rows:
+        row["launches_ablations"] = abl[row["name"]]
+    log("kernels: launches in the ablations phase's main-path run: "
+        + ", ".join(f"{row['name']} {row['launches_ablations']}"
+                    for row in rows))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

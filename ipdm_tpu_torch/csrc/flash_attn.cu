@@ -1,5 +1,6 @@
-// Forward flash attention for head dimension 64 on Hopper (sm_90a): wgmma
-// for both products, TMA for the loads; bf16 or f32 in and out.
+// Forward flash attention for head dimensions 8, 16, 32 and 64 on Hopper
+// (sm_90a): wgmma for both products, TMA for the loads; bf16 or f32 in and
+// out.
 //
 // Replaces the TPU flash kernel that ipdm_tpu/models/unet.py:601
 // _flash_attention calls (jax.experimental.pallas.ops.tpu.flash_attention)
@@ -8,7 +9,9 @@
 //
 //   out[bh,t,:] = sum_s softmax_s(scale2 * q[bh,t,:] . k[bh,s,:]) v[bh,s,:]
 //
-// q, k, v, out: [BH, T, 64] of one element type, contiguous. With lse !=
+// q, k, v, out: [BH, T, HD] of one element type, contiguous, HD in
+// {8, 16, 32, 64} (one template instance each; hopper.cuh's Head<HD>: at
+// HD = 8 the operands lie zero-padded to 16 columns in shared memory). With lse !=
 // nullptr (the autograd path asks for it) the kernel also writes the f32
 // natural-log softmax normaliser lse[bh, t] = log(sum_s exp(scale2 * q.k))
 // that the backward kernels (flash_bwd.cu) rebuild P from, the counterpart
@@ -30,18 +33,25 @@
 //   tests/test_torch_flash_fwd.py holds the write-out of this body to the
 //   f32 rule, beside a one-pass control that misses it.
 //
-// What bounds it on an H100: the two products, 4*T*T*64 flops per head
-// per pass (52 GFLOP at T = 7125 and 4 heads: 0.053 ms at the 989 TFLOP/s
-// bf16 tensor-core peak; 0.158 ms for f32's three passes), and, as long at
-// head dimension 64 in bf16, the T*T exp2 of the softmax on the
-// special-function units (16 per clock per SM: 0.049 ms). The T x T score
-// matrix never leaves the SM.
+// What bounds it on an H100: the two products, 4*T*T*HD flops per head
+// per pass (52 GFLOP at HD = 64, T = 7125 and 4 heads: 0.053 ms at the
+// 989 TFLOP/s bf16 tensor-core peak; 0.158 ms for f32's three passes), and
+// the T*T exp2 of the softmax on the special-function units (16 per clock
+// per SM, 4.2e12/s: 0.049 ms there, as long as the bf16 products). Below
+// HD = 64 the exp2 leads: at HD = 8 (the middle attention of the ablation
+// UNets), T = 114 000 and 4 heads the softmax takes T*T*4 = 5.2e10 exp2,
+// 12.4 ms, and the f32 products 2 * 3 * 2*T*T*8*4 = 5.0e12 flops, 5.0 ms.
+// This kernel runs HD = 8 at 16 columns (K padded to 16 in Q K^T, N = 16
+// in P V): twice the products the function needs (10.1 ms at the peak,
+// still under the exp2), a gap from the bound and not a part of it.
+// Padded to 64 they would take 40 ms. The T x T score matrix never leaves
+// the SM.
 //
 // Design (one CTA = 128 query rows of one head):
 // - Warp 8 is the producer: one thread loads the CTA's Q tiles once and
 //   then walks the 64-key tiles of K and V through a ring of STAGES
-//   shared-memory slots with TMA (3-D tensor maps [BH, T, 64] with
-//   128-byte swizzle; rows past T arrive as zeros). Each slot has a full
+//   shared-memory slots with TMA (3-D tensor maps [BH, T, HD] with the
+//   swizzle of the tile's row bytes; rows past T arrive as zeros). Each slot has a full
 //   mbarrier (TMA's transaction count) and an empty one (one arrival per
 //   consumer warp), so up to STAGES tiles are in flight while the tensor
 //   cores work.
@@ -55,14 +65,14 @@
 //   body took 1.48x as long at T = 7125 on an H100.
 // - Warps 0-7 are two consumer warpgroups of 64 query rows each.
 //   S = Q K^T is a wgmma m64n64k16 chain (three in f32) from shared memory
-//   (Q and K both K-major, 128-byte swizzle) into 32 f32 registers per
-//   thread. The online softmax runs on those registers: a thread holds 16
-//   scores of two rows, the row max and sum are reduced over the quad of
-//   lanes that shares a row, exp2 takes the scale folded into one FMA, and
-//   keys >= T in the last tile are set to -inf (a zero-filled key would
-//   score 0, not -inf). P goes in place into the wgmma A-fragment layout
-//   (the m64n64 accumulator layout is the m64k16 A layout, tile by tile),
-//   rounded to bf16 or split into hi and lo, and P V is a register-A
+//   (Q and K both K-major, the swizzle of their row bytes) into 32 f32
+//   registers per thread. The online softmax runs on those registers: a
+//   thread holds 16 scores of two rows, the row max and sum are reduced
+//   over the quad of lanes that shares a row, exp2 takes the scale folded
+//   into one FMA, and keys >= T in the last tile are set to -inf (a
+//   zero-filled key would score 0, not -inf). P goes in place into the
+//   wgmma A-fragment layout (the m64n64 accumulator layout is the m64k16
+//   A layout, tile by tile), rounded to bf16 or split into hi and lo, and P V is a register-A
 //   wgmma chain (three in f32) with V read from shared memory as an
 //   MN-major (transposed) operand. O is rescaled in registers; bf16 sums
 //   P V onto it in the tensor cores, f32 sums each tile's P V from zero
@@ -106,22 +116,25 @@ constexpr int NWG = 2;                     // consumer warpgroups per CTA
 constexpr int BQ = BM * NWG;               // query rows per CTA
 constexpr int BK = 64;                     // keys per tile
 constexpr int NTHREADS = NWG * 128 + 32;   // + the producer warp
-constexpr int TILE = 64 * HD;              // elements of a 64-row tile
-constexpr int TILE_BYTES = TILE * 2;       // one bf16 tile, 8 KB
+// elements of a 64-row bf16 tile (8 KB at HD = 64)
+template <int HD>
+constexpr int TILE = 64 * Head<HD>::HDP;
+template <int HD>
+constexpr int TILE_BYTES = TILE<HD> * 2;
 
 template <bool F32>
 using Out = std::conditional_t<F32, float, bf16>;
 
 // Shared memory: the Q tiles and a ring of K and V tiles, each operand
 // one bf16 tile (bf16) or two, hi and lo (f32); every tile is 1024-byte
-// aligned (128-byte swizzle atoms)
-template <bool F32>
+// aligned (swizzle atoms)
+template <bool F32, int HD>
 struct Smem {
   static constexpr int STAGES = 4;            // ring slots
   static constexpr int NP = F32 ? 2 : 1;      // [hi, lo]
-  bf16 q[NWG][NP][TILE];
-  bf16 k[STAGES][NP][TILE];
-  bf16 v[STAGES][NP][TILE];
+  bf16 q[NWG][NP][TILE<HD>];
+  bf16 k[STAGES][NP][TILE<HD>];
+  bf16 v[STAGES][NP][TILE<HD>];
   uint64_t qbar;
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
@@ -162,32 +175,65 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// o = o corr + P V for one key tile (f32 body): P V summed from zero in
+// pv, then added to the rescaled o with an f32 FMA
+template <int NP, int HD>
+__device__ __forceinline__ void add_pv(float (&o)[Head<HD>::HDP / 2],
+                                       float (&pv)[Head<HD>::HDP / 2],
+                                       uint32_t (&p)[NP][16],
+                                       float cr0, float cr1, uint64_t vH,
+                                       uint64_t vL) {
+  constexpr int HDP = Head<HD>::HDP;
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) pv[i] = 0.f;
+  reg_fence(pv);
+  reg_fence_a(p);
+  wg_fence();
+  product_rs<NP, HD>(pv, p, vH, vL);
+  wg_commit();
+  reg_fence(pv);
+  wg_wait_all();
+  reg_fence(pv);
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) {
+    o[4 * n] = fmaf(o[4 * n], cr0, pv[4 * n]);
+    o[4 * n + 1] = fmaf(o[4 * n + 1], cr0, pv[4 * n + 1]);
+    o[4 * n + 2] = fmaf(o[4 * n + 2], cr1, pv[4 * n + 2]);
+    o[4 * n + 3] = fmaf(o[4 * n + 3], cr1, pv[4 * n + 3]);
+  }
+}
+
 // One consumer warpgroup: 64 query rows against every key tile.
 // Accumulator layout (m64nN f32): warp w of the group holds rows
 // 16w + lane/4 (registers 4n, 4n+1) and 16w + lane/4 + 8 (4n+2, 4n+3), at
 // columns 8n + 2*(lane%4) + {0, 1}, n = 0..7.
-template <bool F32>
-__device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
-                                        float* lse, int T, float scale_log2,
-                                        int bh, int q0, int nk) {
-  constexpr int STAGES = Smem<F32>::STAGES, NP = Smem<F32>::NP;
+// O is m64nHDP: HDP / 2 sums a thread, columns 8n + c2 + {0, 1} for
+// n < HDP / 8.
+template <bool F32, int HD>
+__device__ __forceinline__ void consume(Smem<F32, HD>& sm, int wg,
+                                        Out<F32>* out, float* lse, int T,
+                                        float scale_log2, int bh, int q0,
+                                        int nk) {
+  using S = Smem<F32, HD>;
+  constexpr int STAGES = S::STAGES, NP = S::NP;
+  constexpr int HDP = Head<HD>::HDP, NO = HDP / 2;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int c2 = (lane % 4) * 2;
-  float o[32];
+  float o[NO];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(&sm.qbar, 0);
-  const uint64_t qH = sw128_desc(sm.q[wg][0]);
-  const uint64_t qL = sw128_desc(sm.q[wg][NP - 1]);
+  const uint64_t qH = sw_desc<HD>(sm.q[wg][0]);
+  const uint64_t qL = sw_desc<HD>(sm.q[wg][NP - 1]);
   for (int j = 0; j < nk; ++j) {
     const int s = j % STAGES;
     mbar_wait(&sm.full[s], (j / STAGES) & 1);
-    const uint64_t kH = sw128_desc(sm.k[s][0]);
-    const uint64_t kL = sw128_desc(sm.k[s][NP - 1]);
-    const uint64_t vH = sw128_desc(sm.v[s][0]);
-    const uint64_t vL = sw128_desc(sm.v[s][NP - 1]);
+    const uint64_t kH = sw_desc<HD>(sm.k[s][0]);
+    const uint64_t kL = sw_desc<HD>(sm.k[s][NP - 1]);
+    const uint64_t vH = sw_desc<HD>(sm.v[s][0]);
+    const uint64_t vL = sw_desc<HD>(sm.v[s][NP - 1]);
 
     // S = Q K^T
     float sc[32];
@@ -195,7 +241,7 @@ __device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     reg_fence(sc);
     wg_fence();
-    product_ss<F32>(sc, qH, qL, kH, kL);
+    product_ss<F32, HD>(sc, qH, qL, kH, kL);
     wg_commit();
     reg_fence(sc);
     wg_wait_all();
@@ -243,30 +289,20 @@ __device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
     l1 = l1 * cr1 + sum1;
 
     if constexpr (F32) {
-      // O = O corr + P V, the tile's P V summed from zero in sc (dead now):
-      // the tensor cores' f32 sums do not round to nearest, and P V onto
-      // O over every key tile (terms of one sign) left out ~4e-5 low at
-      // T = 4097, which D carries into the backward's cancelling dQ
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      reg_fence(sc);
-      reg_fence_a(p);
-      wg_fence();
-      product_rs(sc, p, vH, vL);
-      wg_commit();
-      reg_fence(sc);
-      wg_wait_all();
-      reg_fence(sc);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] = fmaf(o[4 * n], cr0, sc[4 * n]);
-        o[4 * n + 1] = fmaf(o[4 * n + 1], cr0, sc[4 * n + 1]);
-        o[4 * n + 2] = fmaf(o[4 * n + 2], cr1, sc[4 * n + 2]);
-        o[4 * n + 3] = fmaf(o[4 * n + 3], cr1, sc[4 * n + 3]);
+      // O = O corr + P V, the tile's P V summed from zero (at HD = 64 in
+      // sc, dead now): the tensor cores' f32 sums do not round to nearest,
+      // and P V onto O over every key tile (terms of one sign) left out
+      // ~4e-5 low at T = 4097, which D carries into the backward's
+      // cancelling dQ
+      if constexpr (NO == 32) {
+        add_pv<NP, HD>(o, sc, p, cr0, cr1, vH, vL);
+      } else {
+        float pv[NO];
+        add_pv<NP, HD>(o, pv, p, cr0, cr1, vH, vL);
       }
     } else {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < HDP / 8; ++n) {
         o[4 * n] *= cr0;
         o[4 * n + 1] *= cr0;
         o[4 * n + 2] *= cr1;
@@ -277,7 +313,7 @@ __device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
       reg_fence(o);
       reg_fence_a(p);
       wg_fence();
-      product_rs(o, p, vH, vL);
+      product_rs<NP, HD>(o, p, vH, vL);
       wg_commit();
       reg_fence(o);
       wg_wait_all();
@@ -297,7 +333,7 @@ __device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
   }
   Out<F32>* base = out + (size_t)bh * T * HD;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < HD / 8; ++n) {  // the pad columns are not written
     const int col = 8 * n + c2;
     if constexpr (F32) {
       if (r0 < T)
@@ -317,12 +353,12 @@ __device__ __forceinline__ void consume(Smem<F32>& sm, int wg, Out<F32>* out,
   }
 }
 
-template <bool F32>
+template <bool F32, int HD>
 __global__ void __launch_bounds__(NTHREADS, F32 ? 1 : 2)
     flash_attn_kernel(const __grid_constant__ Maps maps,
                       Out<F32>* __restrict__ out, float* __restrict__ lse,
                       int T, float scale_log2) {
-  using S = Smem<F32>;
+  using S = Smem<F32, HD>;
   constexpr int STAGES = S::STAGES, NP = S::NP;
   extern __shared__ unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(
@@ -344,14 +380,14 @@ __global__ void __launch_bounds__(NTHREADS, F32 ? 1 : 2)
 
   if (warp == NWG * 4) {  // producer
     if (threadIdx.x % 32 == 0) {
-      mbar_expect_tx(&sm.qbar, NWG * NP * TILE_BYTES);
+      mbar_expect_tx(&sm.qbar, NWG * NP * TILE_BYTES<HD>);
       for (int w = 0; w < NWG; ++w)
         for (int p = 0; p < NP; ++p)
           tma_load(sm.q[w][p], &maps.q[p], &sm.qbar, q0 + w * BM, bh);
       for (int j = 0; j < nk; ++j) {
         const int s = j % STAGES;
         mbar_wait(&sm.empty[s], ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 2 * NP * TILE_BYTES);
+        mbar_expect_tx(&sm.full[s], 2 * NP * TILE_BYTES<HD>);
         for (int p = 0; p < NP; ++p) {
           tma_load(sm.k[s][p], &maps.k[p], &sm.full[s], j * BK, bh);
           tma_load(sm.v[s][p], &maps.v[p], &sm.full[s], j * BK, bh);
@@ -359,24 +395,24 @@ __global__ void __launch_bounds__(NTHREADS, F32 ? 1 : 2)
       }
     }
   } else {
-    consume<F32>(sm, warp / 4, out, lse, T, scale_log2, bh, q0, nk);
+    consume<F32, HD>(sm, warp / 4, out, lse, T, scale_log2, bh, q0, nk);
   }
 }
 
-template <bool F32>
+template <bool F32, int HD>
 int launch(const Maps& maps, void* out, void* lse, int BH, int T,
            float scale_log2, cudaStream_t st) {
-  constexpr int SMEM_BYTES = (int)sizeof(Smem<F32>) + SW_ATOM;
+  constexpr int SMEM_BYTES = (int)sizeof(Smem<F32, HD>) + SW_ATOM;
   static bool smem_set = false;  // the attribute is set once per process
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attn_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+        flash_attn_kernel<F32, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   dim3 grid((T + BQ - 1) / BQ, BH);
-  flash_attn_kernel<F32><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+  flash_attn_kernel<F32, HD><<<grid, NTHREADS, SMEM_BYTES, st>>>(
       maps, static_cast<Out<F32>*>(out), static_cast<float*>(lse), T,
       scale_log2);
   return (int)cudaGetLastError();
@@ -384,7 +420,7 @@ int launch(const Maps& maps, void* out, void* lse, int BH, int T,
 
 // the f32 forward's split pre-pass: hi and lo of q, k and v into split
 int split_launch(const void* q, const void* k, const void* v, void* split,
-                 int BH, int T, cudaStream_t st) {
+                 int BH, int T, int HD, cudaStream_t st) {
   const size_t n4 = (size_t)BH * T * HD / 4;
   const unsigned gx = (unsigned)std::min<size_t>((n4 + 255) / 256, 132 * 8);
   split_kernel<<<dim3(gx, 3), 256, 0, st>>>(
@@ -394,50 +430,79 @@ int split_launch(const void* q, const void* k, const void* v, void* split,
 }
 
 // the bf16 maps of hi (part 0) and lo (part 1) of q, k and v in split
+template <int HD>
 bool split_maps(Maps* maps, const void* split, int BH, int T) {
   const size_t n = (size_t)BH * T * HD;
   const bf16* s = static_cast<const bf16*>(split);
-  return make_map(&maps->q[0], s, BH, T) &&
-         make_map(&maps->q[1], s + n, BH, T) &&
-         make_map(&maps->k[0], s + 2 * n, BH, T) &&
-         make_map(&maps->k[1], s + 3 * n, BH, T) &&
-         make_map(&maps->v[0], s + 4 * n, BH, T) &&
-         make_map(&maps->v[1], s + 5 * n, BH, T);
+  return make_map<HD>(&maps->q[0], s, BH, T) &&
+         make_map<HD>(&maps->q[1], s + n, BH, T) &&
+         make_map<HD>(&maps->k[0], s + 2 * n, BH, T) &&
+         make_map<HD>(&maps->k[1], s + 3 * n, BH, T) &&
+         make_map<HD>(&maps->v[0], s + 4 * n, BH, T) &&
+         make_map<HD>(&maps->v[1], s + 5 * n, BH, T);
+}
+
+template <int HD>
+int forward_bf16(const void* q, const void* k, const void* v, void* out,
+                 void* lse, int BH, int T, float scale_log2,
+                 cudaStream_t st) {
+  Maps maps;
+  if (!make_map<HD>(&maps.q[0], q, BH, T) ||
+      !make_map<HD>(&maps.k[0], k, BH, T) ||
+      !make_map<HD>(&maps.v[0], v, BH, T))
+    return (int)cudaErrorInvalidValue;
+  return launch<false, HD>(maps, out, lse, BH, T, scale_log2, st);
+}
+
+template <int HD>
+int forward_f32(const void* q, const void* k, const void* v, void* split,
+                void* out, void* lse, int BH, int T, float scale_log2,
+                cudaStream_t st) {
+  Maps maps;
+  if (!split_maps<HD>(&maps, split, BH, T)) return (int)cudaErrorInvalidValue;
+  const int e = split_launch(q, k, v, split, BH, T, HD, st);
+  if (e != 0) return e;
+  return launch<true, HD>(maps, out, lse, BH, T, scale_log2, st);
 }
 
 }  // namespace
 
-// q, k, v, out: [BH, T, 64] bf16, contiguous, 16-byte aligned; lse: [BH, T]
-// f32 or null. scale_log2 = (scale applied to q.k) * log2(e). Returns
-// cudaGetLastError()
-// (cudaErrorInvalidValue for bad sizes or a tensor map that
-// cuTensorMapEncodeTiled refuses).
+// q, k, v, out: [BH, T, hd] bf16, contiguous, 16-byte aligned, hd in
+// {8, 16, 32, 64}; lse: [BH, T] f32 or null. scale_log2 = (scale applied
+// to q.k) * log2(e). Returns cudaGetLastError() (cudaErrorInvalidValue for
+// bad sizes, another hd, or a tensor map that cuTensorMapEncodeTiled
+// refuses).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* out, void* lse, int BH, int T,
+                                 void* out, void* lse, int BH, int T, int hd,
                                  float scale_log2, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
-  Maps maps;
-  if (!make_map(&maps.q[0], q, BH, T) || !make_map(&maps.k[0], k, BH, T) ||
-      !make_map(&maps.v[0], v, BH, T))
-    return (int)cudaErrorInvalidValue;
-  return launch<false>(maps, out, lse, BH, T, scale_log2,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+#define IPDM_BF16(H) \
+  case H:            \
+    return forward_bf16<H>(q, k, v, out, lse, BH, T, scale_log2, st);
+    IPDM_FLASH_HEAD_DIMS(IPDM_BF16)
+#undef IPDM_BF16
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The same for f32 q, k, v, out, with split: a [6, BH, T, 64] bf16
+// The same for f32 q, k, v, out, with split: a [6, BH, T, hd] bf16
 // scratch tensor (16-byte aligned) that the split pre-pass fills with hi
 // and lo of q, k and v before the main kernel reads them. Returns
 // cudaGetLastError() of the first launch that fails.
 extern "C" int flash_attn_f32_launch(const void* q, const void* k,
                                      const void* v, void* split, void* out,
-                                     void* lse, int BH, int T,
+                                     void* lse, int BH, int T, int hd,
                                      float scale_log2, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Maps maps;
-  if (!split_maps(&maps, split, BH, T)) return (int)cudaErrorInvalidValue;
-  const int e = split_launch(q, k, v, split, BH, T, st);
-  if (e != 0) return e;
-  return launch<true>(maps, out, lse, BH, T, scale_log2, st);
+  switch (hd) {
+#define IPDM_F32(H)                                                       \
+  case H:                                                                 \
+    return forward_f32<H>(q, k, v, split, out, lse, BH, T, scale_log2, st);
+    IPDM_FLASH_HEAD_DIMS(IPDM_F32)
+#undef IPDM_F32
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
-

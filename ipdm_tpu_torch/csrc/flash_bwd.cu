@@ -1,5 +1,6 @@
-// Backward of flash attention for head dimension 64 on Hopper (sm_90a):
-// every product on wgmma (bf16 operands, f32 sums), TMA for the loads.
+// Backward of flash attention for head dimensions 8, 16, 32 and 64 on
+// Hopper (sm_90a): every product on wgmma (bf16 operands, f32 sums), TMA
+// for the loads.
 //
 // Replaces the two Pallas kernels of the TPU flash attention's backward
 // that ipdm_tpu/models/unet.py:601 _flash_attention reaches when the JAX
@@ -17,8 +18,10 @@
 //   dK   = c * dS^T Q                   flash_bwd_kernel<dkv>
 //   dQ   = c * dS K                     flash_bwd_kernel<dq>
 //
-// q, k, v, o, do, dq, dk, dv: [BH, T, 64] of one element type E (bf16 or
-// f32), contiguous; lse, D: [BH, T] f32. The gradients are with respect to
+// q, k, v, o, do, dq, dk, dv: [BH, T, HD] of one element type E (bf16 or
+// f32), contiguous, HD in {8, 16, 32, 64} (a template instance each; the
+// tiles lie HDP = max(HD, 16) columns wide in shared memory, zero-padded
+// at HD = 8: hopper.cuh's Head<HD>); lse, D: [BH, T] f32. The gradients are with respect to
 // the unscaled q and k, so each carries c once.
 //
 // The two element types:
@@ -43,19 +46,26 @@
 // tile (walking every key tile), so each output has one writer and a fixed
 // sum order, and two launches give the same bits.
 //
-// What bounds them on an H100: 5 products of T*T*64 multiply-adds per head;
-// the dQ kernel rebuilds S and dP (3 products), the dK/dV kernel too (4).
-// At T = 7125 and 4 heads: dq 0.0788 ms, dkv 0.1051 ms at the 989 TFLOP/s
-// bf16 tensor-core rate; three times that in f32 (0.2365 / 0.3154 ms). The
-// T*T exp2 of P run on the special-function units beside them (0.05 ms per
-// kernel at T = 7125). The T x T matrices never leave the SM.
+// What bounds them on an H100: 5 products of T*T*HD multiply-adds per
+// head; the dQ kernel rebuilds S and dP (3 products), the dK/dV kernel
+// too (4). At HD = 64, T = 7125 and 4 heads: dq 0.0788 ms, dkv 0.1051 ms
+// at the 989 TFLOP/s bf16 tensor-core rate; three times that in f32
+// (0.2365 / 0.3154 ms). The T*T exp2 of P run on the special-function
+// units beside them (4.2e12/s: 0.05 ms per kernel at T = 7125). At
+// HD = 8, T = 114 000 and 4 heads the exp2 leads: 12.4 ms per kernel,
+// against f32 products of 3 * 3 * 2*T*T*8*4 = 7.5e12 flops (dq, 7.6 ms)
+// and 4 * 3 * 2*T*T*8*4 = 1.0e13 (dkv, 10.1 ms). These kernels run HD = 8
+// at 16 columns (the head-dimension side of every product padded to 16):
+// twice those products (15.1 / 20.2 ms at the peak, past the exp2), a gap
+// from the bound and not a part of it. The T x T matrices never leave the
+// SM.
 //
 // Design (one CTA = 128 resident rows of one head, both kernels):
 // - The dq kernel holds 128 query rows (Q, dO) and walks the 64-key tiles
 //   of K and V; the dkv kernel holds 128 keys (K, V) and walks the 64-query
 //   tiles of Q and dO, with their lse and D. Resident X, Y and ring U, W
 //   below: (Q, dO, K, V) for dq, (K, V, Q, dO) for dkv.
-// - Loads: one lane issues each TMA (3-D tensor maps [BH, T, 64]; rows
+// - Loads: one lane issues each TMA (3-D tensor maps [BH, T, HD]; rows
 //   past T arrive as zeros) into a ring of STAGES shared-memory slots, each
 //   with a full mbarrier (the TMA's transaction count): warp 0 the first
 //   STAGES tiles before the loop, then, when the 8 warps are done with a
@@ -68,7 +78,8 @@
 //   a thread, 96 with two CTAs), and the bodies need more.
 // - Warps 0-7 are two warpgroups of 64 resident rows each. Per
 //   ring tile: S = X U^T and dP = Y W^T are wgmma chains from shared memory
-//   (all four K-major, 128-byte swizzle) into 2 x 32 f32 registers; P =
+//   (all four K-major, the swizzle of the row's bytes) into 2 x 32 f32
+//   registers; P =
 //   exp2(c * log2(e) * S - lse2) and dS = P (dP - D) on those registers,
 //   rounded (bf16) or split (f32) into register-A fragments in place (the
 //   m64n64 accumulator layout is the m64k16 A layout); then register-A
@@ -77,11 +88,17 @@
 //   D sit in registers; in dkv each thread reads the lse and D of its 16
 //   query columns from the slot. Ring rows past T (keys in dq, queries in
 //   dkv) get P = 0: a zero-filled key would score 0, not -inf.
+// - f32 below head dim 64: each ring tile's products are summed from zero
+//   and added to dQ (dK, dV) with an f32 add, as flash_attn.cu sums P V:
+//   the tensor cores' f32 sums do not round to nearest, and chained over
+//   the 1782 key tiles of T = 114 000 they biased dQ to 1.2x the f32 rule
+//   (chip_smoke.py flash-hd). Head dim 64 keeps the chain (T <= 7125).
 // - f32: TMA brings the ring tile's f32 rows into a staging slot (no
 //   swizzle); the CTA's 256 threads split it into hi and lo bf16 tiles in
-//   the 128-byte swizzle (a double buffer), fence the stores for the async
-//   proxy and meet at a named barrier before the wgmmas read them. The
-//   resident rows are loaded and split once by their warpgroup.
+//   the tile's swizzle (a double buffer; zeros in the pad columns at
+//   HD = 8), fence the stores for the async proxy and meet at a named
+//   barrier before the wgmmas read them. The resident rows are loaded and
+//   split once by their warpgroup.
 // - Waves and registers: 128-row CTAs give 56 x 4 = 224 CTAs at T = 7125
 //   and 128 at T = 4096 (BH = 4). The bf16 dq kernel keeps two CTAs on an
 //   SM (99 KB of shared memory, at most 128 registers a thread); the dkv
@@ -102,7 +119,9 @@ constexpr int NWG = 2;                    // warpgroups per CTA
 constexpr int BR = BM * NWG;              // resident rows per CTA
 constexpr int BN = 64;                    // rows per ring tile
 constexpr int NTHREADS = NWG * 128;
-constexpr int TILE = BN * HD;             // elements of a 64-row tile
+template <int HD>
+constexpr int TILE = BN * Head<HD>::HDP;  // elements of a 64-row bf16
+                                          // tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 // the value of x that the products see: x in bf16; hi + lo of its split
@@ -113,8 +132,9 @@ __device__ __forceinline__ float seen(float x) {
   return hi + ipdm::round_bf16(x - hi);
 }
 
-// D[r] = sum_d o[r][d] * seen(do[r][d]), one warp per row
-template <typename E>
+// D[r] = sum_d o[r][d] * seen(do[r][d]), one warp per row, two columns a
+// lane (lanes past HD / 2 add 0)
+template <typename E, int HD>
 __global__ void __launch_bounds__(256)
     flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
                          float* __restrict__ D, int rows) {
@@ -122,8 +142,10 @@ __global__ void __launch_bounds__(256)
   const int lane = threadIdx.x % 32;
   if (r >= rows) return;
   const size_t at = (size_t)r * HD + 2 * lane;
-  float acc = ipdm::to_f32(o[at]) * seen(dout[at]) +
-              ipdm::to_f32(o[at + 1]) * seen(dout[at + 1]);
+  float acc = 0.f;
+  if (2 * lane < HD)
+    acc = ipdm::to_f32(o[at]) * seen(dout[at]) +
+          ipdm::to_f32(o[at + 1]) * seen(dout[at + 1]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -132,25 +154,26 @@ __global__ void __launch_bounds__(256)
 
 // Shared memory. bf16: the resident tiles and a 4-slot TMA ring of U, W.
 // f32: hi and lo tiles of the resident rows, a 2-slot TMA staging ring of
-// f32 U, W, and a double buffer of their split tiles. Every bf16 tile is
-// 1024-byte aligned (128-byte swizzle atoms).
-template <bool F32>
+// f32 U, W (HD columns), and a double buffer of their split tiles. Every
+// bf16 tile is 1024-byte aligned (swizzle atoms), every staging tile
+// 128-byte aligned (TMA).
+template <bool F32, int HD>
 struct Smem;
-template <>
-struct Smem<false> {
+template <int HD>
+struct Smem<false, HD> {
   static constexpr int STAGES = 4;
-  bf16 res[NWG][2][1][TILE];      // [warpgroup][X, Y][part]
-  bf16 ring[STAGES][2][1][TILE];  // [slot][U, W][part]
+  bf16 res[NWG][2][1][TILE<HD>];      // [warpgroup][X, Y][part]
+  bf16 ring[STAGES][2][1][TILE<HD>];  // [slot][U, W][part]
   float lse[STAGES][BN], Dc[STAGES][BN];  // the slot's rows (dkv)
   uint64_t resbar, full[STAGES];
   int released[STAGES];  // warps done with the slot's tile
 };
-template <>
-struct Smem<true> {
+template <int HD>
+struct Smem<true, HD> {
   static constexpr int STAGES = 2;
-  bf16 res[NWG][2][2][TILE];      // [warpgroup][X, Y][hi, lo]
-  bf16 ring[2][2][2][TILE];       // [buffer][U, W][hi, lo]
-  float stage[STAGES][2][TILE];   // [slot][U, W], f32 rows as loaded
+  bf16 res[NWG][2][2][TILE<HD>];      // [warpgroup][X, Y][hi, lo]
+  bf16 ring[2][2][2][TILE<HD>];       // [buffer][U, W][hi, lo]
+  float stage[STAGES][2][BN * HD];    // [slot][U, W], f32 rows as loaded
   float lse[STAGES][BN], Dc[STAGES][BN];  // the slot's rows (dkv)
   uint64_t resbar, full[STAGES];
   int released[STAGES];
@@ -166,11 +189,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 }
 
 // four consecutive f32 of row r, columns 4 c4 .. 4 c4 + 3, split into the
-// hi and lo tiles at their 128-byte-swizzle place (16-byte chunk c4 / 2 of
-// the row XOR r % 8, as TMA's SWIZZLE_128B lays a 64-column bf16 tile out)
+// hi and lo tiles at their swizzled place, as TMA lays a bf16 tile of
+// Head<HD>'s rows out (at HD = 64: 16-byte chunk c4 / 2 of the row XOR
+// r % 8, SWIZZLE_128B)
+template <int HD>
 __device__ __forceinline__ void store_split(bf16* hi, bf16* lo, int r,
                                             int c4, float4 v) {
-  const int off = r * 128 + ((((c4 >> 1) ^ (r & 7))) << 4) + ((c4 & 1) << 3);
+  constexpr int ROW = Head<HD>::ROW;
+  const int off = swizzle<ROW>(r * ROW + 8 * c4);
   uint2 h, l;
   split2(v.x, v.y, h.x, l.x);
   split2(v.z, v.w, h.y, l.y);
@@ -196,14 +222,15 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NP][16],
 // slot is free (lane 0: TMA; in dkv every lane also copies two of the
 // tile's rows' lse and D with cp.async, rows past T zero-filled, and has
 // the slot's full barrier track them: nothing here waits on the loads)
-template <bool DKV, bool F32>
-__device__ __forceinline__ void issue(Smem<F32>& sm, int j,
+template <bool DKV, bool F32, int HD>
+__device__ __forceinline__ void issue(Smem<F32, HD>& sm, int j,
                                       const CUtensorMap* tu,
                                       const CUtensorMap* tw,
                                       const float* lse, const float* D,
                                       int bh, int T) {
-  constexpr uint32_t BYTES = 2 * TILE * (F32 ? 4 : 2);
-  const int s = j % Smem<F32>::STAGES, lane = threadIdx.x % 32;
+  // two boxes: f32 rows of HD columns, or bf16 rows of HDP
+  constexpr uint32_t BYTES = 2 * (F32 ? BN * HD * 4 : TILE<HD> * 2);
+  const int s = j % Smem<F32, HD>::STAGES, lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_expect_tx(&sm.full[s], BYTES);
     if constexpr (F32) {
@@ -229,44 +256,55 @@ __device__ __forceinline__ void issue(Smem<F32>& sm, int j,
 }
 
 // One warpgroup: 64 resident rows against every ring tile.
-template <bool DKV, bool F32, typename E>
+// The sums of dq, dk and dv are m64nHDP: HDP / 2 a thread, columns
+// 8n + c2 + {0, 1} for n < HDP / 8.
+template <bool DKV, bool F32, int HD, typename E>
 __device__ __forceinline__ void consume(
-    Smem<F32>& sm, int wg, const CUtensorMap* tu, const CUtensorMap* tw,
+    Smem<F32, HD>& sm, int wg, const CUtensorMap* tu, const CUtensorMap* tw,
     const E* __restrict__ x, const E* __restrict__ y,
     const float* __restrict__ lse, const float* __restrict__ D,
     E* __restrict__ out0, E* __restrict__ out1, int T, float scale_log2,
     float scale2, int bh, int r0, int nt) {
-  constexpr int STAGES = Smem<F32>::STAGES;
+  constexpr int STAGES = Smem<F32, HD>::STAGES;
   constexpr int NP = F32 ? 2 : 1;
+  constexpr int HDP = Head<HD>::HDP, NO = HDP / 2;
+  // f32 below head dim 64: each ring tile's dQ (dK, dV) products summed
+  // from zero, then added to the sums in f32. The tensor cores' f32 sums
+  // do not round to nearest, and chained onto dQ over all 1782 key tiles
+  // at T = 114 000 they biased it to 1.2x the f32 rule (flash_attn.cu's
+  // P V has the same fix). Head dim 64 (T <= 7125 on every path, 112
+  // tiles, within the rule) keeps the chain, its bits and its registers.
+  constexpr bool TILE_SUM = F32 && HD < 64;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int c2 = (lane % 4) * 2;
   const int row0 = r0 + wg * BM + warp * 16 + lane / 4, row1 = row0 + 8;
   const size_t base = (size_t)bh * T * HD;
 
-  if constexpr (F32) {  // this warpgroup's resident rows, split
+  if constexpr (F32) {  // this warpgroup's resident rows, split (the pad
+                        // columns past HD zeros)
     const int t = threadIdx.x % 128;
-    for (int i = t; i < BM * (HD / 4); i += 128) {
-      const int r = i / (HD / 4), c4 = i % (HD / 4);
+    for (int i = t; i < BM * (HDP / 4); i += 128) {
+      const int r = i / (HDP / 4), c4 = i % (HDP / 4);
       const int row = r0 + wg * BM + r;
       float4 vx = make_float4(0.f, 0.f, 0.f, 0.f), vy = vx;
-      if (row < T) {
+      if (row < T && c4 < HD / 4) {
         vx = *reinterpret_cast<const float4*>(x + base + (size_t)row * HD +
                                               4 * c4);
         vy = *reinterpret_cast<const float4*>(y + base + (size_t)row * HD +
                                               4 * c4);
       }
-      store_split(sm.res[wg][0][0], sm.res[wg][0][1], r, c4, vx);
-      store_split(sm.res[wg][1][0], sm.res[wg][1][1], r, c4, vy);
+      store_split<HD>(sm.res[wg][0][0], sm.res[wg][0][1], r, c4, vx);
+      store_split<HD>(sm.res[wg][1][0], sm.res[wg][1][1], r, c4, vy);
     }
     fence_async_smem();
     bar_sync(2 + wg, 128);
   } else {
     mbar_wait(&sm.resbar, 0);
   }
-  const uint64_t xH = sw128_desc(sm.res[wg][0][0]);
-  const uint64_t yH = sw128_desc(sm.res[wg][1][0]);
-  const uint64_t xL = sw128_desc(sm.res[wg][0][F32 ? 1 : 0]);
-  const uint64_t yL = sw128_desc(sm.res[wg][1][F32 ? 1 : 0]);
+  const uint64_t xH = sw_desc<HD>(sm.res[wg][0][0]);
+  const uint64_t yH = sw_desc<HD>(sm.res[wg][1][0]);
+  const uint64_t xL = sw_desc<HD>(sm.res[wg][0][F32 ? 1 : 0]);
+  const uint64_t yL = sw_desc<HD>(sm.res[wg][1][F32 ? 1 : 0]);
 
   // dq: the rows' log2-domain normaliser and D (rows past T: P = 0)
   float lr[2] = {INFINITY, INFINITY}, dr[2] = {0.f, 0.f};
@@ -281,9 +319,9 @@ __device__ __forceinline__ void consume(
     }
   }
 
-  float acc0[32], acc1[32];  // dq; or dk, dv
+  float acc0[NO], acc1[NO];  // dq; or dk, dv
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  for (int i = 0; i < NO; ++i) acc0[i] = acc1[i] = 0.f;
 
   for (int j = 0; j < nt; ++j) {
     const int s = j % STAGES;
@@ -291,14 +329,17 @@ __device__ __forceinline__ void consume(
     bf16 *uh, *ul, *wh, *wl;
     if constexpr (F32) {  // split the staged f32 tile; both warpgroups
       const int b = j & 1;
-      for (int i = threadIdx.x; i < BN * (HD / 4); i += NTHREADS) {
-        const int r = i / (HD / 4), c4 = i % (HD / 4);
-        store_split(sm.ring[b][0][0], sm.ring[b][0][1], r, c4,
-                    *reinterpret_cast<const float4*>(
-                        &sm.stage[s][0][r * HD + 4 * c4]));
-        store_split(sm.ring[b][1][0], sm.ring[b][1][1], r, c4,
-                    *reinterpret_cast<const float4*>(
-                        &sm.stage[s][1][r * HD + 4 * c4]));
+      for (int i = threadIdx.x; i < BN * (HDP / 4); i += NTHREADS) {
+        const int r = i / (HDP / 4), c4 = i % (HDP / 4);
+        float4 vu = make_float4(0.f, 0.f, 0.f, 0.f), vw = vu;
+        if (c4 < HD / 4) {  // the pad columns past HD stay zeros
+          vu = *reinterpret_cast<const float4*>(
+              &sm.stage[s][0][r * HD + 4 * c4]);
+          vw = *reinterpret_cast<const float4*>(
+              &sm.stage[s][1][r * HD + 4 * c4]);
+        }
+        store_split<HD>(sm.ring[b][0][0], sm.ring[b][0][1], r, c4, vu);
+        store_split<HD>(sm.ring[b][1][0], sm.ring[b][1][1], r, c4, vw);
       }
       fence_async_smem();
       bar_sync(1, NTHREADS);
@@ -310,8 +351,8 @@ __device__ __forceinline__ void consume(
       uh = ul = sm.ring[s][0][0];
       wh = wl = sm.ring[s][1][0];
     }
-    const uint64_t uH = sw128_desc(uh), uL = sw128_desc(ul);
-    const uint64_t wH = sw128_desc(wh), wL = sw128_desc(wl);
+    const uint64_t uH = sw_desc<HD>(uh), uL = sw_desc<HD>(ul);
+    const uint64_t wH = sw_desc<HD>(wh), wL = sw_desc<HD>(wl);
 
     // S = X U^T, dP = Y W^T
     float sc[32], dp[32];
@@ -320,8 +361,8 @@ __device__ __forceinline__ void consume(
     reg_fence(sc);
     reg_fence(dp);
     wg_fence();
-    product_ss<F32>(sc, xH, xL, uH, uL);
-    product_ss<F32>(dp, yH, yL, wH, wL);
+    product_ss<F32, HD>(sc, xH, xL, uH, uL);
+    product_ss<F32, HD>(dp, yH, yL, wH, wL);
     wg_commit();
     reg_fence(sc);
     reg_fence(dp);
@@ -349,7 +390,32 @@ __device__ __forceinline__ void consume(
     }
     uint32_t da[NP][16];
     to_a(da, dp);
-    if constexpr (DKV) {  // dV += P^T dO, dK += dS^T Q
+    if constexpr (DKV && TILE_SUM) {  // dV += P^T dO, dK += dS^T Q, each
+                                      // tile's products summed from zero
+      uint32_t pa[NP][16];
+      to_a(pa, sc);
+      float t0[NO], t1[NO];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) t0[i] = t1[i] = 0.f;
+      reg_fence(t0);
+      reg_fence(t1);
+      reg_fence_a(pa);
+      reg_fence_a(da);
+      wg_fence();
+      product_rs<NP, HD>(t1, pa, wH, wL);
+      product_rs<NP, HD>(t0, da, uH, uL);
+      wg_commit();
+      reg_fence(t0);
+      reg_fence(t1);
+      wg_wait_all();
+      reg_fence(t0);
+      reg_fence(t1);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        acc0[i] += t0[i];
+        acc1[i] += t1[i];
+      }
+    } else if constexpr (DKV) {  // dV += P^T dO, dK += dS^T Q
       uint32_t pa[NP][16];
       to_a(pa, sc);
       reg_fence(acc0);
@@ -357,19 +423,33 @@ __device__ __forceinline__ void consume(
       reg_fence_a(pa);
       reg_fence_a(da);
       wg_fence();
-      product_rs(acc1, pa, wH, wL);
-      product_rs(acc0, da, uH, uL);
+      product_rs<NP, HD>(acc1, pa, wH, wL);
+      product_rs<NP, HD>(acc0, da, uH, uL);
       wg_commit();
       reg_fence(acc0);
       reg_fence(acc1);
       wg_wait_all();
       reg_fence(acc0);
       reg_fence(acc1);
+    } else if constexpr (TILE_SUM) {  // dQ += dS K, summed from zero
+      float t0[NO];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) t0[i] = 0.f;
+      reg_fence(t0);
+      reg_fence_a(da);
+      wg_fence();
+      product_rs<NP, HD>(t0, da, uH, uL);
+      wg_commit();
+      reg_fence(t0);
+      wg_wait_all();
+      reg_fence(t0);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc0[i] += t0[i];
     } else {  // dQ += dS K
       reg_fence(acc0);
       reg_fence_a(da);
       wg_fence();
-      product_rs(acc0, da, uH, uL);
+      product_rs<NP, HD>(acc0, da, uH, uL);
       wg_commit();
       reg_fence(acc0);
       wg_wait_all();
@@ -385,16 +465,16 @@ __device__ __forceinline__ void consume(
       __threadfence_block();
     }
     if (__shfl_sync(0xffffffffu, last, 0) && j + STAGES < nt)
-      issue<DKV, F32>(sm, j + STAGES, tu, tw, lse, D, bh, T);
+      issue<DKV, F32, HD>(sm, j + STAGES, tu, tw, lse, D, bh, T);
   }
 
-  // rows < T: dq = c acc0; or dk = c acc0, dv = acc1
+  // rows < T: dq = c acc0; or dk = c acc0, dv = acc1 (columns < HD)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h ? row1 : row0;
     if (row >= T) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < HD / 8; ++n) {
       const int i = 4 * n + 2 * h;
       const size_t at = base + (size_t)row * HD + 8 * n + c2;
       if constexpr (F32) {
@@ -417,7 +497,7 @@ __device__ __forceinline__ void consume(
 template <bool F32>
 using Elem = std::conditional_t<F32, float, bf16>;
 
-template <bool DKV, bool F32>
+template <bool DKV, bool F32, int HD>
 __global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap ty,
@@ -430,7 +510,8 @@ __global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
                      Elem<F32>* __restrict__ out1, int T, float scale_log2,
                      float scale2) {
   extern __shared__ unsigned char smem_raw[];
-  Smem<F32>& sm = *reinterpret_cast<Smem<F32>*>(
+  using S = Smem<F32, HD>;
+  S& sm = *reinterpret_cast<S*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + SW_ATOM - 1) &
       ~uintptr_t(SW_ATOM - 1));
   const int bh = blockIdx.y, r0 = blockIdx.x * BR;
@@ -438,7 +519,7 @@ __global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.resbar, 1);
-    for (int s = 0; s < Smem<F32>::STAGES; ++s) {
+    for (int s = 0; s < S::STAGES; ++s) {
       mbar_init(&sm.full[s], DKV ? 1 + 32 : 1);
       sm.released[s] = 0;
     }
@@ -449,95 +530,129 @@ __global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
                            // STAGES ring tiles
     if constexpr (!F32) {
       if (threadIdx.x == 0) {
-        mbar_expect_tx(&sm.resbar, NWG * 2 * TILE * 2);
+        mbar_expect_tx(&sm.resbar, NWG * 2 * TILE<HD> * 2);
         for (int w = 0; w < NWG; ++w) {
           tma_load(sm.res[w][0][0], &tx, &sm.resbar, r0 + w * BM, bh);
           tma_load(sm.res[w][1][0], &ty, &sm.resbar, r0 + w * BM, bh);
         }
       }
     }
-    for (int j = 0; j < Smem<F32>::STAGES && j < nt; ++j)
-      issue<DKV, F32>(sm, j, &tu, &tw, lse, D, bh, T);
+    for (int j = 0; j < S::STAGES && j < nt; ++j)
+      issue<DKV, F32, HD>(sm, j, &tu, &tw, lse, D, bh, T);
   }
-  consume<DKV, F32>(sm, threadIdx.x / 128, &tu, &tw, x, y, lse, D, out0,
+  consume<DKV, F32, HD>(sm, threadIdx.x / 128, &tu, &tw, x, y, lse, D, out0,
                     out1, T, scale_log2, scale2, bh, r0, nt);
 }
 
 // X, Y resident and U, W walked: (q, do, k, v) for dq, (k, v, q, do) for
 // dkv
-template <bool DKV, bool F32>
+template <bool DKV, bool F32, int HD>
 int launch(const void* x, const void* y, const void* u, const void* w,
            const void* lse, const void* D, void* out0, void* out1, int BH,
            int T, float scale_log2, float scale2, cudaStream_t st) {
   using E = Elem<F32>;
-  constexpr int SMEM_BYTES = (int)sizeof(Smem<F32>) + SW_ATOM;
+  constexpr int SMEM_BYTES = (int)sizeof(Smem<F32, HD>) + SW_ATOM;
   static bool smem_set = false;  // the attribute is set once per process
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_kernel<DKV, F32>,
+        flash_bwd_kernel<DKV, F32, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  const auto map = F32 ? make_map_f32 : make_map;
+  const auto map = F32 ? make_map_f32<HD> : make_map<HD>;
   CUtensorMap tx, ty, tu, tw;
   if (!map(&tx, x, BH, T) || !map(&ty, y, BH, T) || !map(&tu, u, BH, T) ||
       !map(&tw, w, BH, T))
     return (int)cudaErrorInvalidValue;
   dim3 grid((T + BR - 1) / BR, BH);
-  flash_bwd_kernel<DKV, F32><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+  flash_bwd_kernel<DKV, F32, HD><<<grid, NTHREADS, SMEM_BYTES, st>>>(
       tx, ty, tu, tw, static_cast<const E*>(x), static_cast<const E*>(y),
       static_cast<const float*>(lse), static_cast<const float*>(D),
       static_cast<E*>(out0), static_cast<E*>(out1), T, scale_log2, scale2);
   return (int)cudaGetLastError();
 }
 
-template <bool F32>
+template <bool F32, int HD>
 int dq_launch(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* D, void* dq, int BH,
               int T, float scale_log2, float scale2, cudaStream_t st) {
   using E = Elem<F32>;
   const int rows = BH * T;
-  flash_bwd_dot_kernel<E><<<(rows + 7) / 8, 256, 0, st>>>(
+  flash_bwd_dot_kernel<E, HD><<<(rows + 7) / 8, 256, 0, st>>>(
       static_cast<const E*>(o), static_cast<const E*>(dout),
       static_cast<float*>(D), rows);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch<false, F32>(q, dout, k, v, lse, D, dq, nullptr, BH, T,
-                            scale_log2, scale2, st);
+  return launch<false, F32, HD>(q, dout, k, v, lse, D, dq, nullptr, BH, T,
+                                scale_log2, scale2, st);
+}
+
+template <int HD>
+int dq_entry(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* D, void* dq, int BH,
+             int T, float scale_log2, float scale2, int is_bf16,
+             cudaStream_t st) {
+  return is_bf16 ? dq_launch<false, HD>(q, k, v, o, dout, lse, D, dq, BH, T,
+                                        scale_log2, scale2, st)
+                 : dq_launch<true, HD>(q, k, v, o, dout, lse, D, dq, BH, T,
+                                       scale_log2, scale2, st);
+}
+
+template <int HD>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* D, void* dk, void* dv, int BH,
+              int T, float scale_log2, float scale2, int is_bf16,
+              cudaStream_t st) {
+  return is_bf16 ? launch<true, false, HD>(k, v, q, dout, lse, D, dk, dv, BH,
+                                           T, scale_log2, scale2, st)
+                 : launch<true, true, HD>(k, v, q, dout, lse, D, dk, dv, BH,
+                                          T, scale_log2, scale2, st);
 }
 
 }  // namespace
 
 // D = rowsum(o * do) (f32: with do's hi + lo, see above), then dQ. q, k, v,
-// o, do, dq: [BH, T, 64] bf16 (is_bf16 = 1) or f32, contiguous, 16-byte
-// aligned; lse, D: [BH, T] f32 (D written here, read by
-// flash_bwd_dkv_launch). scale_log2 = scale2 * log2(e). Returns
-// cudaGetLastError() (cudaErrorInvalidValue for bad sizes or a tensor map
-// that cuTensorMapEncodeTiled refuses).
+// o, do, dq: [BH, T, hd] bf16 (is_bf16 = 1) or f32, contiguous, 16-byte
+// aligned, hd in {8, 16, 32, 64}; lse, D: [BH, T] f32 (D written here,
+// read by flash_bwd_dkv_launch). scale_log2 = scale2 * log2(e). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for bad sizes, another hd, or
+// a tensor map that cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse, void* D,
-                                   void* dq, int BH, int T, float scale_log2,
-                                   float scale2, int is_bf16, void* stream) {
+                                   void* dq, int BH, int T, int hd,
+                                   float scale_log2, float scale2,
+                                   int is_bf16, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dq_launch<false>(q, k, v, o, dout, lse, D, dq, BH, T,
-                                    scale_log2, scale2, st)
-                 : dq_launch<true>(q, k, v, o, dout, lse, D, dq, BH, T,
-                                   scale_log2, scale2, st);
+  switch (hd) {
+#define IPDM_DQ(H)                                                        \
+  case H:                                                                 \
+    return dq_entry<H>(q, k, v, o, dout, lse, D, dq, BH, T, scale_log2,   \
+                       scale2, is_bf16, st);
+    IPDM_FLASH_HEAD_DIMS(IPDM_DQ)
+#undef IPDM_DQ
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dK and dV from the same inputs and the D of flash_bwd_dq_launch.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* D, void* dk,
-                                    void* dv, int BH, int T, float scale_log2,
-                                    float scale2, int is_bf16, void* stream) {
+                                    void* dv, int BH, int T, int hd,
+                                    float scale_log2, float scale2,
+                                    int is_bf16, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<true, false>(k, v, q, dout, lse, D, dk, dv, BH, T,
-                                       scale_log2, scale2, st)
-                 : launch<true, true>(k, v, q, dout, lse, D, dk, dv, BH, T,
-                                      scale_log2, scale2, st);
+  switch (hd) {
+#define IPDM_DKV(H)                                                       \
+  case H:                                                                 \
+    return dkv_entry<H>(q, k, v, dout, lse, D, dk, dv, BH, T, scale_log2, \
+                        scale2, is_bf16, st);
+    IPDM_FLASH_HEAD_DIMS(IPDM_DKV)
+#undef IPDM_DKV
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

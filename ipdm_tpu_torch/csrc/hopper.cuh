@@ -1,7 +1,19 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_attn.cu, flash_bwd.cu): mbarriers, TMA loads of [BH, T, 64]
-// tensors, wgmma m64n64k16 in bf16 with f32 sums, f32 products as three
+// (flash_attn.cu, flash_bwd.cu): mbarriers, TMA loads of [BH, T, HD]
+// tensors, wgmma m64nNk16 in bf16 with f32 sums, f32 products as three
 // bf16 passes, and the register layouts between them.
+//
+// Head dimensions: the kernels are templates over HD in {8, 16, 32, 64}
+// (ops/cuda/attention.py FLASH_HEAD_DIMS). A tile of 64 rows lies in
+// shared memory HDP = max(HD, 16) columns wide: bf16 wgmma takes K in
+// steps of 16, so at HD = 8 the contraction over the head dimension runs
+// on operands zero-padded to 16 (the TMA box is 16 columns over an
+// 8-column tensor and reads the pad as zeros, as it reads rows past T).
+// A row is 2 * HDP bytes (128, 64 or 32), and the swizzle of the TMA maps
+// and of the wgmma descriptors follows it: 128-, 64- or 32-byte swizzle,
+// 8-row groups 8 * 2 * HDP bytes apart. Products with N = HD (P V, dS K,
+// dS^T Q, P^T dO) run at N = HDP: 16 at HD = 8, where the pad columns of
+// V, K, Q and dO are zeros and the output's pad columns are not written.
 //
 // Accumulator layout (m64nN f32): warp w of the warpgroup holds rows
 // 16w + lane/4 (registers 4n, 4n+1) and 16w + lane/4 + 8 (4n+2, 4n+3), at
@@ -20,8 +32,40 @@
 namespace ipdm {
 namespace hopper {
 
-constexpr int HD = 64;        // head dimension
-constexpr int SW_ATOM = 1024; // 8 rows x 128 B swizzle atom
+// the head dimensions the flash kernels are instantiated for: one case
+// each in the entry points' switches (flash_attn.cu, flash_bwd.cu).
+// ops/cuda/_build.py FLASH_HEAD_DIMS names the same set on the Python
+// side; tests/test_torch_flash_head_dims.py holds the two equal
+#define IPDM_FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64)
+
+constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
+                              // largest swizzle atom
+
+// the shared-memory layout of a 64-row bf16 tile of head dimension HD
+template <int HD>
+struct Head {
+  static_assert(HD == 8 || HD == 16 || HD == 32 || HD == 64,
+                "the layout takes rows of 32, 64 or 128 bytes");
+  static constexpr int HDP = HD < 16 ? 16 : HD;  // columns in shared memory
+  static constexpr int ROW = 2 * HDP;            // bytes of a row
+  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  // swizzle
+  static constexpr int LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      ROW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  // a 16-row step of an MN-major (transposed) B operand, descriptor units
+  static constexpr int MN_STEP = 16 * ROW >> 4;
+};
+
+// byte offset of the 16-byte chunk at ``o`` (row-major offset in a tile of
+// ``ROW``-byte rows) in the matching swizzle: chunk bits [4, 4 + log2(ROW
+// / 16)) XOR bits [7, ...) of the offset, as TMA lays the tile out
+template <int ROW>
+__device__ __forceinline__ int swizzle(int o) {
+  return o ^ (((o >> 7) & (ROW / 16 - 1)) << 4);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -85,14 +129,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle layout
+// wgmma shared-memory descriptor of a tile of Head<HD>'s layout
 // (1024-byte aligned): start address, leading offset 16 B (unused by the
-// swizzled layouts at these widths), stride offset 1024 B between groups
-// of 8 rows. For a K-major operand (Q, K) a 16-element step along K adds
-// 32 B to the start; for the MN-major V a 16-key step adds 16 rows, 2 KB.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+// swizzled layouts at these widths: a tile is one swizzle atom wide),
+// stride offset 8 rows (1024, 512 or 256 B) between groups of 8 rows, the
+// swizzle of the row's bytes. For a K-major operand (Q, K) a 16-element
+// step along K adds 32 B to the start; for an MN-major one (V) a 16-row
+// step adds 16 rows (MN_STEP).
+template <int HD>
+__device__ __forceinline__ uint64_t sw_desc(const void* tile) {
+  using H = Head<HD>;
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(SW_ATOM >> 4) << 32) | ((uint64_t)1 << 62);
+         ((uint64_t)((8 * H::ROW) >> 4) << 32) |
+         ((uint64_t)H::LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -142,17 +191,46 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += A B, A [64 x 16] bf16 in registers, B [16 x 64] MN-major in shared
-// memory (transposed operand)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+#define WG_D16                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_D16_OPS(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_D8_OPS(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7])
+
+// d += A B, A [64 x 16] bf16 in registers, B [16 x N] MN-major in shared
+// memory (transposed operand), N = 64, 32 or 16 (N / 2 sums a thread)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32_OPS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32_OPS(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_D16_OPS(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 16, "wgmma_rs: N is 64, 32 or 16");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WG_D8_OPS(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
 }
 
 // 2^x on the special-function unit with no range fix-up (x <= 0 here;
@@ -181,47 +259,46 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-constexpr int MN_STEP = 16 * 128 >> 4;  // 16 rows of an MN-major B, in
-                                        // descriptor units
-
-// d (+)= A B^T over the head dimension, A and B K-major in shared memory:
-// one pass, or three (hi hi, hi lo, lo hi)
-template <bool F32>
+// d (+)= A B^T over the head dimension (HDP / 16 steps of 16), A and B
+// K-major in shared memory: one pass, or three (hi hi, hi lo, lo hi)
+template <bool F32, int HD>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint64_t aH,
                                            uint64_t aL, uint64_t bH,
                                            uint64_t bL) {
+  constexpr int KS = Head<HD>::HDP / 16;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
     wgmma_ss(d, aH + 2 * kk, bH + 2 * kk, kk);
   if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
       wgmma_ss(d, aH + 2 * kk, bL + 2 * kk, 1);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
       wgmma_ss(d, aL + 2 * kk, bH + 2 * kk, 1);
   }
 }
 
-// d += A B over a 64-row tile, A in registers, B MN-major in shared
-// memory: one pass, or three
-template <int NP>
-__device__ __forceinline__ void product_rs(float (&d)[32],
+// d += A B over a 64-row tile (K = 64), A in registers, B MN-major in
+// shared memory with N = HDP: one pass, or three
+template <int NP, int HD>
+__device__ __forceinline__ void product_rs(float (&d)[Head<HD>::HDP / 2],
                                            const uint32_t (&a)[NP][16],
                                            uint64_t bH, uint64_t bL) {
+  constexpr int N = Head<HD>::HDP, STEP = Head<HD>::MN_STEP;
 #pragma unroll
   for (int kk = 0; kk < 64 / 16; ++kk)
-    wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
-             a[0][4 * kk + 3], bH + kk * MN_STEP);
+    wgmma_rs<N>(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
+                a[0][4 * kk + 3], bH + kk * STEP);
   if constexpr (NP == 2) {
 #pragma unroll
     for (int kk = 0; kk < 64 / 16; ++kk)
-      wgmma_rs(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
-               a[0][4 * kk + 3], bL + kk * MN_STEP);
+      wgmma_rs<N>(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
+                  a[0][4 * kk + 3], bL + kk * STEP);
 #pragma unroll
     for (int kk = 0; kk < 64 / 16; ++kk)
-      wgmma_rs(d, a[1][4 * kk], a[1][4 * kk + 1], a[1][4 * kk + 2],
-               a[1][4 * kk + 3], bH + kk * MN_STEP);
+      wgmma_rs<N>(d, a[1][4 * kk], a[1][4 * kk + 1], a[1][4 * kk + 2],
+                  a[1][4 * kk + 3], bH + kk * STEP);
   }
 }
 
@@ -269,24 +346,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// [BH, T, 64] bf16 as a 3-D map, innermost first, 64 x 64 x 1 boxes in
-// the 128-byte swizzle; rows past T read as zeros
+// [BH, T, HD] bf16 as a 3-D map, innermost first, HDP x 64 x 1 boxes in
+// Head<HD>'s swizzle; rows past T, and at HD = 8 the columns past 8, read
+// as zeros
+template <int HD>
 inline bool make_map(CUtensorMap* map, const void* base, int BH, int T) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {HD, (cuuint64_t)T, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {HD * 2, (cuuint64_t)T * HD * 2};
-  const cuuint32_t box[3] = {HD, 64, 1};
+  const cuuint32_t box[3] = {Head<HD>::HDP, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            Head<HD>::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 
-// [BH, T, 64] f32 as a 3-D map, 64 x 64 x 1 boxes (256-byte rows) with no
-// swizzle; rows past T read as zeros
+// [BH, T, HD] f32 as a 3-D map, HD x 64 x 1 boxes (4 * HD-byte rows) with
+// no swizzle; rows past T read as zeros
+template <int HD>
 inline bool make_map_f32(CUtensorMap* map, const void* base, int BH, int T) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;

@@ -38,16 +38,21 @@ SIGNATURES = {
     "planar_unit_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # Q, s0, s1, frac, out, V, B, L, n, stream
     "bp_shift_launch": [P, P, P, P, P, I, I, I, I, P],
-    # q, k, v, out, lse (or null), BH, T, scale_log2, stream
-    "flash_attn_launch": [P, P, P, P, P, I, I, ctypes.c_float, P],
-    # q, k, v, split (scratch), out, lse (or null), BH, T, scale_log2, stream
-    "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, ctypes.c_float, P],
-    # q, k, v, out, do, lse, D, dq, BH, T, scale_log2, scale2, bf16, stream
-    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
+    # the flash kernels take the head dimension hd (FLASH_HEAD_DIMS: a
+    # template instance each) after T
+    # q, k, v, out, lse (or null), BH, T, hd, scale_log2, stream
+    "flash_attn_launch": [P, P, P, P, P, I, I, I, ctypes.c_float, P],
+    # q, k, v, split (scratch), out, lse (or null), BH, T, hd, scale_log2,
+    # stream
+    "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, I, ctypes.c_float, P],
+    # q, k, v, out, do, lse, D, dq, BH, T, hd, scale_log2, scale2, bf16,
+    # stream
+    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
                             ctypes.c_float, I, P],
-    # q, k, v, do, lse, D, dk, dv, BH, T, scale_log2, scale2, bf16, stream
-    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, I, I, ctypes.c_float,
-                             ctypes.c_float, I, P],
+    # q, k, v, do, lse, D, dk, dv, BH, T, hd, scale_log2, scale2, bf16,
+    # stream
+    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, I, I, I,
+                             ctypes.c_float, ctypes.c_float, I, P],
     # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
     "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
     # x, rf, inv2, frac, s0, rows, nrmi, T, S, Vp, B, n, L, tile, lam,
@@ -60,13 +65,34 @@ SIGNATURES = {
     "bp_shift_single_launch": [P, P, P, P, P, I, I, I, P],
 }
 
+# the head dimensions the flash kernels are instantiated for: every head
+# dim of an attention block at T >= FLASH_MIN_SEQ in the UNets the repo
+# ships (the presets' and FULL_ARCH's 64; the ablation UNets' middle block
+# at 8; the flagship-small UNet's at 16; tests/test_torch_flash_head_dims.py
+# walks them). csrc/hopper.cuh IPDM_FLASH_HEAD_DIMS lists the same set for
+# the entry points' switches
+FLASH_HEAD_DIMS = (8, 16, 32, 64)
+
+
+def flash_counter(name: str, hd: int) -> str:
+    """The :data:`LAUNCHES` key of flash kernel ``name`` at head dimension
+    ``hd``."""
+    return name if hd == 64 else f"{name}_hd{hd}"
+
+
 # launches per kernel since the last reset_launches(); each wrapper adds
-# one where it launches its kernel and nowhere else
+# one where it launches its kernel and nowhere else. The flash kernels
+# count head dimension 64 under their own name and each other head
+# dimension's instance under "<name>_hd<hd>" (flash_counter)
+FLASH_KERNELS = ("flash_attn", "flash_attn_f32", "flash_bwd_dq",
+                 "flash_bwd_dkv")
 LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,
             "fp_plane_deposit": 0, "os_sart_sweep": 0, "anterp_taps": 0,
             "os_sart_sweep_bf16": 0, "bp_shift_accumulate": 0,
             "fp_shift_deposit_batched": 0, "fp_shift_deposit": 0,
-            "flash_attn_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_attn_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            **{flash_counter(k, hd): 0 for k in FLASH_KERNELS
+               for hd in FLASH_HEAD_DIMS}}
 
 _lock = threading.Lock()
 _lib = None

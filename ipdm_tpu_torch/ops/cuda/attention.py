@@ -35,7 +35,9 @@ from ipdm_tpu_torch.ops.cuda import _build
 
 # sequence length from which attention runs the flash kernel (unet.py:590)
 FLASH_MIN_SEQ = 4096
-HEAD_DIM = 64  # the kernels' head dimension
+# the head dimensions the kernels are instantiated for
+FLASH_HEAD_DIMS = _build.FLASH_HEAD_DIMS
+HEAD_DIM = 64  # the shipped presets' head dimension
 # forward kernel of each activation dtype: (C entry, launch counter)
 _FORWARD = {torch.bfloat16: ("flash_attn_launch", "flash_attn"),
             torch.float32: ("flash_attn_f32_launch", "flash_attn_f32")}
@@ -109,7 +111,8 @@ def attention_bwd_plain(q, k, v, out, lse, do, scale, D=None):
 def flash_attention(q, k, v, scale):
     """The same function as :func:`attention_plain`. The kernels apply
     scale² once to the f32 score instead of scale to each operand, and
-    take contiguous [BH, T, 64] tensors in bf16 or f32. Differentiable in
+    take contiguous [BH, T, hd] tensors in bf16 or f32, hd in
+    :data:`FLASH_HEAD_DIMS`. Differentiable in
     q, k and v (backward by the flash backward kernels on the card)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -160,9 +163,9 @@ def _check(name, tensors, like):
 def _check_cuda(name, q):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.dim() != 3 or q.shape[2] != HEAD_DIM:
-        raise ValueError(f"{name}: q {tuple(q.shape)} must be "
-                         f"[BH, T, {HEAD_DIM}]")
+    if q.dim() != 3 or q.shape[2] not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be [BH, T, hd] "
+                         f"with hd in {FLASH_HEAD_DIMS}")
 
 
 def _check_rows(name, tensors, q):
@@ -185,21 +188,21 @@ def _forward(q, k, v, scale, with_lse=False):
         return attention_plain(q, k, v, scale)
     _check_cuda("flash_attention", q)
     _check("flash_attention", (("q", q), ("k", k), ("v", v)), q)
-    BH, T, _ = q.shape
+    BH, T, hd = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     entry, counter = _FORWARD[q.dtype]
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if q.dtype == torch.float32:   # the kernel's bf16 hi and lo of q, k, v
-        split = torch.empty((6, BH, T, HEAD_DIM), dtype=torch.bfloat16,
+        split = torch.empty((6, BH, T, hd), dtype=torch.bfloat16,
                             device=q.device)
         ptrs.append(split.data_ptr())
     code = getattr(_build.library(), entry)(
         *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(), BH,
-        T, scale * scale * math.log2(math.e), _build.stream_ptr(q))
+        T, hd, scale * scale * math.log2(math.e), _build.stream_ptr(q))
     _build.check(code, counter)
-    _build.LAUNCHES[counter] += 1
+    _build.LAUNCHES[_build.flash_counter(counter, hd)] += 1
     return (out, lse) if with_lse else out
 
 
@@ -217,16 +220,16 @@ def flash_bwd_dq(q, k, v, out, lse, do, scale):
     _check("flash_bwd_dq", (("q", q), ("k", k), ("v", v), ("out", out),
                             ("do", do)), q)
     _check_rows("flash_bwd_dq", (("lse", lse),), q)
-    BH, T, _ = q.shape
+    BH, T, hd = q.shape
     dq = torch.empty_like(q)
     D = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     code = _build.library().flash_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(), BH, T,
-        scale * scale * math.log2(math.e), scale * scale,
+        hd, scale * scale * math.log2(math.e), scale * scale,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dq")
-    _build.LAUNCHES["flash_bwd_dq"] += 1
+    _build.LAUNCHES[_build.flash_counter("flash_bwd_dq", hd)] += 1
     return dq, D
 
 
@@ -242,13 +245,13 @@ def flash_bwd_dkv(q, k, v, lse, do, D, scale):
     _check_cuda("flash_bwd_dkv", q)
     _check("flash_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), q)
     _check_rows("flash_bwd_dkv", (("lse", lse), ("D", D)), q)
-    BH, T, _ = q.shape
+    BH, T, hd = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _build.library().flash_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, T,
-        scale * scale * math.log2(math.e), scale * scale,
+        hd, scale * scale * math.log2(math.e), scale * scale,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dkv")
-    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    _build.LAUNCHES[_build.flash_counter("flash_bwd_dkv", hd)] += 1
     return dk, dv

@@ -3,7 +3,7 @@
 against a parent commit's, on one NVIDIA GPU, in one process.
 
     python3 scripts/torch_kernels_ab.py --parent DIR [--reps 20] [--out F]
-        [--kernels deposit anterp flash_fwd flash_bwd]
+        [--kernels deposit anterp flash_fwd flash_bwd] [--same-bits]
 
 DIR is a checkout of the parent commit (``git archive <commit> | tar -x
 -C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
@@ -27,7 +27,9 @@ and on each input:
   bf16 and f32): the parent's kernel and this tree's against the plain
   forward (out at chip_smoke.py's rule, the lse by its lse_check), their
   distance from each other (bf16: none allowed: out and lse bit for
-  bit), and SDPA's time in the same call beside the A B B A;
+  bit; the backward's dq, dk, dv and D printed too), and SDPA's time in
+  the same call beside the A B B A; a parent whose flash entries take
+  the head dimension (attention.py FLASH_HEAD_DIMS) gets 64;
 * times the parent's kernel (launched bare) and this tree's (through
   its wrapper, with the host bounds the main path passes), back to back
   with the stream held by a spin kernel (device time), in the order
@@ -35,7 +37,8 @@ and on each input:
   around back-to-back calls (host time included where it is longer).
 
 The last line is a JSON object with the times; with ``--out`` it is also
-written to that file.
+written to that file. With ``--same-bits`` the script exits 1 unless
+every output of every kernel it ran is bit-equal to the parent's.
 """
 
 from __future__ import annotations
@@ -80,6 +83,20 @@ PARENT_SIGNATURES = {
 }
 
 
+# the flash entries that take the head dimension after T in a parent
+# whose kernels are instantiated per head dim (attention.py
+# FLASH_HEAD_DIMS): see parent_takes_hd
+HD_ENTRIES = ("flash_attn_launch", "flash_attn_f32_launch",
+              "flash_bwd_dq_launch", "flash_bwd_dkv_launch")
+
+
+def parent_takes_hd(parent: Path) -> bool:
+    """Whether the parent's flash entries take the head dimension (an int
+    after T) or are the head-dim-64 kernels alone."""
+    return "FLASH_HEAD_DIMS" in (parent / "ipdm_tpu_torch" / "ops" / "cuda"
+                                 / "attention.py").read_text()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -116,8 +133,13 @@ def build_parent(parent: Path) -> ctypes.CDLL:
             if (name == "flash_attn_f32_launch"
                     and not parent_f32_takes_split(parent)):
                 argtypes = argtypes[:3] + argtypes[4:]
+            if name in HD_ENTRIES and parent_takes_hd(parent):
+                at = argtypes.index(I) + 2    # after BH, T
+                argtypes = argtypes[:at] + [I] + argtypes[at:]
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.f32_takes_split = parent_f32_takes_split(parent)
+    # the head-dim argument to pass the parent's flash entries after T
+    lib.hd_args = (64,) if parent_takes_hd(parent) else ()
     return lib
 
 
@@ -337,13 +359,15 @@ def flash_bwd_case(lib, dtype_name, args, reps):
         _build.check(lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), D_p.data_ptr(), dq_p.data_ptr(),
-            BH, T, c2l, c2, bf16, stream), "parent flash_bwd_dq")
+            BH, T, *lib.hd_args, c2l, c2, bf16, stream),
+            "parent flash_bwd_dq")
 
     def parent_dkv():
         _build.check(lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), D_p.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(),
-            BH, T, c2l, c2, bf16, stream), "parent flash_bwd_dkv")
+            BH, T, *lib.hd_args, c2l, c2, bf16, stream),
+            "parent flash_bwd_dkv")
 
     parent_dq()
     parent_dkv()
@@ -362,25 +386,30 @@ def flash_bwd_case(lib, dtype_name, args, reps):
 
     new_over, parent_over = over((dq, dk, dv)), over((dq_p, dk_p, dv_p))
     torch.cuda.synchronize()
+    gaps = [float((a.float() - b.float()).abs().max())
+            for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
     t_dq = abba(parent_dq, lambda: attention.flash_bwd_dq(
         q, k, v, out, lse, do, scale), reps)
     t_dkv = abba(parent_dkv, lambda: attention.flash_bwd_dkv(
         q, k, v, lse, do, D, scale), reps)
     res = dict(kernel="flash_bwd", dtype=dtype_name, BH=BH, T=T,
-               over=new_over, parent_over=parent_over, dq_parent_ms=t_dq["parent"],
+               over=new_over, parent_over=parent_over, parent_gaps=gaps,
+               dq_parent_ms=t_dq["parent"],
                dq_new_ms=t_dq["new"], dkv_parent_ms=t_dkv["parent"],
                dkv_new_ms=t_dkv["new"])
     cs.log(f"ab: flash_bwd [{BH},{T},64] {dtype_name}: dq/dk/dv at "
            f"{new_over[0]:.3f} / {new_over[1]:.3f} / {new_over[2]:.3f} of "
            f"chip_smoke's rule (parent {parent_over[0]:.3f} / "
-           f"{parent_over[1]:.3f} / {parent_over[2]:.3f}); device ms dq "
+           f"{parent_over[1]:.3f} / {parent_over[2]:.3f}); parent − new "
+           f"max |diff| dq/dk/dv/D {gaps[0]:.3e} / {gaps[1]:.3e} / "
+           f"{gaps[2]:.3e} / {gaps[3]:.3e}; device ms dq "
            f"parent {t_dq['parent'][0]:.4f}, new {t_dq['new'][0]:.4f}, new "
            f"{t_dq['new'][1]:.4f}, parent {t_dq['parent'][1]:.4f}; dkv "
            f"parent {t_dkv['parent'][0]:.4f}, new {t_dkv['new'][0]:.4f}, "
            f"new {t_dkv['new'][1]:.4f}, parent {t_dkv['parent'][1]:.4f}")
     if max(new_over) > 1.0:
         raise AssertionError(f"flash_bwd {dtype_name} T={T}: over "
-                             f"{new_over}")
+                             f"{new_over}, distance from the parent {gaps}")
     return res
 
 
@@ -401,7 +430,8 @@ def parent_forward(lib, q, k, v, c2l):
                                 device=q.device)
             ptrs.append(split.data_ptr())
     _build.check(getattr(lib, entry)(*ptrs, out.data_ptr(), lse.data_ptr(),
-                                     BH, T, c2l, _build.stream_ptr(q)),
+                                     BH, T, *lib.hd_args, c2l,
+                                     _build.stream_ptr(q)),
                  "parent " + entry)
     return out, lse
 
@@ -469,6 +499,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path)
     groups = ("deposit", "anterp", "flash_fwd", "flash_bwd")
     ap.add_argument("--kernels", nargs="+", choices=groups, default=groups)
+    ap.add_argument("--same-bits", action="store_true",
+                    help="exit 1 unless every output of every kernel is "
+                         "bit-equal to the parent's")
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -511,8 +544,14 @@ def main() -> int:
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)
         a.out.write_text(line + "\n")
+    differ = [(r["kernel"], r.get("dtype"), r.get("T")) for r in res
+              if any(r.get(k) for k in ("parent_gap", "out_gap", "lse_gap"))
+              or any(r.get("parent_gaps", ()))]
+    if a.same_bits:
+        cs.log(f"ab: outputs bit-equal to the parent's: "
+               + ("all" if not differ else f"not {differ}"))
     print(line)
-    return 0
+    return 1 if a.same_bits and differ else 0
 
 
 if __name__ == "__main__":

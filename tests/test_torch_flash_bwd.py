@@ -32,6 +32,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import \
 from ipdm_tpu_torch.ops.cuda import attention
 
 TILE = 64      # rows per tile: flash_attn.cu BK, flash_bwd.cu BN
+KSTEP = 16     # bf16 wgmma's K step: head dims below it are padded
 HD = attention.HEAD_DIM
 SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 
@@ -48,19 +49,21 @@ def _one_torch_thread():
 
 
 
-def _inputs(T, seed, BH=2, ragged=False):
-    """q, k, v, dO as f32 numpy [BH, T, 64]. ``ragged``: q ≈ +1 and
-    k ≈ −1 plus noise, so live scores are ≈ −8 and a zero key row past T
-    that escaped a mask (score 0) would dominate the softmax."""
+def _inputs(T, seed, BH=2, ragged=False, hd=HD):
+    """q, k, v, dO as f32 numpy [BH, T, hd]. ``ragged``: q ≈ +a and
+    k ≈ −a plus noise (a = √8 / hd^¼, 1 at hd 64), so live scores are
+    ≈ −8 and a zero key row past T that escaped a mask (score 0) would
+    dominate the softmax."""
     rng = np.random.default_rng(seed)
     if ragged:
-        q = 1.0 + 0.25 * rng.standard_normal((BH, T, HD))
-        k = -1.0 + 0.25 * rng.standard_normal((BH, T, HD))
+        a = math.sqrt(8) / hd ** 0.25
+        q = a * (1.0 + 0.25 * rng.standard_normal((BH, T, hd)))
+        k = a * (-1.0 + 0.25 * rng.standard_normal((BH, T, hd)))
     else:
-        q, k = (rng.standard_normal((BH, T, HD)) for _ in range(2))
-    v = rng.standard_normal((BH, T, HD)) + np.arange(1, BH + 1)[:, None,
+        q, k = (rng.standard_normal((BH, T, hd)) for _ in range(2))
+    v = rng.standard_normal((BH, T, hd)) + np.arange(1, BH + 1)[:, None,
                                                                 None]
-    do = rng.standard_normal((BH, T, HD))
+    do = rng.standard_normal((BH, T, hd))
     return [a.astype(np.float32) for a in (q, k, v, do)]
 
 
@@ -132,11 +135,14 @@ def test_bwd_plain_matches_jax_vjp(dtype, T, ref):
 # -- the kernels' tiling, written out ----------------------------------------
 
 def _tiles(x, T):
-    """[BH, T, 64] → [BH, ntiles, 64, 64], rows past T zeros (the tiles'
-    zero fill by TMA)."""
+    """[BH, T, hd] → [BH, ntiles, 64, hdp], rows past T and, below hd 16,
+    the columns past hd zeros (the tiles' zero fill by TMA; hdp =
+    max(hd, 16), hopper.cuh Head<HD>)."""
     n = -(-T // TILE)
-    pad = torch.zeros(x.shape[0], n * TILE - T, HD, dtype=torch.float32)
-    return torch.cat([x.float(), pad], 1).view(x.shape[0], n, TILE, HD)
+    hdp = max(x.shape[-1], KSTEP)
+    out = torch.zeros(x.shape[0], n * TILE, hdp, dtype=torch.float32)
+    out[:, :T, :x.shape[-1]] = x.float()
+    return out.view(x.shape[0], n, TILE, hdp)
 
 
 def fwd_tiles(q, k, v, scale, mask=True):
@@ -144,16 +150,16 @@ def fwd_tiles(q, k, v, scale, mask=True):
     tests/test_torch_flash_fwd.py's gate): per 64-row query tile, key
     tiles in order, the online softmax in the log2 domain; keys ≥ T score
     −inf (``mask``). Returns out [BH, T, 64] and lse [BH, T]."""
-    BH, T, _ = q.shape
+    BH, T, hd = q.shape
     c2 = scale * scale * math.log2(math.e)
     Q, K, V = _tiles(q, T), _tiles(k, T), _tiles(v, T)
-    n = Q.shape[1]
-    out = torch.zeros(BH, n * TILE, HD)
+    n, hdp = Q.shape[1], Q.shape[3]
+    out = torch.zeros(BH, n * TILE, hdp)
     lse = torch.zeros(BH, n * TILE)
     for qt in range(n):
         m = torch.full((BH, TILE), -math.inf)
         l = torch.zeros(BH, TILE)
-        o = torch.zeros(BH, TILE, HD)
+        o = torch.zeros(BH, TILE, hdp)
         for kt in range(n):
             s = Q[:, qt] @ K[:, kt].transpose(1, 2) * c2
             if mask:
@@ -167,7 +173,7 @@ def fwd_tiles(q, k, v, scale, mask=True):
             m = mn
         out[:, qt * TILE:(qt + 1) * TILE] = o / l[..., None]
         lse[:, qt * TILE:(qt + 1) * TILE] = (m + torch.log2(l)) * math.log(2)
-    return out[:, :T], lse[:, :T]
+    return out[:, :T, :hd], lse[:, :T]
 
 
 def _split(x):
@@ -205,8 +211,9 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
     as ``body`` takes it (:func:`_mm`): ``bf16`` (bf16 operands, P and dS
     rounded to bf16 before the products that read them) or ``split`` (f32
     operands, each product three bf16 passes), or the fault ``one_pass``.
-    Returns dq, dk, dv in f32."""
-    BH, T, _ = q.shape
+    Returns dq, dk, dv in f32 (below hd 16 on the tiles' zero-padded
+    columns, the pad dropped)."""
+    BH, T, hd = q.shape
     c2, c = scale * scale * math.log2(math.e), scale * scale
     dof = do.float()
     if body != "bf16":   # D from the dO the products see
@@ -215,7 +222,7 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
     if drop_d:
         D = torch.zeros_like(D)
     Q, K, V, dO = (_tiles(x, T) for x in (q, k, v, do))
-    n = Q.shape[1]
+    n, hdp = Q.shape[1], Q.shape[3]
     rows = torch.arange(n * TILE)
     lse2 = torch.full((BH, n * TILE), math.inf)
     lse2[:, :T] = lse * math.log2(math.e)
@@ -223,9 +230,9 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
     Dp[:, :T] = D
     lse2, Dp = lse2.view(BH, n, TILE), Dp.view(BH, n, TILE)
     mm = lambda a, b: _mm(a, b, body)
-    dq = torch.zeros(BH, n, TILE, HD)
+    dq = torch.zeros(BH, n, TILE, hdp)
     for qt in range(n):
-        acc = torch.zeros(BH, TILE, HD)
+        acc = torch.zeros(BH, TILE, hdp)
         for kt in range(n):
             s = mm(Q[:, qt], K[:, kt].transpose(1, 2))
             dp = mm(dO[:, qt], V[:, kt].transpose(1, 2))
@@ -235,11 +242,11 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
             ds = p * (dp - Dp[:, qt, :, None])
             acc = acc + mm(_weights(ds, body), K[:, kt])
         dq[:, qt] = acc * c
-    dk = torch.zeros(BH, n, TILE, HD)
-    dv = torch.zeros(BH, n, TILE, HD)
+    dk = torch.zeros(BH, n, TILE, hdp)
+    dv = torch.zeros(BH, n, TILE, hdp)
     for kt in range(n):
-        ak = torch.zeros(BH, TILE, HD)
-        av = torch.zeros(BH, TILE, HD)
+        ak = torch.zeros(BH, TILE, hdp)
+        av = torch.zeros(BH, TILE, hdp)
         for qt in range(n):
             st = mm(K[:, kt], Q[:, qt].transpose(1, 2))
             dpt = mm(V[:, kt], dO[:, qt].transpose(1, 2))
@@ -249,7 +256,7 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
             av = av + mm(_weights(pt, body), dO[:, qt])
             ak = ak + mm(_weights(dst, body), Q[:, qt])
         dk[:, kt], dv[:, kt] = ak * c, av
-    flat = lambda x: x.reshape(BH, n * TILE, HD)[:, :T]
+    flat = lambda x: x.reshape(BH, n * TILE, hdp)[:, :T, :hd]
     return flat(dq), flat(dk), flat(dv)
 
 
@@ -414,3 +421,95 @@ def test_bwd_plain_in_f64_is_autograd_of_the_plain_forward():
     dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, SCALE)
     for a, b in zip((dq, dk, dv), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- the smaller head dims the kernels are instantiated for ------------------
+# (FLASH_HEAD_DIMS; below hd 16 every tile zero-padded to 16 columns, as
+# hopper.cuh's Head<HD> lays them out), each with its scale 1/√√hd
+
+@pytest.mark.parametrize("hd", [8, 16, 32])
+def test_kernel_tiling_matches_the_plain_functions_small_head_dims(hd):
+    """test_kernel_tiling_matches_the_plain_functions at head dim ``hd``
+    and T = 130 (two live keys in the last tile), ragged inputs."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(130, 1, ragged=True, hd=hd))
+    out, lse = fwd_tiles(q, k, v, scale)
+    pout, plse = attention.attention_lse_plain(q, k, v, scale)
+    rel, absmax = TOL[torch.float32]
+    assert out.shape == q.shape
+    _close(out, pout, "out", rel, absmax)
+    np.testing.assert_allclose(lse.numpy(), plse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    want = attention.attention_bwd_plain(q, k, v, pout, plse, do, scale)
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          bwd_tiles(q, k, v, out, lse, do, scale), want):
+        assert g.shape == w.shape
+        _close(g, w, name, rel, absmax)
+
+
+@pytest.mark.parametrize("fault", ["drop_d", "no_mask", "one_pass"])
+@pytest.mark.parametrize("hd", [8, 16, 32])
+def test_planted_faults_miss_the_tolerance_small_head_dims(hd, fault):
+    """test_planted_faults_miss_the_tolerance at head dim ``hd``: each
+    fault moves a gradient past its tolerance at T = 130."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(130, 1, ragged=True, hd=hd))
+    pout, plse = attention.attention_lse_plain(q, k, v, scale)
+    want = attention.attention_bwd_plain(q, k, v, pout, plse, do, scale)
+    if fault == "drop_d":
+        got = bwd_tiles(q, k, v, pout, plse, do, scale, drop_d=True)
+    elif fault == "one_pass":
+        got = bwd_tiles(q, k, v, pout, plse, do, scale, body="one_pass")
+    else:
+        out, lse = fwd_tiles(q, k, v, scale, mask=False)
+        got = bwd_tiles(q, k, v, out, lse, do, scale, mask=False)
+    rel, absmax = TOL[torch.float32]
+    assert _missed(got, want, rel, absmax), (hd, fault)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32])
+def test_bf16_body_matches_library_vjp_small_head_dims(hd):
+    """test_bf16_body_matches_library_vjp at head dim ``hd``, T = 130."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(130, 3, ragged=True, hd=hd))
+    out, lse = attention.attention_lse_plain(q.float(), k.float(),
+                                             v.float(), scale)
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="bf16")
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: _library_attention(a, b, c, scale),
+                     jq, jk, jv)
+    rel, absmax = TOL[torch.bfloat16]
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        _close(g.to(torch.bfloat16).float(), np.asarray(w, np.float32),
+               name, rel, absmax)
+
+
+@pytest.mark.parametrize("inputs", ["random", "ragged"])
+@pytest.mark.parametrize("hd", [8, 16, 32])
+def test_f32_split_body_gate_small_head_dims(hd, inputs):
+    """test_f32_split_body_gate at head dim ``hd`` and T = 191: the
+    three-pass body meets the f32 rule (random inputs) and the f64
+    witness rule (ragged inputs, dq a cancellation); the one-pass body
+    misses both in every gradient."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(
+        191, 5, BH=2, ragged=inputs == "ragged", hd=hd))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    rel, absmax = TOL[torch.float32]
+    if inputs == "random":
+        want = attention.attention_bwd_plain(q, k, v, out, lse, do, scale)
+        extra = (0.0, 0.0, 0.0)
+    else:
+        ins = [t.double() for t in (q, k, v, do)]
+        o64, l64 = attention.attention_lse_plain(*ins[:3], scale)
+        want = attention.attention_bwd_plain(*ins[:3], o64, l64, ins[3],
+                                             scale)
+        extra = tuple(RAGGED_F32_EPS * z for z in _bwd_sizes(
+            *ins, o64, l64, scale))
+    got = bwd_tiles(q, k, v, out, lse, do, scale)
+    assert not _missed(got, want, rel, absmax, extra)
+    ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="one_pass")
+    assert _missed(ctrl, want, rel, absmax, extra) == ["dq", "dk", "dv"]

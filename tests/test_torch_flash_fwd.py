@@ -38,6 +38,7 @@ from ipdm_tpu_torch.ops.cuda import attention
 HD = attention.HEAD_DIM
 SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 TILE = 64          # keys per tile (flash_attn.cu BK)
+KSTEP = 16         # bf16 wgmma's K step: head dims below it are padded
 RTOL, ATOL_SHARE = 1e-3, 1e-4   # the f32 rule (chip_smoke.py FLASH_TOL)
 LSE_EPS = 2.0 ** -16            # chip_smoke.py LSE_EPS["float32"]
 
@@ -52,24 +53,35 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _inputs(T, seed, BH, kind):
-    """q, k, v as f32 numpy [BH, T, 64]. ``random``: standard normal q, k;
-    ``ragged``: chip_smoke.py flash_ragged's (q ≈ +1, k ≈ −1, sd 0.25, so
-    every live score is ≈ −8 and an unmasked zero key past T would
-    dominate); ``peaked``: q, k of sd 2 (scores of sd 4: each row's
-    softmax on a few keys). v of head h has mean h + 1."""
+def _inputs(T, seed, BH, kind, hd=HD):
+    """q, k, v as f32 numpy [BH, T, hd]. ``random``: standard normal q, k;
+    ``ragged``: chip_smoke.py flash_ragged's (q ≈ +a, k ≈ −a, sd a/4, with
+    a = √8 / hd^¼ (1 at hd 64), so every live score is ≈ −8 and an
+    unmasked zero key past T would dominate); ``peaked``: q, k of sd 2
+    (scores of sd 4 at hd 64: each row's softmax on a few keys). v of
+    head h has mean h + 1."""
     rng = np.random.default_rng(seed)
     if kind == "ragged":
-        q = 1.0 + 0.25 * rng.standard_normal((BH, T, HD))
-        k = -1.0 + 0.25 * rng.standard_normal((BH, T, HD))
+        a = math.sqrt(8) / hd ** 0.25
+        q = a * (1.0 + 0.25 * rng.standard_normal((BH, T, hd)))
+        k = a * (-1.0 + 0.25 * rng.standard_normal((BH, T, hd)))
         sd = 0.5
     else:
         sd_qk = 2.0 if kind == "peaked" else 1.0
-        q, k = (sd_qk * rng.standard_normal((BH, T, HD)) for _ in range(2))
+        q, k = (sd_qk * rng.standard_normal((BH, T, hd)) for _ in range(2))
         sd = 1.0
-    v = sd * rng.standard_normal((BH, T, HD)) + np.arange(
+    v = sd * rng.standard_normal((BH, T, hd)) + np.arange(
         1, BH + 1)[:, None, None]
     return [a.astype(np.float32) for a in (q, k, v)]
+
+
+def _pad_hd(x):
+    """x [..., hd] zero-padded to max(hd, 16) columns: the operands as the
+    kernel's shared-memory tiles hold them (hopper.cuh Head<HD>)."""
+    hd = x.shape[-1]
+    if hd >= KSTEP:
+        return x
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], KSTEP - hd)], -1)
 
 
 def _split(x):
@@ -91,17 +103,20 @@ def _mm(a, b, body):
 
 
 def fwd_body(q, k, v, scale, body="split", rows=None):
-    """flash_attn.cu's f32 body on f32 [BH, T, 64] tensors for the query
-    rows ``rows`` (all by default): key tiles of 64 in order, keys past T
-    zero-filled and scored −inf; per tile S by :func:`_mm`, the row max
+    """flash_attn.cu's f32 body on f32 [BH, T, hd] tensors for the query
+    rows ``rows`` (all by default): q, k and v zero-padded to 16 columns
+    below hd 16 (:func:`_pad_hd`: the pad adds zeros to Q·Kᵀ, and the
+    output's pad columns are dropped), key tiles of 64 in order, keys past
+    T zero-filled and scored −inf; per tile S by :func:`_mm`, the row max
     m ← max(m, rowmax(S)·c) with c = scale²·log2(e), P = exp2(S·c − m),
     l ← l·exp2(m_old − m) + Σ P (f32 P), O ← O·exp2(m_old − m) + P·V by
     :func:`_mm` (P split). Returns out = O / l and lse = (m + log2 l)·ln 2."""
-    BH, T, _ = q.shape
+    BH, T, hd = q.shape
+    q, k, v = _pad_hd(q), _pad_hd(k), _pad_hd(v)
     c = scale * scale * math.log2(math.e)
     Q = q if rows is None else q[:, rows]
     n = -(-T // TILE)
-    pad = torch.zeros(BH, n * TILE - T, HD)
+    pad = torch.zeros(BH, n * TILE - T, q.shape[-1])
     K, V = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
     m = torch.full(Q.shape[:2], -math.inf)
     l = torch.zeros(Q.shape[:2])
@@ -116,7 +131,7 @@ def fwd_body(q, k, v, scale, body="split", rows=None):
         l = l * corr + p.sum(-1)
         o = o * corr[..., None] + _mm(p, V[:, j * TILE:(j + 1) * TILE], body)
         m = mn
-    return o / l[..., None], (m + torch.log2(l)) * math.log(2)
+    return (o / l[..., None])[..., :hd], (m + torch.log2(l)) * math.log(2)
 
 
 def _jax_reference(q, k, v, scale):
@@ -197,3 +212,37 @@ def test_body_without_split_is_the_plain_forward():
     pout, plse = attention.attention_lse_plain(q, k, v, SCALE)
     torch.testing.assert_close(out, pout, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+# the gate at the smaller head dims the kernels are instantiated for
+# (FLASH_HEAD_DIMS; hd 8 on operands zero-padded to 16): (T, inputs, BH,
+# the checks that see the one-pass body at every one of them). With fewer
+# products in each score the dropped lo halves move the out of the random
+# inputs less (1.95× the rule at hd 32, T = 191): there the lse bound
+# carries the control (≥ 23×), and the peaked inputs carry both (≥ 50×)
+HD_CASES = [(191, "random", 2, ("lse",)),
+            (4097, "ragged", 1, ("lse",)),
+            (4097, "peaked", 1, ("out", "lse"))]
+
+
+@pytest.mark.parametrize("T,kind,BH,control", HD_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in HD_CASES])
+@pytest.mark.parametrize("hd", [8, 16, 32])
+def test_f32_split_body_gate_small_head_dims(hd, T, kind, BH, control):
+    """test_f32_split_body_gate at head dim ``hd`` (the scale 1/√√hd): the
+    three-pass body on the kernel's padded tiles meets the f32 rule and
+    the lse bound against the JAX package's attention; the one-pass body
+    misses each check in ``control`` by ≥ 2×."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v = _inputs(T, 7, BH, kind, hd)
+    want, want_lse, R = _jax_reference(q, k, v, scale)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = fwd_body(tq, tk, tv, scale, "split")
+    assert out.shape == tq.shape
+    assert _over(out, want) <= 1.0
+    assert _lse_over(lse, want_lse, R, T) <= 1.0
+    c_out, c_lse = fwd_body(tq, tk, tv, scale, "one_pass")
+    missed = {"out": _over(c_out, want),
+              "lse": _lse_over(c_lse, want_lse, R, T)}
+    for name in control:
+        assert missed[name] >= 2.0, (name, missed)

@@ -21,11 +21,12 @@ names = [m.name for m in pkgutil.walk_packages(ipdm_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import runpy
-for script in ("main_torch.py", "examples/synthetic_e2e_torch.py",
-               "examples/bench_train_torch.py", "chip_smoke.py"):
+scripts = ("main_torch.py", "examples/synthetic_e2e_torch.py",
+           "examples/bench_train_torch.py", "chip_smoke.py",
+           "examples/ablations_torch.py", "__graft_entry_torch__.py")
+for script in scripts:
     runpy.run_path(script, run_name="imported")  # its imports, not its main
-names += ["main_torch.py", "examples/synthetic_e2e_torch.py",
-          "examples/bench_train_torch.py", "chip_smoke.py"]
+names += list(scripts)
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ipdm_tpu"))}))
@@ -53,7 +54,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ipdm_tpu_torch.parallel.mesh",
                  "ipdm_tpu_torch.data.dicom",
                  "main_torch.py", "examples/synthetic_e2e_torch.py",
-                 "examples/bench_train_torch.py", "chip_smoke.py"):
+                 "examples/bench_train_torch.py", "chip_smoke.py",
+                 "examples/ablations_torch.py", "__graft_entry_torch__.py"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
@@ -61,7 +63,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("path", ["main_torch.py",
                                   "examples/synthetic_e2e_torch.py",
                                   "examples/bench_train_torch.py",
-                                  "chip_smoke.py"])
+                                  "chip_smoke.py",
+                                  "examples/ablations_torch.py",
+                                  "__graft_entry_torch__.py"])
 def test_scripts_name_no_jax_module(path):
     """No import statement of the port's scripts names jax or the JAX
     package, wherever in the file it stands (function-level ones too)."""
@@ -79,7 +83,7 @@ def test_scripts_name_no_jax_module(path):
     assert bad == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """With no CUDA device and no device="cpu", the entry points raise
     instead of carrying on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,3 +101,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from ipdm_tpu_torch.engine.denoiser import ProgressiveDomainDenoiser
     with pytest.raises(RuntimeError, match="CUDA"):
         ProgressiveDomainDenoiser(IPDMConfig(mode="test_prog"))
+    import __graft_entry_torch__ as graft
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft.dryrun_multichip(2)
+    from examples import ablations_torch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ablations_torch.main(["--out", str(tmp_path), "--study", "nfe"])
