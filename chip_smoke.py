@@ -232,27 +232,44 @@ exits non-zero without a result line:
    engine and one CPU engine from the same checkpoints, in main's order:
    every float within 1e-3 relative, each histogram within an L1
    distance of 1% of the pixel count;
+   wide — the shipped test preset (f32) with model_channels_img and
+   model_channels_proj at 128 (head dim 128: the hd-128 instance), 96
+   (96, zero-padded onto 128) and 48 (48, onto 64), seeded random
+   weights: per width a warm ART slice through progressive_denoiser
+   (s/slice, peak memory, flash launches by instance), the f32 forward
+   on its recorded q, k, v against the plain version (with a planted
+   fault of the padding at 96 and 48); then 3 fit() steps each of
+   train_img and train_proj at width 128 (f32, B = 1, remat, the engine
+   phase's corpus), the hd-128 backward pair on their recorded inputs;
    flash-hd — (after kernels-train) the flash forward (bf16, f32) and
-   both backward kernels at head dims 8, 16 and 32, T = 4097 and 7125,
+   both backward kernels at head dims 8, 16, 32 and 128 and at the
+   padded 24, 48 and 96, T = 4097 and 7125,
    on the ragged inputs (q, k scaled so live scores stay ≈ −8) at the
    main path's rules, beside the planted controls of flash_ragged and
    bwd_ragged; then the f32 head-dim-8 kernels at T = 16 384 and
-   114 000 against a plain forward and backward over query blocks in
+   114 000 and the head-dim-128 ones at 7125 and 16 384 (their chained
+   f32 sums) against a plain forward and backward over query blocks in
    f64 (out at the f32 rule, the lse within lse_check's bound, dq, dk,
    dv at the f32 rule plus the f64 witness allowance), two launches
-   bit-equal, beside planted controls (the pad columns read from the
-   next row, the lse in log2 units, D dropped); each call's ms, its
-   bound (products or exp2, whichever is longer) and SDPA's ms;
+   bit-equal, beside planted controls (at head dim 8 the pad columns
+   read from the next row, the lse in log2 units, D dropped); each
+   call's ms, its bound (products or exp2, whichever is longer) and
+   SDPA's ms;
    graft — __graft_entry_torch__.py: entry()'s step on the card against
    the CPU at zero noise, then dryrun_multichip(2) on two gloo ranks
    that share the card;
+   multihost — scripts/multihost_dryrun_torch.py: two processes with
+   torchrun's variables join through the engine's _join_mesh (gloo,
+   both on cuda:0) and pass its four checks;
 19. the ``kernels`` JSON line (the mesh phase's launches under
    ``launches_mesh``, with planar_unit's max |diff| on the bands; the
    unfused phase's under ``launches_unfused`` / ``launches_unfolded``,
    with its checked shapes under ``shapes_unfused``; the quality
    phase's under ``launches_quality`` and ``launches_quality_full``;
    the ablations phase's under ``launches_ablations``; the head-dim-8
-   f32 flash rows, and every flash row's ``head_dims``),
+   f32 flash rows, the head-dim-128 f32 rows of the wide phase (their
+   long-T numbers under ``shapes_long``, the padded widths under
+   ``padded``), and every flash row's ``head_dims``),
    the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -1078,7 +1095,6 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
     main-path run's and the warm slice's launch counts and the profiled
     slice's kernels as {name: (launches, device ms)}."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from ipdm_tpu_torch.engine.denoiser import (make_convertor,
@@ -1155,21 +1171,32 @@ def phase_slice(label: str, opt: dict, models, ld_proj, seed: int,
         run(seed + 9)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in kernels) / 1e6
+    kernels = device_kernels(prof)
+    busy = sum(ms for _, ms in kernels.values()) / 1e3
     log(f"{tag} profile: one slice, {wall:.4f} s wall under the profiler; "
         f"device kernel time {busy:.4f} s = {100 * busy / mean:.1f}% "
         f"of the unprofiled {mean:.4f} s/slice (idle "
         f"{100 * (1 - busy / mean):.1f}%)")
-    for e in kernels[:25]:
-        log(f"{tag} profile: {dev_us(e) / 1e3:10.3f} ms {e.count:7d}x  "
-            f"{e.key[:100]}")
-    return launches, warm, {e.key: (e.count, dev_us(e) / 1e3)
-                            for e in kernels}
+    for key, (n, ms) in sorted(kernels.items(), key=lambda kv: kv[1][1],
+                               reverse=True)[:25]:
+        log(f"{tag} profile: {ms:10.3f} ms {n:7d}x  {key[:100]}")
+    return launches, warm, kernels
+
+
+def device_kernels(prof) -> dict:
+    """{name: (launches, device ms)} of the device activity (kernels,
+    copies, sets) of a finished torch.profiler run, summed from its raw
+    events: building its FunctionEvents, which key_averages() does, took
+    57-75 s of the script's budget per profiled slice (tens of thousands
+    of launches, run 3 of PR 16)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ms = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    return out
 
 # the shipped test preset's activation dtype: Config/Mayo-Config/
 # test_progressive_option.json sets no compute_dtype, so it runs at the
@@ -2932,9 +2959,11 @@ def _train_preset(domain: str) -> dict:
         return json.load(f)
 
 
-def _train_run(domain: str, out: str, seed: int, paths: dict):
+def _train_run(domain: str, out: str, seed: int, paths: dict,
+               overrides=None, max_iter=None):
     """``ProgressiveDomainDenoiser(...).fit()`` in train_{domain} mode on
-    the engine phase's corpus at the preset's widths and dtype, with each
+    the engine phase's corpus at the preset's widths and dtype (or with
+    the options ``overrides``, and cut to ``max_iter`` steps), with each
     train() call timed and its launches and peak memory read; returns
     (engine, per-step records, the run's launches, s of fit())."""
     import torch
@@ -2947,7 +2976,10 @@ def _train_run(domain: str, out: str, seed: int, paths: dict):
                    max_epochs=TRAIN_STEPS // 2, save_freq=TRAIN_SAVE_FREQ,
                    test_numbers=1, metrics=["psnr", "ssim"],
                    run_name=f"chip_smoke_train_{domain}", **paths))
+    opt.merge(overrides or {})
     eng = ProgressiveDomainDenoiser(opt, result_save_path=out)
+    if max_iter is not None:
+        eng.opt.max_iter = max_iter
     steps = []
     train = eng.train
 
@@ -3397,6 +3429,73 @@ def _bwd_rounded_ds(q, k, v, do, scale):
             torch.matmul(p.transpose(1, 2), dof))
 
 
+def bwd_call_stats(tag, dtype_name, args, reps):
+    """flash_bwd_dq and flash_bwd_dkv on one recorded backward input
+    (args: q, k, v, out, lse, do, scale) by :func:`_bwd_stats`, logged
+    with the bound of the body that ran; raises where a tensor misses its
+    tolerance or the D-dropped control meets it. Returns the stats of the
+    dq and of the dkv kernel (one entry each of a row's ``shapes``)."""
+    q, k, v, out, lse, do, scale = args
+    over, err, ctrl, t = _bwd_stats(dtype_name, q, k, v, out,
+                                    lse, do, scale, reps)
+    BH, T, hd = q.shape
+    es = q.element_size()
+    # the body that ran: bf16 products on wgmma; f32 as three
+    # bf16 passes on wgmma, beside the CUDA-core count of the
+    # same f32 products
+    passes = BWD_PASSES[dtype_name]
+    pair = 10 * BH * T * T * hd
+    nbytes = BH * T * hd * es * 6 + 8 * BH * T
+    b_dq = bound_ms(nbytes, passes * 6 * BH * T * T * hd,
+                    BF16_FLOPS)
+    b_dkv = bound_ms(nbytes, passes * 8 * BH * T * T * hd,
+                     BF16_FLOPS)
+    cores = dict(
+        dq=6 * BH * T * T * hd / F32_FLOPS * 1e3,
+        dkv=8 * BH * T * T * hd / F32_FLOPS * 1e3)
+    body = BWD_BODY[dtype_name]
+    also = ("" if dtype_name == "bfloat16" else
+            f"; {pair / F32_FLOPS * 1e3:.4f} ms at the f32 "
+            f"CUDA-core rate")
+    src = ("the kernel's" if dtype_name == "bfloat16" else
+           "the plain forward's")
+    log(f"{tag}: flash_bwd [{BH},{T},{hd}] "
+        f"{SHORT[dtype_name]} (recorded on the main path; "
+        f"reference from {src} out and lse): "
+        f"dq/dk/dv at {over['dq']:.3f} / {over['dk']:.3f} / "
+        f"{over['dv']:.3f} of the tolerance (max |diff| "
+        f"{err['dq']:.3e} / {err['dk']:.3e} / {err['dv']:.3e}); "
+        f"the forward's out max |diff| {err['out']:.3e} (the "
+        f"forward's rule), its lse at {over['lse']:.4f} of its "
+        f"bound "
+        f"(ε = 2^{math.log2(LSE_EPS[dtype_name]):.0f}), "
+        f"planted control in log2 units {ctrl['lse']:.1f}×; "
+        f"two launches bit-equal; planted control, D dropped "
+        f"from dS: dk at {ctrl['dk']:.1f}× the tolerance; dq "
+        f"{t['dq_ms']:.4f} ms + dkv {t['dkv_ms']:.4f} ms = "
+        f"{t['dq_ms'] + t['dkv_ms']:.4f} ms on {body} (bound "
+        f"of the pair, {passes}×10·T²·{hd}·BH operations at the "
+        f"bf16 tensor-core rate: "
+        f"{passes * pair / BF16_FLOPS * 1e3:.4f} ms{also}); "
+        f"plain backward {t['plain_ms']:.4f} ms; the recomputed "
+        f"backward {t['recompute_ms']:.4f} ms; SDPA forward + "
+        f"backward {t['library_ms']:.4f} ms (the pair at "
+        f"{(t['dq_ms'] + t['dkv_ms']) / t['library_ms']:.3f}× "
+        f"it)")
+    if max(over.values()) > 1.0 or ctrl["dk"] <= 1.0:
+        raise AssertionError(f"flash backward at T={T} "
+                             f"{dtype_name}: {over}, D-dropped "
+                             f"control {ctrl}")
+    common = dict(plain_ms=t["plain_ms"],
+                  library_ms=t["library_ms"],
+                  recompute_ms=t["recompute_ms"], T=T,
+                  dtype=dtype_name, body=body)
+    return (dict(common, err=err["dq"], ms=t["dq_ms"],
+                 cuda_core_bound_ms=cores["dq"], **b_dq),
+            dict(common, err=max(err["dk"], err["dv"]), ms=t["dkv_ms"],
+                 cuda_core_bound_ms=cores["dkv"], **b_dkv))
+
+
 def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
     """The f32 flash forward on the train runs' recorded q, k, v (T = 4096
     and 7125) by :func:`flash_f32_check`, with its ragged checks and
@@ -3419,67 +3518,10 @@ def phase_kernels_train(fwd_calls, bwd_calls, grad_calls, runs, reps):
         for dtype_name, calls in (("float32", bwd_calls),
                                   ("bfloat16", grad_calls)):
             for args, kw in calls:
-                q, k, v, out, lse, do, scale = args
-                over, err, ctrl, t = _bwd_stats(dtype_name, q, k, v, out,
-                                                lse, do, scale, reps)
-                BH, T, hd = q.shape
-                es = q.element_size()
-                # the body that ran: bf16 products on wgmma; f32 as three
-                # bf16 passes on wgmma, beside the CUDA-core count of the
-                # same f32 products
-                passes = BWD_PASSES[dtype_name]
-                pair = 10 * BH * T * T * hd
-                nbytes = BH * T * hd * es * 6 + 8 * BH * T
-                b_dq = bound_ms(nbytes, passes * 6 * BH * T * T * hd,
-                                BF16_FLOPS)
-                b_dkv = bound_ms(nbytes, passes * 8 * BH * T * T * hd,
-                                 BF16_FLOPS)
-                cores = dict(
-                    dq=6 * BH * T * T * hd / F32_FLOPS * 1e3,
-                    dkv=8 * BH * T * T * hd / F32_FLOPS * 1e3)
-                body = BWD_BODY[dtype_name]
-                also = ("" if dtype_name == "bfloat16" else
-                        f"; {pair / F32_FLOPS * 1e3:.4f} ms at the f32 "
-                        f"CUDA-core rate")
-                src = ("the kernel's" if dtype_name == "bfloat16" else
-                       "the plain forward's")
-                log(f"kernels-train: flash_bwd [{BH},{T},{hd}] "
-                    f"{SHORT[dtype_name]} (recorded on the main path; "
-                    f"reference from {src} out and lse): "
-                    f"dq/dk/dv at {over['dq']:.3f} / {over['dk']:.3f} / "
-                    f"{over['dv']:.3f} of the tolerance (max |diff| "
-                    f"{err['dq']:.3e} / {err['dk']:.3e} / {err['dv']:.3e}); "
-                    f"the forward's out max |diff| {err['out']:.3e} (the "
-                    f"forward's rule), its lse at {over['lse']:.4f} of its "
-                    f"bound "
-                    f"(ε = 2^{math.log2(LSE_EPS[dtype_name]):.0f}), "
-                    f"planted control in log2 units {ctrl['lse']:.1f}×; "
-                    f"two launches bit-equal; planted control, D dropped "
-                    f"from dS: dk at {ctrl['dk']:.1f}× the tolerance; dq "
-                    f"{t['dq_ms']:.4f} ms + dkv {t['dkv_ms']:.4f} ms = "
-                    f"{t['dq_ms'] + t['dkv_ms']:.4f} ms on {body} (bound "
-                    f"of the pair, {passes}×10·T²·64·BH operations at the "
-                    f"bf16 tensor-core rate: "
-                    f"{passes * pair / BF16_FLOPS * 1e3:.4f} ms{also}); "
-                    f"plain backward {t['plain_ms']:.4f} ms; the recomputed "
-                    f"backward {t['recompute_ms']:.4f} ms; SDPA forward + "
-                    f"backward {t['library_ms']:.4f} ms (the pair at "
-                    f"{(t['dq_ms'] + t['dkv_ms']) / t['library_ms']:.3f}× "
-                    f"it)")
-                if max(over.values()) > 1.0 or ctrl["dk"] <= 1.0:
-                    raise AssertionError(f"flash backward at T={T} "
-                                         f"{dtype_name}: {over}, D-dropped "
-                                         f"control {ctrl}")
-                common = dict(plain_ms=t["plain_ms"],
-                              library_ms=t["library_ms"],
-                              recompute_ms=t["recompute_ms"], T=T,
-                              dtype=dtype_name, body=body)
-                per["flash_bwd_dq"].append(dict(
-                    common, err=err["dq"], ms=t["dq_ms"],
-                    cuda_core_bound_ms=cores["dq"], **b_dq))
-                per["flash_bwd_dkv"].append(dict(
-                    common, err=max(err["dk"], err["dv"]),
-                    ms=t["dkv_ms"], cuda_core_bound_ms=cores["dkv"], **b_dkv))
+                dq, dkv = bwd_call_stats("kernels-train", dtype_name, args,
+                                         reps)
+                per["flash_bwd_dq"].append(dq)
+                per["flash_bwd_dkv"].append(dkv)
         for name, st in per.items():
             summarise(rows, "kernels-train", name,
                       "ipdm_tpu_torch/csrc/flash_bwd.cu",
@@ -4566,6 +4608,12 @@ def phase_quality(seed: int, out: str):
 # the ablation UNets' middle block (head dim 8, 4 heads): the img UNet at
 # 512² (128² tokens), the proj UNet on 2000×912 sinograms (500×228)
 FLASH_HD_LONG = (16384, 114000)
+# head dims between the instances, zero-padded by the wrappers: 24 on the
+# hd-32 instance, 48 on 64 (model_channels 48), 96 on 128 (96)
+FLASH_HD_PADDED = (24, 48, 96)
+# the hd-128 instance's chained f32 sums, held at the proj UNet's token
+# count and beyond it
+FLASH_HD128_LONG = (7125, 16384)
 LONG_BLOCK = 512                   # query rows per block of the plain loop
 # the ablations phase's main-path run: the SIEMENS scanner's full size
 # (--size 512: 512² images, 2000×912 sinograms) and examples/ablations.py's
@@ -4645,22 +4693,24 @@ def _plain_long(q, k, v, do, scale, f64=True):
     return res
 
 
-def flash_long(T, reps):
-    """The f32 kernels at head dim 8 and 4 heads at the ablation UNets'
-    token counts, on seeded random q, k (sd 1), v (head h: mean h + 1) and
+def flash_long(T, reps, hd=8):
+    """The f32 kernels at head dim ``hd`` (8: the ablation UNets' middle
+    block; 128: the new instance's chained sums) and 4 heads at long token
+    counts, on seeded random q, k (sd 1), v (head h: mean h + 1) and
     dO, against the plain forward and backward in f64 over query blocks
     (:func:`_plain_long`): out at the f32 rule, the lse within lse_check's
     bound, dq, dk and dv at the f32 rule plus the f64 witness allowance
     (2⁻²⁰·Σ|terms before the cancellation|, :func:`bwd_ragged`'s), two
-    launches bit-equal; beside planted controls that must fail: the plain
-    forward on q and k whose pad columns hold the next row's values, the
-    lse in log2 units, and the dK kernel with D dropped. Times: the
-    kernels, the plain forward over query blocks in f32, SDPA's forward
-    and forward + backward, and each kernel's bound."""
+    launches bit-equal; beside planted controls that must fail: at head
+    dim 8 the plain forward on q and k whose pad columns hold the next
+    row's values, the lse in log2 units, and the dK kernel with D
+    dropped. Times: the kernels, the plain forward over query blocks in
+    f32, SDPA's forward and forward + backward, and each kernel's
+    bound."""
     import torch
     from ipdm_tpu_torch.ops.cuda import attention
 
-    hd, BH = 8, 4
+    BH = 4
     gen = torch.Generator(device="cuda").manual_seed(SEED + T)
     scale = 1.0 / math.sqrt(math.sqrt(hd))
 
@@ -4707,12 +4757,14 @@ def flash_long(T, reps):
                   for n, g in (("dq", dq), ("dk", dk), ("dv", dv))})
     del ref
 
-    def next_row_pad(x):
-        return torch.cat([x, x.roll(-1, 1)[..., :16 - hd]], -1)
-    pad = _plain_long(next_row_pad(q), next_row_pad(k), v, None, scale,
-                      f64=False)["out"]
-    pad_ok, pad_err = _within(pad, out.double(), rtol, atol)
-    del pad
+    pad_ok, pad_err = False, None
+    if hd < 16:   # the kernels' 16-column tiles: pad read from the next row
+        def next_row_pad(x):
+            return torch.cat([x, x.roll(-1, 1)[..., :16 - hd]], -1)
+        pad = _plain_long(next_row_pad(q), next_row_pad(k), v, None, scale,
+                          f64=False)["out"]
+        pad_ok, pad_err = _within(pad, out.double(), rtol, atol)
+        del pad
     # the plain versions: attention_plain and attention_bwd_plain where
     # their T × T matrices fit (T = 16 384: 4.3 GB each), else the plain
     # forward over query blocks (the backward's f32 plain is not timed)
@@ -4743,9 +4795,11 @@ def flash_long(T, reps):
         f"bound; dq/dk/dv at {over['dq']:.3f} / {over['dk']:.3f} / "
         f"{over['dv']:.3f} of the f32 rule + 2⁻²⁰·Σ|terms| (the relative "
         f"rule alone: {alone['dq']:.3f} / {alone['dk']:.3f} / "
-        f"{alone['dv']:.3f}); repeats bit-equal; planted controls: the pad "
-        f"read from the next row max |diff| {pad_err:.3e} "
-        f"({'passes' if pad_ok else 'fails'}), the lse in log2 units "
+        f"{alone['dv']:.3f}); repeats bit-equal; planted controls: "
+        + ("" if pad_err is None else
+           f"the pad read from the next row max |diff| {pad_err:.3e} "
+           f"({'passes' if pad_ok else 'fails'}), ")
+        + f"the lse in log2 units "
         f"{lse_ctrl:.1f}×, D dropped {dk_ctrl:.1f}×; ms fwd "
         f"{t['fwd_ms']:.3f} (bound {bounds['fwd']:.3f}), dq "
         f"{t['dq_ms']:.3f} (bound {bounds['dq']:.3f}), dkv "
@@ -4773,8 +4827,10 @@ def head_dim_rows(rows, short, long, abl):
     T = 114 000 under ``shapes``), and each existing flash row's
     ``head_dims``: its kernel at head dims 8, 16 and 32 on the ragged
     inputs of phase_flash_hd (launched by no main path but the
-    head-dim-8 f32 ones)."""
+    head-dim-8 f32 ones and the hd-128 f32 ones of the wide phase; a
+    padded head dim's launches are its instance's)."""
     from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
     src = {"fwd": "ipdm_tpu_torch/csrc/flash_attn.cu",
            "dq": "ipdm_tpu_torch/csrc/flash_bwd.cu",
@@ -4819,8 +4875,9 @@ def head_dim_rows(rows, short, long, abl):
             row["head_dims"] = [dict(
                 hd=x["hd"], T=x["T"], ms=x["ms"], library_ms=x["library_ms"],
                 bound_ms=x["bound_ms"], max_abs_err=x["err"],
-                launches_ablations=abl[_build.flash_counter(row["name"],
-                                                            x["hd"])])
+                instance=flash_instance(x["hd"]),
+                launches_ablations=abl[_build.flash_counter(
+                    row["name"], flash_instance(x["hd"]))])
                 for x in short if "ms" in x and x["dtype"] == dtype]
         elif row["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
             kind = row["name"][len("flash_bwd_"):]
@@ -4828,19 +4885,22 @@ def head_dim_rows(rows, short, long, abl):
                 hd=x["hd"], T=x["T"], dtype=x["dtype"], ms=x[f"{kind}_ms"],
                 library_ms=x["library_ms"], bound_ms=x[f"{kind}_bound_ms"],
                 max_abs_err=x["err"], over=x["over"],
-                launches_ablations=abl[_build.flash_counter(row["name"],
-                                                            x["hd"])])
+                instance=flash_instance(x["hd"]),
+                launches_ablations=abl[_build.flash_counter(
+                    row["name"], flash_instance(x["hd"]))])
                 for x in short if f"{kind}_ms" in x]
     return out
 
 
 def phase_flash_hd(reps):
-    """The flash kernels at head dims 8, 16 and 32: the forward in bf16
-    and f32 and both backward kernels at T = 4097 and 7125 on the ragged
-    inputs (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its
-    planted controls), then the f32 kernels at head dim 8 at the ablation
-    UNets' T = 16 384 and 114 000 (:func:`flash_long`). Returns (the
-    ragged stats, the long-T stats)."""
+    """The flash kernels at head dims 8, 16, 32 and 128 and at the padded
+    head dims 24, 48 and 96: the forward in bf16 and f32 and both
+    backward kernels at T = 4097 and 7125 on the ragged inputs
+    (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its planted
+    controls), then the f32 kernels at head dim 8 at the ablation UNets'
+    T = 16 384 and 114 000 and at head dim 128 at T = 7125 and 16 384
+    (:func:`flash_long`). Returns (the ragged stats, the long-T stats of
+    head dim 8, those of head dim 128)."""
     import torch
     from ipdm_tpu_torch.ops.cuda import _build
 
@@ -4848,15 +4908,17 @@ def phase_flash_hd(reps):
     short = []
     r = max(2, reps // 4)
     with torch.no_grad():
-        for hd in (h for h in _build.FLASH_HEAD_DIMS if h != 64):
+        for hd in [h for h in _build.FLASH_HEAD_DIMS if h != 64] + list(
+                FLASH_HD_PADDED):
             for dtype_name in ("bfloat16", "float32"):
                 short += flash_ragged(r, dtype_name, (4097, 7125), hd,
                                       tag="flash-hd")
             short += bwd_ragged(r, (4097, 7125), hd, tag="flash-hd")
         long = [flash_long(T, 3) for T in FLASH_HD_LONG]
+        long128 = [flash_long(T, 3, hd=128) for T in FLASH_HD128_LONG]
     log(f"flash-hd: {time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return short, long
+    return short, long, long128
 
 
 def _ablation_numbers(res) -> str:
@@ -5113,6 +5175,233 @@ def phase_graft(seed: int) -> None:
         f"graft phase {time.perf_counter() - t0:.1f} s")
 
 
+# -- part B: UNets wider than the presets, and the multi-process twin -------
+
+# model_channels of both UNets in the wide phase, the head dim of every
+# flash block (4 heads over 4·mc channels): 128 runs the hd-128 instance,
+# 96 the same instance zero-padded, 48 the hd-64 instance zero-padded
+WIDE_WIDTHS = (128, 96, 48)
+WIDE_TRAIN_STEPS = 3   # fit() steps of each domain at width 128
+
+
+def _pad_from_next_row(x, inst):
+    """x [BH, T, hd] padded to ``inst`` columns with the next row's first
+    columns: what a kernel would read past a row's end with the wrong
+    stride (a planted fault of the zero padding)."""
+    import torch
+    return torch.cat([x, x.roll(-1, 1)[..., :inst - x.shape[-1]]], -1)
+
+
+def _wide_slice(w, ld_proj, seed, reps):
+    """One width of :func:`phase_wide`: the slice, its launches and the
+    forward checks on its recorded q, k, v."""
+    import torch
+    from ipdm_tpu_torch.engine.denoiser import (make_convertor,
+                                                progressive_denoiser)
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    opt = dict(shipped_preset(), compute_dtype="float32",
+               model_channels_img=w, model_channels_proj=w)
+    inst = attention.flash_instance(w)
+    name = _build.flash_counter("flash_attn_f32", inst)
+    torch.manual_seed(seed)
+    models = [build_unet(opt, d, device="cuda").eval()
+              for d in ("proj", "img")]
+
+    def run(s):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        return progressive_denoiser(opt, *models, ld_proj, gen)
+
+    t0 = time.perf_counter()
+    run(seed + 1)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with Recorder(unet, "flash_attention",
+                  key=lambda a: tuple(a[0].shape)) as fa:
+        t0 = time.perf_counter()
+        out = run(seed + 2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flash = {k: v for k, v in launches.items()
+             if k.startswith("flash") and v}
+    finite = bool(torch.isfinite(out).all())
+    log(f"wide: mc {w} (head dim {w}, instance {inst}): a warm ART slice "
+        f"{dt:.4f} s (the first, at these shapes, {first:.4f} s), output "
+        f"{tuple(out.shape)} finite={finite}, peak memory {peak:.2f} GiB; "
+        f"flash launches by instance {flash}; planar_unit "
+        f"{launches['planar_unit']}")
+    n = make_convertor(opt).fbp_geom.grid_n
+    if tuple(out.shape) != (1, n, n, 1) or not finite:
+        raise AssertionError(f"wide mc {w}: output {tuple(out.shape)} "
+                             f"finite={finite}")
+    if launches[name] <= 0 or set(flash) != {name}:
+        raise AssertionError(f"wide mc {w}: flash launches {flash}, "
+                             f"expected {name} alone")
+    del models, out
+    with torch.no_grad():
+        stats = flash_f32_check("wide", fa.calls, reps)
+        for (args, _), st in zip(fa.calls, stats):
+            q, k, v, scale = args
+            st["hd"], st["instance"] = w, inst
+            if inst == w:
+                continue
+            # the zero padding's planted fault: the pad columns of q and k
+            # from the next row, through the plain version
+            want = attention.attention_plain(q, k, v, scale)
+            bad = attention.attention_plain(
+                _pad_from_next_row(q, inst), _pad_from_next_row(k, inst),
+                attention._pad(inst, v)[0], scale)[..., :w]
+            rtol, atol = flash_tol(want, "float32")
+            ok, err = _within(bad, want, rtol, atol)
+            log(f"wide: mc {w} T={q.shape[1]}: planted control, the pad "
+                f"columns of q and k from the next row: max |diff| "
+                f"{err:.3e}, {'passes' if ok else 'fails'}")
+            if ok:
+                raise AssertionError(f"wide mc {w}: the padding control "
+                                     f"passes")
+    return dict(s=dt, first_s=first, peak_gib=peak, launches=launches,
+                name=name, stats=stats)
+
+
+def phase_wide(seed: int, out: str, ld_proj, reps: int):
+    """The shipped test preset (f32 as shipped, cuDNN in TF32 as
+    main_torch.py runs) with model_channels_img and model_channels_proj at
+    each of :data:`WIDE_WIDTHS`, seeded random weights: per width a first
+    ART slice through progressive_denoiser at these shapes, then a warm
+    one with the launch counters set to 0 just before it and read just
+    after (s/slice, peak memory, the flash launches by instance: only the
+    instance of that head dim), and the f32 forward on its recorded q, k,
+    v (T = 7125 and 4096) by :func:`flash_f32_check`, beside a planted
+    fault of the padding at 96 and 48. Then at width 128, fit() of
+    train_img and train_proj for :data:`WIDE_TRAIN_STEPS` steps each (f32,
+    B = 1, remat, the engine phase's corpus), whose first backward's
+    inputs feed :func:`bwd_call_stats`. Returns the hd-128 rows of the
+    kernels JSON line."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        slices = {w: _wide_slice(w, ld_proj, seed, max(2, reps // 4))
+                  for w in WIDE_WIDTHS}
+        paths = _example().dataset_paths(out)
+        runs, bwd = {}, []
+        for domain in ("img", "proj"):
+            with Recorder(attention, "flash_bwd_dq", limit=1) as rec:
+                eng, steps, runs[domain], t_fit = _train_run(
+                    domain, out, seed, paths, overrides={
+                        f"model_channels_{domain}": 128, "save_freq": 1000,
+                        "test_numbers": 0,
+                        "run_name": f"chip_smoke_wide_{domain}"},
+                    max_iter=WIDE_TRAIN_STEPS)
+            del eng
+            bwd += rec.calls
+            losses = [st["loss"] for st in steps]
+            warm = [st["s"] for st in steps[1:]]
+            per_step = steps[-1]["launches"]
+            log(f"wide: train_{domain} at mc 128, {len(steps)} steps: losses "
+                + ", ".join(f"{x:.5f}" for x in losses)
+                + f"; warm {sum(warm) / len(warm):.4f} s/step (first "
+                f"{steps[0]['s']:.4f} s); peak memory of a step "
+                f"{max(st['peak'] for st in steps):.2f} GiB; launches per "
+                f"step {per_step}")
+            want = [_build.flash_counter(k, 128) for k in (
+                "flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv")]
+            if (len(steps) != WIDE_TRAIN_STEPS
+                    or not all(math.isfinite(x) for x in losses)
+                    or any(per_step.get(k, 0) <= 0 for k in want)):
+                raise AssertionError(f"wide train_{domain}: {len(steps)} "
+                                     f"steps, losses {losses}, launches "
+                                     f"{per_step}")
+        with torch.no_grad():
+            per = [bwd_call_stats("wide", "float32", args, reps)
+                   for args, _ in bwd]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    log(f"wide: {time.perf_counter() - t0:.1f} s")
+    return wide_rows(slices, runs, per)
+
+
+def wide_rows(slices, runs, per):
+    """The kernels JSON line's rows of the hd-128 f32 instances: the
+    forward's launches in the width-128 slice's warm run, its numbers on
+    that run's q, k, v (T = 7125 and 4096 under ``shapes``) and the
+    padded widths' under ``padded``; the backward pair's launches in the
+    two width-128 train runs and its numbers on their first backward."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    rows = []
+    top = slices[128]
+    summarise(rows, "wide", top["name"], "ipdm_tpu_torch/csrc/flash_attn.cu",
+              "ipdm_tpu/models/unet.py:601", top["stats"], True)
+    rows[-1].update(
+        launches=top["launches"][top["name"]], head_dim=128,
+        dtype="float32", shapes=f32_shapes(top["stats"]),
+        padded=[dict(hd=w, instance=slices[w]["stats"][0]["instance"],
+                     launches=slices[w]["launches"][slices[w]["name"]],
+                     counter=slices[w]["name"],
+                     shapes=f32_shapes(slices[w]["stats"]))
+                for w in WIDE_WIDTHS if w != 128],
+        slices={w: dict(s=x["s"], peak_gib=x["peak_gib"])
+                for w, x in slices.items()})
+    for i, kind in enumerate(("dq", "dkv")):
+        name = _build.flash_counter(f"flash_bwd_{kind}", 128)
+        st = [p[i] for p in per]
+        summarise(rows, "wide", name, "ipdm_tpu_torch/csrc/flash_bwd.cu",
+                  "ipdm_tpu/models/unet.py:601 → jax/experimental/pallas/"
+                  "ops/tpu/flash_attention.py:"
+                  + ("1287" if kind == "dq" else "941"), st, True)
+        rows[-1].update(
+            launches=runs["img"][name] + runs["proj"][name],
+            launches_train_img=runs["img"][name],
+            launches_train_proj=runs["proj"][name], head_dim=128,
+            dtype="float32",
+            library="SDPA forward + backward of the same q, k, v, dO",
+            shapes=[dict(T=x["T"], ms=x["ms"], plain_ms=x["plain_ms"],
+                         library_ms=x["library_ms"],
+                         bound_ms=max(x["bytes_ms"], x["ops_ms"]),
+                         max_abs_err=x["err"]) for x in st])
+    for row in rows:
+        log(f"kernels: {row['name']}: {row['launches']} launches in the "
+            f"wide phase's main-path runs")
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched in the "
+                                 f"wide phase")
+    return rows
+
+
+MULTIHOST_TIMEOUT = 300   # s for the twin's two processes on the card
+
+
+def phase_multihost() -> None:
+    """scripts/multihost_dryrun_torch.py on the card: two processes that
+    meet by env:// as torchrun's do, join through the engine's
+    _join_mesh (gloo, both on cuda:0), and run its four checks; its last
+    line must read ok with 2 processes."""
+    t0 = time.perf_counter()
+    script = osp.join(osp.dirname(osp.abspath(__file__)), "scripts",
+                      "multihost_dryrun_torch.py")
+    res = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=MULTIHOST_TIMEOUT)
+    for line in res.stderr.strip().splitlines()[-12:]:
+        log(f"multihost: {line}")
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"multihost: {last}, {time.perf_counter() - t0:.1f} s")
+    if res.returncode or not last.get("ok") or last.get("processes") != 2:
+        raise AssertionError(f"multihost: {last}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5170,10 +5459,12 @@ def main() -> int:
         quality, quality_full = phase_quality(SEED,
                                               osp.join(out, "quality"))
         abl = phase_ablations(SEED, out)
+        wide = phase_wide(SEED, out, ld_proj, REPS)
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
-    hd_short, hd_long = phase_flash_hd(REPS)
+    hd_short, hd_long, hd_long128 = phase_flash_hd(REPS)
     phase_graft(SEED)
+    phase_multihost()
     # the f32 forward's row is the f32 ART slice's (its main path); the
     # train runs' counts and checked shapes beside them
     f32_row["launches_train_img"] = train_runs["img"]["flash_attn_f32"]
@@ -5295,6 +5586,16 @@ def main() -> int:
     log("kernels: launches in the ablations phase's main-path run: "
         + ", ".join(f"{row['name']} {row['launches_ablations']}"
                     for row in rows))
+    # the wide phase's hd-128 rows; the hd-128 f32 trio at long T
+    for row in wide:
+        part = {"flash_attn_f32_hd128": "fwd", "flash_bwd_dq_hd128": "dq",
+                "flash_bwd_dkv_hd128": "dkv"}[row["name"]]
+        row["shapes_long"] = [dict(
+            T=x["T"], ms=x[f"{part}_ms"], bound_ms=x["bound_ms"][part],
+            library_ms=x["sdpa_fwd_ms" if part == "fwd"
+                         else "sdpa_fwd_bwd_ms"],
+            over=x["over"]) for x in hd_long128]
+    rows += wide
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

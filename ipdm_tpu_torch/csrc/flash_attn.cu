@@ -1,4 +1,4 @@
-// Forward flash attention for head dimensions 8, 16, 32 and 64 on Hopper
+// Forward flash attention for head dimensions 8, 16, 32, 64 and 128 on Hopper
 // (sm_90a): wgmma for both products, TMA for the loads; bf16 or f32 in and
 // out.
 //
@@ -10,8 +10,10 @@
 //   out[bh,t,:] = sum_s softmax_s(scale2 * q[bh,t,:] . k[bh,s,:]) v[bh,s,:]
 //
 // q, k, v, out: [BH, T, HD] of one element type, contiguous, HD in
-// {8, 16, 32, 64} (one template instance each; hopper.cuh's Head<HD>: at
-// HD = 8 the operands lie zero-padded to 16 columns in shared memory). With lse !=
+// {8, 16, 32, 64, 128} (one template instance each; hopper.cuh's
+// Head<HD>: at HD = 8 the operands lie zero-padded to 16 columns in shared
+// memory, at HD = 128 as two 64-column sub-tiles; other head dims reach a
+// kernel zero-padded by the wrapper, ops/cuda/attention.py). With lse !=
 // nullptr (the autograd path asks for it) the kernel also writes the f32
 // natural-log softmax normaliser lse[bh, t] = log(sum_s exp(scale2 * q.k))
 // that the backward kernels (flash_bwd.cu) rebuild P from, the counterpart
@@ -94,6 +96,15 @@
 //   2 slots at two CTAs ran as fast as this before that sum, with no
 //   spill). 128 rows rather than 64 halve the K/V traffic from L2 (each
 //   CTA reads all of its head's K and V).
+// - HD = 128 (the presets at model_channels 128): Q, K and V tiles are
+//   two 128-byte-swizzled sub-tiles each (two TMA boxes a tile), Q K^T
+//   steps into the second after four k16 steps, and P V runs as two
+//   N = 64 halves, one per sub-tile of V, onto O's two halves of 32 sums.
+//   O takes 64 registers a thread, so both bodies run one CTA per SM:
+//   bf16 4 slots, 160 KB, 167 registers; f32 2 slots of hi and lo tiles,
+//   192 KB (4 would take 320 KB), at most 168 registers, where it spills
+//   408 bytes a thread (scripts/ptxas_report.py) beside O, P's
+//   two fragment sets and S. A first body, right and not yet fast.
 // - No setmaxnreg: an increase asks for registers that some warp has
 //   given back (setmaxnreg.inc blocks until they are free), and the one
 //   producer warp frees 72 x 32, too few to lift 256 consumer threads by
@@ -101,7 +112,6 @@
 // The TPU kernel's 512/1024 blocks and segment-id padding (unet.py:611-
 // 630) are VMEM tiling and do not carry over: keys past T are masked to
 // -inf, queries past T are not written.
-#include <algorithm>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -130,7 +140,8 @@ using Out = std::conditional_t<F32, float, bf16>;
 // aligned (swizzle atoms)
 template <bool F32, int HD>
 struct Smem {
-  static constexpr int STAGES = 4;            // ring slots
+  // ring slots: 2 for f32 at HD = 128 (4 would take 320 KB)
+  static constexpr int STAGES = F32 && HD == 128 ? 2 : 4;
   static constexpr int NP = F32 ? 2 : 1;      // [hi, lo]
   bf16 q[NWG][NP][TILE<HD>];
   bf16 k[STAGES][NP][TILE<HD>];
@@ -155,35 +166,16 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// hi and lo of n4 float4s of q, k and v (blockIdx.y) into dst: [6][n] bf16,
-// tensor t's hi at 2t, its lo at 2t + 1
-__global__ void __launch_bounds__(256)
-    split_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
-                 const float4* __restrict__ v, uint2* __restrict__ dst,
-                 size_t n4) {
-  const float4* src = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
-  uint2* hi = dst + 2 * blockIdx.y * n4;
-  uint2* lo = hi + n4;
-  for (size_t i = blockIdx.x * 256 + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * 256) {
-    const float4 x = src[i];
-    uint2 h, l;
-    split2(x.x, x.y, h.x, l.x);
-    split2(x.z, x.w, h.y, l.y);
-    hi[i] = h;
-    lo[i] = l;
-  }
-}
-
 // o = o corr + P V for one key tile (f32 body): P V summed from zero in
 // pv, then added to the rescaled o with an f32 FMA
+// (o and pv: one sub-tile's N = SUB sums; vH, vL: that sub-tile of V)
 template <int NP, int HD>
-__device__ __forceinline__ void add_pv(float (&o)[Head<HD>::HDP / 2],
-                                       float (&pv)[Head<HD>::HDP / 2],
+__device__ __forceinline__ void add_pv(float (&o)[Head<HD>::SUB / 2],
+                                       float (&pv)[Head<HD>::SUB / 2],
                                        uint32_t (&p)[NP][16],
                                        float cr0, float cr1, uint64_t vH,
                                        uint64_t vL) {
-  constexpr int HDP = Head<HD>::HDP;
+  constexpr int HDP = Head<HD>::SUB;
 #pragma unroll
   for (int i = 0; i < HDP / 2; ++i) pv[i] = 0.f;
   reg_fence(pv);
@@ -217,6 +209,8 @@ __device__ __forceinline__ void consume(Smem<F32, HD>& sm, int wg,
   using S = Smem<F32, HD>;
   constexpr int STAGES = S::STAGES, NP = S::NP;
   constexpr int HDP = Head<HD>::HDP, NO = HDP / 2;
+  constexpr int SUB = Head<HD>::SUB, NSUB = Head<HD>::NSUB;
+  constexpr int SU = Head<HD>::SUB_UNITS;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int c2 = (lane % 4) * 2;
   float o[NO];
@@ -289,16 +283,21 @@ __device__ __forceinline__ void consume(Smem<F32, HD>& sm, int wg,
     l1 = l1 * cr1 + sum1;
 
     if constexpr (F32) {
-      // O = O corr + P V, the tile's P V summed from zero (at HD = 64 in
-      // sc, dead now): the tensor cores' f32 sums do not round to nearest,
-      // and P V onto O over every key tile (terms of one sign) left out
-      // ~4e-5 low at T = 4097, which D carries into the backward's
-      // cancelling dQ
-      if constexpr (NO == 32) {
-        add_pv<NP, HD>(o, sc, p, cr0, cr1, vH, vL);
-      } else {
-        float pv[NO];
-        add_pv<NP, HD>(o, pv, p, cr0, cr1, vH, vL);
+      // O = O corr + P V, the tile's P V summed from zero (at N = 64 in
+      // sc, dead now; one sub-tile of V at a time): the tensor cores' f32
+      // sums do not round to nearest, and P V onto O over every key tile
+      // (terms of one sign) left out ~4e-5 low at T = 4097, which D
+      // carries into the backward's cancelling dQ
+#pragma unroll
+      for (int h = 0; h < NSUB; ++h) {
+        if constexpr (SUB == 64) {
+          add_pv<NP, HD>(sub_of<HD>(o, h), sc, p, cr0, cr1, vH + h * SU,
+                         vL + h * SU);
+        } else {
+          float pv[SUB / 2];
+          add_pv<NP, HD>(sub_of<HD>(o, h), pv, p, cr0, cr1, vH + h * SU,
+                         vL + h * SU);
+        }
       }
     } else {
 #pragma unroll
@@ -309,11 +308,13 @@ __device__ __forceinline__ void consume(Smem<F32, HD>& sm, int wg,
         o[4 * n + 3] *= cr1;
       }
 
-      // O += P V
+      // O += P V, one sub-tile of V at a time
       reg_fence(o);
       reg_fence_a(p);
       wg_fence();
-      product_rs<NP, HD>(o, p, vH, vL);
+#pragma unroll
+      for (int h = 0; h < NSUB; ++h)
+        product_rs<NP, HD>(sub_of<HD>(o, h), p, vH + h * SU, vL + h * SU);
       wg_commit();
       reg_fence(o);
       wg_wait_all();
@@ -354,7 +355,7 @@ __device__ __forceinline__ void consume(Smem<F32, HD>& sm, int wg,
 }
 
 template <bool F32, int HD>
-__global__ void __launch_bounds__(NTHREADS, F32 ? 1 : 2)
+__global__ void __launch_bounds__(NTHREADS, F32 || HD == 128 ? 1 : 2)
     flash_attn_kernel(const __grid_constant__ Maps maps,
                       Out<F32>* __restrict__ out, float* __restrict__ lse,
                       int T, float scale_log2) {
@@ -383,14 +384,14 @@ __global__ void __launch_bounds__(NTHREADS, F32 ? 1 : 2)
       mbar_expect_tx(&sm.qbar, NWG * NP * TILE_BYTES<HD>);
       for (int w = 0; w < NWG; ++w)
         for (int p = 0; p < NP; ++p)
-          tma_load(sm.q[w][p], &maps.q[p], &sm.qbar, q0 + w * BM, bh);
+          tma_tile<HD>(sm.q[w][p], &maps.q[p], &sm.qbar, q0 + w * BM, bh);
       for (int j = 0; j < nk; ++j) {
         const int s = j % STAGES;
         mbar_wait(&sm.empty[s], ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], 2 * NP * TILE_BYTES<HD>);
         for (int p = 0; p < NP; ++p) {
-          tma_load(sm.k[s][p], &maps.k[p], &sm.full[s], j * BK, bh);
-          tma_load(sm.v[s][p], &maps.v[p], &sm.full[s], j * BK, bh);
+          tma_tile<HD>(sm.k[s][p], &maps.k[p], &sm.full[s], j * BK, bh);
+          tma_tile<HD>(sm.v[s][p], &maps.v[p], &sm.full[s], j * BK, bh);
         }
       }
     }
@@ -415,17 +416,6 @@ int launch(const Maps& maps, void* out, void* lse, int BH, int T,
   flash_attn_kernel<F32, HD><<<grid, NTHREADS, SMEM_BYTES, st>>>(
       maps, static_cast<Out<F32>*>(out), static_cast<float*>(lse), T,
       scale_log2);
-  return (int)cudaGetLastError();
-}
-
-// the f32 forward's split pre-pass: hi and lo of q, k and v into split
-int split_launch(const void* q, const void* k, const void* v, void* split,
-                 int BH, int T, int HD, cudaStream_t st) {
-  const size_t n4 = (size_t)BH * T * HD / 4;
-  const unsigned gx = (unsigned)std::min<size_t>((n4 + 255) / 256, 132 * 8);
-  split_kernel<<<dim3(gx, 3), 256, 0, st>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k),
-      static_cast<const float4*>(v), static_cast<uint2*>(split), n4);
   return (int)cudaGetLastError();
 }
 
@@ -460,7 +450,8 @@ int forward_f32(const void* q, const void* k, const void* v, void* split,
                 cudaStream_t st) {
   Maps maps;
   if (!split_maps<HD>(&maps, split, BH, T)) return (int)cudaErrorInvalidValue;
-  const int e = split_launch(q, k, v, split, BH, T, HD, st);
+  const void* src[3] = {q, k, v};
+  const int e = split_launch(src, 3, split, (size_t)BH * T * HD, st);
   if (e != 0) return e;
   return launch<true, HD>(maps, out, lse, BH, T, scale_log2, st);
 }

@@ -1,4 +1,4 @@
-// Backward of flash attention for head dimensions 8, 16, 32 and 64 on
+// Backward of flash attention for head dimensions 8, 16, 32, 64 and 128 on
 // Hopper (sm_90a): every product on wgmma (bf16 operands, f32 sums), TMA
 // for the loads.
 //
@@ -19,10 +19,12 @@
 //   dQ   = c * dS K                     flash_bwd_kernel<dq>
 //
 // q, k, v, o, do, dq, dk, dv: [BH, T, HD] of one element type E (bf16 or
-// f32), contiguous, HD in {8, 16, 32, 64} (a template instance each; the
-// tiles lie HDP = max(HD, 16) columns wide in shared memory, zero-padded
-// at HD = 8: hopper.cuh's Head<HD>); lse, D: [BH, T] f32. The gradients are with respect to
-// the unscaled q and k, so each carries c once.
+// f32), contiguous, HD in {8, 16, 32, 64, 128} (a template instance each;
+// the tiles lie HDP = max(HD, 16) columns wide in shared memory,
+// zero-padded at HD = 8, two 64-column sub-tiles at HD = 128: hopper.cuh's
+// Head<HD>; other head dims reach a kernel zero-padded by the wrapper);
+// lse, D: [BH, T] f32. The gradients are with respect to the unscaled q
+// and k, so each carries c once.
 //
 // The two element types:
 // - bf16: the operands go to the tensor cores as they are. S and dP are f32
@@ -92,7 +94,10 @@
 //   and added to dQ (dK, dV) with an f32 add, as flash_attn.cu sums P V:
 //   the tensor cores' f32 sums do not round to nearest, and chained over
 //   the 1782 key tiles of T = 114 000 they biased dQ to 1.2x the f32 rule
-//   (chip_smoke.py flash-hd). Head dim 64 keeps the chain (T <= 7125).
+//   (chip_smoke.py flash-hd). Head dims 64 and 128 keep the chain: at 128
+//   it is within the f32 rule at T = 7125 and 16 384 (dq / dk / dv at
+//   0.08 / 0.07 / 0.22 of it at 16 384 on an H100), and the tile sums
+//   would not fit beside the chained sums in registers.
 // - f32: TMA brings the ring tile's f32 rows into a staging slot (no
 //   swizzle); the CTA's 256 threads split it into hi and lo bf16 tiles in
 //   the tile's swizzle (a double buffer; zeros in the pad columns at
@@ -105,6 +110,21 @@
 //   kernel (four 32-register accumulators live at once) and the f32 bodies
 //   (two bf16 tiles per operand, 194 KB) run one CTA per SM. No setmaxnreg
 //   (flash_attn.cu's note).
+// - HD = 128 (the presets at model_channels 128): each tile is two
+//   128-byte-swizzled sub-tiles of 64 columns (two TMA boxes), S and dP
+//   contract over both, and each CTA owns one 64-column half of the
+//   outputs (blockIdx.z): its dQ (dK, dV) products read that sub-tile of
+//   the ring tile, so its sums stay 32 registers a thread, as at 64, and
+//   both halves rebuild S and dP (5 products of the 3 dq needs, 6 of the
+//   4 of dkv). bf16: 4 ring slots, 194 KB, one CTA per SM (dq 158, dkv
+//   221 registers). f32 (PRESPLIT): the wrapper's split pre-pass writes
+//   hi and lo of q, k, v and dO into a bf16 scratch once a launch, and
+//   the kernel TMA-loads hi and lo tiles as the bf16 body loads its
+//   tiles: resident hi and lo tiles and one ring slot, 192 KB (the f32
+//   staging of the other head dims would take 384 KB); dq 208 registers,
+//   dkv 255 with 40 bytes spilled (scripts/ptxas_report.py). One ring
+//   slot puts the loads between the tiles' products: a first body, right
+//   and not yet fast.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -123,6 +143,15 @@ template <int HD>
 constexpr int TILE = BN * Head<HD>::HDP;  // elements of a 64-row bf16
                                           // tile
 constexpr float LOG2E = 1.4426950408889634f;
+// f32 at HD = 128: the wrapper's split pre-pass writes hi and lo of q, k,
+// v and dO into a bf16 scratch, and the kernel TMA-loads bf16 hi and lo
+// tiles as the bf16 body loads its tiles (staging and splitting f32 tiles
+// in the CTA would take 384 KB of shared memory)
+template <bool F32, int HD>
+constexpr bool PRESPLIT = F32 && HD == 128;
+// f32 below HD = 128: f32 rows staged by TMA, split in the CTA
+template <bool F32, int HD>
+constexpr bool STAGED = F32 && !PRESPLIT<F32, HD>;
 
 // the value of x that the products see: x in bf16; hi + lo of its split
 // in f32 (exact in f32)
@@ -133,7 +162,7 @@ __device__ __forceinline__ float seen(float x) {
 }
 
 // D[r] = sum_d o[r][d] * seen(do[r][d]), one warp per row, two columns a
-// lane (lanes past HD / 2 add 0)
+// lane (four at HD = 128; lanes past HD / 2 add 0)
 template <typename E, int HD>
 __global__ void __launch_bounds__(256)
     flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
@@ -146,6 +175,9 @@ __global__ void __launch_bounds__(256)
   if (2 * lane < HD)
     acc = ipdm::to_f32(o[at]) * seen(dout[at]) +
           ipdm::to_f32(o[at + 1]) * seen(dout[at + 1]);
+  if constexpr (HD > 64)  // two more columns a lane
+    acc += ipdm::to_f32(o[at + 64]) * seen(dout[at + 64]) +
+           ipdm::to_f32(o[at + 65]) * seen(dout[at + 65]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -154,9 +186,10 @@ __global__ void __launch_bounds__(256)
 
 // Shared memory. bf16: the resident tiles and a 4-slot TMA ring of U, W.
 // f32: hi and lo tiles of the resident rows, a 2-slot TMA staging ring of
-// f32 U, W (HD columns), and a double buffer of their split tiles. Every
-// bf16 tile is 1024-byte aligned (swizzle atoms), every staging tile
-// 128-byte aligned (TMA).
+// f32 U, W (HD columns), and a double buffer of their split tiles; at
+// HD = 128 (PRESPLIT) hi and lo tiles of the resident rows and one TMA
+// slot of U's and W's (192 KB). Every bf16 tile is 1024-byte aligned
+// (swizzle atoms), every staging tile 128-byte aligned (TMA).
 template <bool F32, int HD>
 struct Smem;
 template <int HD>
@@ -167,6 +200,15 @@ struct Smem<false, HD> {
   float lse[STAGES][BN], Dc[STAGES][BN];  // the slot's rows (dkv)
   uint64_t resbar, full[STAGES];
   int released[STAGES];  // warps done with the slot's tile
+};
+template <>
+struct Smem<true, 128> {
+  static constexpr int STAGES = 1;
+  bf16 res[NWG][2][2][TILE<128>];      // [warpgroup][X, Y][hi, lo]
+  bf16 ring[STAGES][2][2][TILE<128>];  // [slot][U, W][hi, lo]
+  float lse[STAGES][BN], Dc[STAGES][BN];
+  uint64_t resbar, full[STAGES];
+  int released[STAGES];
 };
 template <int HD>
 struct Smem<true, HD> {
@@ -218,27 +260,38 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NP][16],
   }
 }
 
+// the tensor maps of X, Y, U and W: [hi, lo] at HD = 128 in f32
+// (PRESPLIT: bf16 maps of the split scratch), part 0 alone otherwise (bf16
+// maps; f32 maps of the f32 rows in f32)
+struct Maps {
+  CUtensorMap x[2], y[2], u[2], w[2];
+};
+
 // A warp's loads, all 32 lanes: ring tile j into slot j % STAGES once the
 // slot is free (lane 0: TMA; in dkv every lane also copies two of the
 // tile's rows' lse and D with cp.async, rows past T zero-filled, and has
 // the slot's full barrier track them: nothing here waits on the loads)
 template <bool DKV, bool F32, int HD>
 __device__ __forceinline__ void issue(Smem<F32, HD>& sm, int j,
-                                      const CUtensorMap* tu,
-                                      const CUtensorMap* tw,
+                                      const Maps& maps,
                                       const float* lse, const float* D,
                                       int bh, int T) {
-  // two boxes: f32 rows of HD columns, or bf16 rows of HDP
-  constexpr uint32_t BYTES = 2 * (F32 ? BN * HD * 4 : TILE<HD> * 2);
+  constexpr int NP = F32 ? 2 : 1;
+  // f32 rows of HD columns, or NP bf16 tiles, of U and W
+  constexpr uint32_t BYTES =
+      2 * (STAGED<F32, HD> ? BN * HD * 4 : NP * TILE<HD> * 2);
   const int s = j % Smem<F32, HD>::STAGES, lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_expect_tx(&sm.full[s], BYTES);
-    if constexpr (F32) {
-      tma_load(sm.stage[s][0], tu, &sm.full[s], j * BN, bh);
-      tma_load(sm.stage[s][1], tw, &sm.full[s], j * BN, bh);
+    if constexpr (STAGED<F32, HD>) {
+      tma_load(sm.stage[s][0], &maps.u[0], &sm.full[s], j * BN, bh);
+      tma_load(sm.stage[s][1], &maps.w[0], &sm.full[s], j * BN, bh);
     } else {
-      tma_load(sm.ring[s][0][0], tu, &sm.full[s], j * BN, bh);
-      tma_load(sm.ring[s][1][0], tw, &sm.full[s], j * BN, bh);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        tma_tile<HD>(sm.ring[s][0][p], &maps.u[p], &sm.full[s], j * BN, bh);
+        tma_tile<HD>(sm.ring[s][1][p], &maps.w[p], &sm.full[s], j * BN, bh);
+      }
     }
   }
   if constexpr (DKV) {
@@ -256,18 +309,21 @@ __device__ __forceinline__ void issue(Smem<F32, HD>& sm, int j,
 }
 
 // One warpgroup: 64 resident rows against every ring tile.
-// The sums of dq, dk and dv are m64nHDP: HDP / 2 a thread, columns
-// 8n + c2 + {0, 1} for n < HDP / 8.
+// The sums of dq, dk and dv are m64nSUB: SUB / 2 a thread, columns
+// 8n + c2 + {0, 1} for n < SUB / 8 of the CTA's sub-tile (blockIdx.z at
+// HD = 128, whose CTAs each own 64 of the 128 output columns: S and dP
+// are rebuilt by both, 5 products of every 3 in dq and 6 of every 4 in
+// dkv, and each thread holds the sums of one half).
 template <bool DKV, bool F32, int HD, typename E>
 __device__ __forceinline__ void consume(
-    Smem<F32, HD>& sm, int wg, const CUtensorMap* tu, const CUtensorMap* tw,
+    Smem<F32, HD>& sm, int wg, const Maps& maps,
     const E* __restrict__ x, const E* __restrict__ y,
     const float* __restrict__ lse, const float* __restrict__ D,
     E* __restrict__ out0, E* __restrict__ out1, int T, float scale_log2,
     float scale2, int bh, int r0, int nt) {
   constexpr int STAGES = Smem<F32, HD>::STAGES;
   constexpr int NP = F32 ? 2 : 1;
-  constexpr int HDP = Head<HD>::HDP, NO = HDP / 2;
+  constexpr int HDP = Head<HD>::HDP, SUB = Head<HD>::SUB, NO = SUB / 2;
   // f32 below head dim 64: each ring tile's dQ (dK, dV) products summed
   // from zero, then added to the sums in f32. The tensor cores' f32 sums
   // do not round to nearest, and chained onto dQ over all 1782 key tiles
@@ -279,9 +335,13 @@ __device__ __forceinline__ void consume(
   const int c2 = (lane % 4) * 2;
   const int row0 = r0 + wg * BM + warp * 16 + lane / 4, row1 = row0 + 8;
   const size_t base = (size_t)bh * T * HD;
+  // this CTA's output sub-tile: its first column, and its offset in the
+  // ring tiles' descriptors (the B operands of the N = HD products)
+  const int half = Head<HD>::NSUB > 1 ? (int)blockIdx.z : 0;
+  const int hs = half * Head<HD>::SUB_UNITS;
 
-  if constexpr (F32) {  // this warpgroup's resident rows, split (the pad
-                        // columns past HD zeros)
+  if constexpr (STAGED<F32, HD>) {  // this warpgroup's resident rows,
+                                   // split (the pad columns past HD zeros)
     const int t = threadIdx.x % 128;
     for (int i = t; i < BM * (HDP / 4); i += 128) {
       const int r = i / (HDP / 4), c4 = i % (HDP / 4);
@@ -327,7 +387,8 @@ __device__ __forceinline__ void consume(
     const int s = j % STAGES;
     mbar_wait(&sm.full[s], (j / STAGES) & 1);
     bf16 *uh, *ul, *wh, *wl;
-    if constexpr (F32) {  // split the staged f32 tile; both warpgroups
+    if constexpr (STAGED<F32, HD>) {  // split the staged f32 tile; both
+                                     // warpgroups
       const int b = j & 1;
       for (int i = threadIdx.x; i < BN * (HDP / 4); i += NTHREADS) {
         const int r = i / (HDP / 4), c4 = i % (HDP / 4);
@@ -348,8 +409,10 @@ __device__ __forceinline__ void consume(
       wh = sm.ring[b][1][0];
       wl = sm.ring[b][1][1];
     } else {
-      uh = ul = sm.ring[s][0][0];
-      wh = wl = sm.ring[s][1][0];
+      uh = sm.ring[s][0][0];
+      ul = sm.ring[s][0][NP - 1];
+      wh = sm.ring[s][1][0];
+      wl = sm.ring[s][1][NP - 1];
     }
     const uint64_t uH = sw_desc<HD>(uh), uL = sw_desc<HD>(ul);
     const uint64_t wH = sw_desc<HD>(wh), wL = sw_desc<HD>(wl);
@@ -402,8 +465,8 @@ __device__ __forceinline__ void consume(
       reg_fence_a(pa);
       reg_fence_a(da);
       wg_fence();
-      product_rs<NP, HD>(t1, pa, wH, wL);
-      product_rs<NP, HD>(t0, da, uH, uL);
+      product_rs<NP, HD>(t1, pa, wH + hs, wL + hs);
+      product_rs<NP, HD>(t0, da, uH + hs, uL + hs);
       wg_commit();
       reg_fence(t0);
       reg_fence(t1);
@@ -423,8 +486,8 @@ __device__ __forceinline__ void consume(
       reg_fence_a(pa);
       reg_fence_a(da);
       wg_fence();
-      product_rs<NP, HD>(acc1, pa, wH, wL);
-      product_rs<NP, HD>(acc0, da, uH, uL);
+      product_rs<NP, HD>(acc1, pa, wH + hs, wL + hs);
+      product_rs<NP, HD>(acc0, da, uH + hs, uL + hs);
       wg_commit();
       reg_fence(acc0);
       reg_fence(acc1);
@@ -438,7 +501,7 @@ __device__ __forceinline__ void consume(
       reg_fence(t0);
       reg_fence_a(da);
       wg_fence();
-      product_rs<NP, HD>(t0, da, uH, uL);
+      product_rs<NP, HD>(t0, da, uH + hs, uL + hs);
       wg_commit();
       reg_fence(t0);
       wg_wait_all();
@@ -449,7 +512,7 @@ __device__ __forceinline__ void consume(
       reg_fence(acc0);
       reg_fence_a(da);
       wg_fence();
-      product_rs<NP, HD>(acc0, da, uH, uL);
+      product_rs<NP, HD>(acc0, da, uH + hs, uL + hs);
       wg_commit();
       reg_fence(acc0);
       wg_wait_all();
@@ -465,18 +528,19 @@ __device__ __forceinline__ void consume(
       __threadfence_block();
     }
     if (__shfl_sync(0xffffffffu, last, 0) && j + STAGES < nt)
-      issue<DKV, F32, HD>(sm, j + STAGES, tu, tw, lse, D, bh, T);
+      issue<DKV, F32, HD>(sm, j + STAGES, maps, lse, D, bh, T);
   }
 
-  // rows < T: dq = c acc0; or dk = c acc0, dv = acc1 (columns < HD)
+  // rows < T: dq = c acc0; or dk = c acc0, dv = acc1 (columns < HD of
+  // the CTA's sub-tile)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h ? row1 : row0;
     if (row >= T) continue;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < (HD < SUB ? HD : SUB) / 8; ++n) {
       const int i = 4 * n + 2 * h;
-      const size_t at = base + (size_t)row * HD + 8 * n + c2;
+      const size_t at = base + (size_t)row * HD + half * SUB + 8 * n + c2;
       if constexpr (F32) {
         *reinterpret_cast<float2*>(out0 + at) =
             make_float2(acc0[i] * scale2, acc0[i + 1] * scale2);
@@ -498,11 +562,9 @@ template <bool F32>
 using Elem = std::conditional_t<F32, float, bf16>;
 
 template <bool DKV, bool F32, int HD>
-__global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
-    flash_bwd_kernel(const __grid_constant__ CUtensorMap tx,
-                     const __grid_constant__ CUtensorMap ty,
-                     const __grid_constant__ CUtensorMap tu,
-                     const __grid_constant__ CUtensorMap tw,
+__global__ void __launch_bounds__(NTHREADS,
+                                  (DKV || F32 || HD == 128) ? 1 : 2)
+    flash_bwd_kernel(const __grid_constant__ Maps maps,
                      const Elem<F32>* __restrict__ x,
                      const Elem<F32>* __restrict__ y,
                      const float* __restrict__ lse,
@@ -526,26 +588,31 @@ __global__ void __launch_bounds__(NTHREADS, (DKV || F32) ? 1 : 2)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x < 32) {  // warp 0: the resident tiles (bf16), the first
-                           // STAGES ring tiles
-    if constexpr (!F32) {
+  if (threadIdx.x < 32) {  // warp 0: the resident tiles (bf16 and
+                           // PRESPLIT), the first STAGES ring tiles
+    if constexpr (!STAGED<F32, HD>) {
+      constexpr int NP = F32 ? 2 : 1;
       if (threadIdx.x == 0) {
-        mbar_expect_tx(&sm.resbar, NWG * 2 * TILE<HD> * 2);
-        for (int w = 0; w < NWG; ++w) {
-          tma_load(sm.res[w][0][0], &tx, &sm.resbar, r0 + w * BM, bh);
-          tma_load(sm.res[w][1][0], &ty, &sm.resbar, r0 + w * BM, bh);
-        }
+        mbar_expect_tx(&sm.resbar, NWG * 2 * NP * TILE<HD> * 2);
+        for (int w = 0; w < NWG; ++w)
+          for (int p = 0; p < NP; ++p) {
+            tma_tile<HD>(sm.res[w][0][p], &maps.x[p], &sm.resbar,
+                         r0 + w * BM, bh);
+            tma_tile<HD>(sm.res[w][1][p], &maps.y[p], &sm.resbar,
+                         r0 + w * BM, bh);
+          }
       }
     }
     for (int j = 0; j < S::STAGES && j < nt; ++j)
-      issue<DKV, F32, HD>(sm, j, &tu, &tw, lse, D, bh, T);
+      issue<DKV, F32, HD>(sm, j, maps, lse, D, bh, T);
   }
-  consume<DKV, F32, HD>(sm, threadIdx.x / 128, &tu, &tw, x, y, lse, D, out0,
-                    out1, T, scale_log2, scale2, bh, r0, nt);
+  consume<DKV, F32, HD>(sm, threadIdx.x / 128, maps, x, y, lse, D, out0,
+                        out1, T, scale_log2, scale2, bh, r0, nt);
 }
 
 // X, Y resident and U, W walked: (q, do, k, v) for dq, (k, v, q, do) for
-// dkv
+// dkv; under PRESPLIT each is the hi part of that tensor's split, its lo
+// part BH * T * HD elements on
 template <bool DKV, bool F32, int HD>
 int launch(const void* x, const void* y, const void* u, const void* w,
            const void* lse, const void* D, void* out0, void* out1, int BH,
@@ -560,23 +627,54 @@ int launch(const void* x, const void* y, const void* u, const void* w,
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  const auto map = F32 ? make_map_f32<HD> : make_map<HD>;
-  CUtensorMap tx, ty, tu, tw;
-  if (!map(&tx, x, BH, T) || !map(&ty, y, BH, T) || !map(&tu, u, BH, T) ||
-      !map(&tw, w, BH, T))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((T + BR - 1) / BR, BH);
+  Maps maps{};
+  bool ok;
+  if constexpr (PRESPLIT<F32, HD>) {
+    const size_t n = (size_t)BH * T * HD;
+    const bf16 *px = static_cast<const bf16*>(x),
+               *py = static_cast<const bf16*>(y),
+               *pu = static_cast<const bf16*>(u),
+               *pw = static_cast<const bf16*>(w);
+    ok = true;
+    for (int p = 0; p < 2; ++p)
+      ok = ok && make_map<HD>(&maps.x[p], px + p * n, BH, T) &&
+           make_map<HD>(&maps.y[p], py + p * n, BH, T) &&
+           make_map<HD>(&maps.u[p], pu + p * n, BH, T) &&
+           make_map<HD>(&maps.w[p], pw + p * n, BH, T);
+    x = y = nullptr;  // the kernel reads the resident rows by TMA
+  } else {
+    const auto map = F32 ? make_map_f32<HD> : make_map<HD>;
+    ok = map(&maps.x[0], x, BH, T) && map(&maps.y[0], y, BH, T) &&
+         map(&maps.u[0], u, BH, T) && map(&maps.w[0], w, BH, T);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  dim3 grid((T + BR - 1) / BR, BH, Head<HD>::NSUB);
   flash_bwd_kernel<DKV, F32, HD><<<grid, NTHREADS, SMEM_BYTES, st>>>(
-      tx, ty, tu, tw, static_cast<const E*>(x), static_cast<const E*>(y),
+      maps, static_cast<const E*>(x), static_cast<const E*>(y),
       static_cast<const float*>(lse), static_cast<const float*>(D),
       static_cast<E*>(out0), static_cast<E*>(out1), T, scale_log2, scale2);
   return (int)cudaGetLastError();
 }
 
+// PRESPLIT: hi and lo of q, k, v and dO into split ([8][BH * T * HD]
+// bf16, tensor i's hi at 2i, its lo at 2i + 1), and hi[i] = tensor i's
+// hi part
+template <int HD>
+int presplit(const void* q, const void* k, const void* v, const void* dout,
+             void* split, int BH, int T, const void* (&hi)[4],
+             cudaStream_t st) {
+  const size_t n = (size_t)BH * T * HD;
+  const void* src[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    hi[i] = static_cast<const bf16*>(split) + 2 * i * n;
+  return split_launch(src, 4, split, n, st);
+}
+
 template <bool F32, int HD>
 int dq_launch(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, void* D, void* dq, int BH,
-              int T, float scale_log2, float scale2, cudaStream_t st) {
+              const void* dout, const void* lse, void* D, void* dq,
+              void* split, int BH, int T, float scale_log2, float scale2,
+              cudaStream_t st) {
   using E = Elem<F32>;
   const int rows = BH * T;
   flash_bwd_dot_kernel<E, HD><<<(rows + 7) / 8, 256, 0, st>>>(
@@ -584,44 +682,72 @@ int dq_launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<float*>(D), rows);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch<false, F32, HD>(q, dout, k, v, lse, D, dq, nullptr, BH, T,
-                                scale_log2, scale2, st);
+  if constexpr (PRESPLIT<F32, HD>) {
+    const void* hi[4];
+    const int es = presplit<HD>(q, k, v, dout, split, BH, T, hi, st);
+    if (es != 0) return es;
+    return launch<false, F32, HD>(hi[0], hi[3], hi[1], hi[2], lse, D, dq,
+                                  nullptr, BH, T, scale_log2, scale2, st);
+  } else {
+    return launch<false, F32, HD>(q, dout, k, v, lse, D, dq, nullptr, BH, T,
+                                  scale_log2, scale2, st);
+  }
+}
+
+template <bool F32, int HD>
+int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* D, void* dk, void* dv,
+               void* split, int BH, int T, float scale_log2, float scale2,
+               cudaStream_t st) {
+  if constexpr (PRESPLIT<F32, HD>) {
+    const void* hi[4];
+    const int es = presplit<HD>(q, k, v, dout, split, BH, T, hi, st);
+    if (es != 0) return es;
+    return launch<true, F32, HD>(hi[1], hi[2], hi[0], hi[3], lse, D, dk, dv,
+                                 BH, T, scale_log2, scale2, st);
+  } else {
+    return launch<true, F32, HD>(k, v, q, dout, lse, D, dk, dv, BH, T,
+                                 scale_log2, scale2, st);
+  }
 }
 
 template <int HD>
 int dq_entry(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const void* lse, void* D, void* dq, int BH,
-             int T, float scale_log2, float scale2, int is_bf16,
-             cudaStream_t st) {
-  return is_bf16 ? dq_launch<false, HD>(q, k, v, o, dout, lse, D, dq, BH, T,
-                                        scale_log2, scale2, st)
-                 : dq_launch<true, HD>(q, k, v, o, dout, lse, D, dq, BH, T,
-                                       scale_log2, scale2, st);
+             const void* dout, const void* lse, void* D, void* dq,
+             void* split, int BH, int T, float scale_log2, float scale2,
+             int is_bf16, cudaStream_t st) {
+  return is_bf16 ? dq_launch<false, HD>(q, k, v, o, dout, lse, D, dq, split,
+                                        BH, T, scale_log2, scale2, st)
+                 : dq_launch<true, HD>(q, k, v, o, dout, lse, D, dq, split,
+                                       BH, T, scale_log2, scale2, st);
 }
 
 template <int HD>
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* D, void* dk, void* dv, int BH,
-              int T, float scale_log2, float scale2, int is_bf16,
-              cudaStream_t st) {
-  return is_bf16 ? launch<true, false, HD>(k, v, q, dout, lse, D, dk, dv, BH,
-                                           T, scale_log2, scale2, st)
-                 : launch<true, true, HD>(k, v, q, dout, lse, D, dk, dv, BH,
-                                          T, scale_log2, scale2, st);
+              const void* lse, const void* D, void* dk, void* dv,
+              void* split, int BH, int T, float scale_log2, float scale2,
+              int is_bf16, cudaStream_t st) {
+  return is_bf16 ? dkv_launch<false, HD>(q, k, v, dout, lse, D, dk, dv,
+                                         split, BH, T, scale_log2, scale2, st)
+                 : dkv_launch<true, HD>(q, k, v, dout, lse, D, dk, dv, split,
+                                        BH, T, scale_log2, scale2, st);
 }
 
 }  // namespace
 
 // D = rowsum(o * do) (f32: with do's hi + lo, see above), then dQ. q, k, v,
 // o, do, dq: [BH, T, hd] bf16 (is_bf16 = 1) or f32, contiguous, 16-byte
-// aligned, hd in {8, 16, 32, 64}; lse, D: [BH, T] f32 (D written here,
-// read by flash_bwd_dkv_launch). scale_log2 = scale2 * log2(e). Returns
-// cudaGetLastError() (cudaErrorInvalidValue for bad sizes, another hd, or
-// a tensor map that cuTensorMapEncodeTiled refuses).
+// aligned, hd in {8, 16, 32, 64, 128}; lse, D: [BH, T] f32 (D written
+// here, read by flash_bwd_dkv_launch); split: for f32 at hd 128 a
+// [8, BH, T, hd] bf16 scratch (16-byte aligned) for hi and lo of q, k, v
+// and do, else unused (may be null). scale_log2 = scale2 * log2(e).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for bad sizes,
+// another hd, or a tensor map that cuTensorMapEncodeTiled refuses).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse, void* D,
-                                   void* dq, int BH, int T, int hd,
+                                   void* dq, void* split, int BH, int T,
+                                   int hd,
                                    float scale_log2, float scale2,
                                    int is_bf16, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
@@ -629,19 +755,21 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   switch (hd) {
 #define IPDM_DQ(H)                                                        \
   case H:                                                                 \
-    return dq_entry<H>(q, k, v, o, dout, lse, D, dq, BH, T, scale_log2,   \
-                       scale2, is_bf16, st);
+    return dq_entry<H>(q, k, v, o, dout, lse, D, dq, split, BH, T,        \
+                       scale_log2, scale2, is_bf16, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_DQ)
 #undef IPDM_DQ
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dK and dV from the same inputs and the D of flash_bwd_dq_launch.
+// dK and dV from the same inputs and the D of flash_bwd_dq_launch (split
+// as there).
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* D, void* dk,
-                                    void* dv, int BH, int T, int hd,
+                                    void* dv, void* split, int BH, int T,
+                                    int hd,
                                     float scale_log2, float scale2,
                                     int is_bf16, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
@@ -649,8 +777,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   switch (hd) {
 #define IPDM_DKV(H)                                                       \
   case H:                                                                 \
-    return dkv_entry<H>(q, k, v, dout, lse, D, dk, dv, BH, T, scale_log2, \
-                        scale2, is_bf16, st);
+    return dkv_entry<H>(q, k, v, dout, lse, D, dk, dv, split, BH, T,      \
+                        scale_log2, scale2, is_bf16, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_DKV)
 #undef IPDM_DKV
     default: return (int)cudaErrorInvalidValue;

@@ -3,23 +3,31 @@
 // tensors, wgmma m64nNk16 in bf16 with f32 sums, f32 products as three
 // bf16 passes, and the register layouts between them.
 //
-// Head dimensions: the kernels are templates over HD in {8, 16, 32, 64}
-// (ops/cuda/attention.py FLASH_HEAD_DIMS). A tile of 64 rows lies in
-// shared memory HDP = max(HD, 16) columns wide: bf16 wgmma takes K in
-// steps of 16, so at HD = 8 the contraction over the head dimension runs
-// on operands zero-padded to 16 (the TMA box is 16 columns over an
-// 8-column tensor and reads the pad as zeros, as it reads rows past T).
-// A row is 2 * HDP bytes (128, 64 or 32), and the swizzle of the TMA maps
-// and of the wgmma descriptors follows it: 128-, 64- or 32-byte swizzle,
-// 8-row groups 8 * 2 * HDP bytes apart. Products with N = HD (P V, dS K,
-// dS^T Q, P^T dO) run at N = HDP: 16 at HD = 8, where the pad columns of
-// V, K, Q and dO are zeros and the output's pad columns are not written.
+// Head dimensions: the kernels are templates over HD in {8, 16, 32, 64,
+// 128} (ops/cuda/attention.py FLASH_HEAD_DIMS; other head dims up to 128
+// run on the next instance up, zero-padded by the wrapper). A tile of 64
+// rows lies in shared memory HDP = max(HD, 16) columns wide: bf16 wgmma
+// takes K in steps of 16, so at HD = 8 the contraction over the head
+// dimension runs on operands zero-padded to 16 (the TMA box is 16 columns
+// over an 8-column tensor and reads the pad as zeros, as it reads rows
+// past T). A tile is NSUB sub-tiles of SUB = min(HDP, 64) columns, each a
+// TMA box of its own: one at HD <= 64, two at HD = 128, whose 256-byte
+// rows are wider than the largest (128-byte) swizzle. A sub-tile row is
+// 2 * SUB bytes (128, 64 or 32), and the swizzle of the TMA maps and of
+// the wgmma descriptors follows it: 128-, 64- or 32-byte swizzle, 8-row
+// groups 8 * 2 * SUB bytes apart. A K-major contraction over the head
+// dimension moves to the second sub-tile after four k16 steps. Products
+// with N = HD (P V, dS K, dS^T Q, P^T dO) run one sub-tile at a time at
+// N = SUB: 16 at HD = 8, where the pad columns of V, K, Q and dO are
+// zeros and the output's pad columns are not written; two N = 64 halves
+// at HD = 128.
 //
 // Accumulator layout (m64nN f32): warp w of the warpgroup holds rows
 // 16w + lane/4 (registers 4n, 4n+1) and 16w + lane/4 + 8 (4n+2, 4n+3), at
-// columns 8n + 2*(lane%4) + {0, 1}, n = 0..7. Packed to bf16 pairs, the
-// m64n64 accumulator is the m64k16 register-A fragment of four wgmmas:
-// fragment kk is registers 4kk .. 4kk+3 of the packed array
+// columns 8n + 2*(lane%4) + {0, 1}, n = 0..N/8-1 (so the m64n128 sums are
+// the two m64n64 halves' registers one after the other). Packed to bf16
+// pairs, the m64n64 accumulator is the m64k16 register-A fragment of four
+// wgmmas: fragment kk is registers 4kk .. 4kk+3 of the packed array
 // (pack_bf16(d[4n], d[4n+1]) at 2n, pack_bf16(d[4n+2], d[4n+3]) at 2n+1).
 #pragma once
 
@@ -36,7 +44,7 @@ namespace hopper {
 // each in the entry points' switches (flash_attn.cu, flash_bwd.cu).
 // ops/cuda/_build.py FLASH_HEAD_DIMS names the same set on the Python
 // side; tests/test_torch_flash_head_dims.py holds the two equal
-#define IPDM_FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64)
+#define IPDM_FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64) X(128)
 
 constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
                               // largest swizzle atom
@@ -44,10 +52,14 @@ constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
 // the shared-memory layout of a 64-row bf16 tile of head dimension HD
 template <int HD>
 struct Head {
-  static_assert(HD == 8 || HD == 16 || HD == 32 || HD == 64,
+  static_assert(HD == 8 || HD == 16 || HD == 32 || HD == 64 || HD == 128,
                 "the layout takes rows of 32, 64 or 128 bytes");
   static constexpr int HDP = HD < 16 ? 16 : HD;  // columns in shared memory
-  static constexpr int ROW = 2 * HDP;            // bytes of a row
+  static constexpr int SUB = HDP < 64 ? HDP : 64;  // columns of a sub-tile
+  static constexpr int NSUB = HDP / SUB;          // sub-tiles of a tile
+  static constexpr int ROW = 2 * SUB;             // bytes of a sub-tile row
+  // a sub-tile's bytes (64 rows), in wgmma descriptor units of 16 bytes
+  static constexpr int SUB_UNITS = 64 * ROW >> 4;
   // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
   // swizzle
   static constexpr int LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
@@ -57,6 +69,12 @@ struct Head {
                   : CU_TENSOR_MAP_SWIZZLE_32B;
   // a 16-row step of an MN-major (transposed) B operand, descriptor units
   static constexpr int MN_STEP = 16 * ROW >> 4;
+  // k16 step kk of a K-major operand over the head dimension, descriptor
+  // units from the tile's start: 32 bytes a step within a sub-tile, the
+  // next sub-tile after SUB / 16 steps
+  static constexpr __host__ __device__ int k_step(int kk) {
+    return kk / (SUB / 16) * SUB_UNITS + 2 * (kk % (SUB / 16));
+  }
 };
 
 // byte offset of the 16-byte chunk at ``o`` (row-major offset in a tile of
@@ -118,24 +136,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// TMA: one box of the 3-D tensor map at (0, row, bh) into shared memory
+// TMA: one box of the 3-D tensor map at (col, row, bh) into shared memory
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int bh) {
+                                         uint64_t* bar, int row, int bh,
+                                         int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(bh)
       : "memory");
 }
 
+// a 64-row bf16 tile of Head<HD>'s layout at (row, bh) of a make_map<HD>
+// map into dst (1024-byte aligned): one TMA box per sub-tile
+template <int HD>
+__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  using H = Head<HD>;
+#pragma unroll
+  for (int h = 0; h < H::NSUB; ++h)
+    tma_load(dst + h * 64 * H::SUB, map, bar, row, bh, h * H::SUB);
+}
+
 // wgmma shared-memory descriptor of a tile of Head<HD>'s layout
 // (1024-byte aligned): start address, leading offset 16 B (unused by the
-// swizzled layouts at these widths: a tile is one swizzle atom wide),
+// swizzled layouts at these widths: a sub-tile is one swizzle atom wide),
 // stride offset 8 rows (1024, 512 or 256 B) between groups of 8 rows, the
 // swizzle of the row's bytes. For a K-major operand (Q, K) a 16-element
-// step along K adds 32 B to the start; for an MN-major one (V) a 16-row
-// step adds 16 rows (MN_STEP).
+// step along K adds Head<HD>::k_step; for an MN-major one (V) a 16-row
+// step adds 16 rows (MN_STEP), and sub-tile h starts h * SUB_UNITS on.
 template <int HD>
 __device__ __forceinline__ uint64_t sw_desc(const void* tile) {
   using H = Head<HD>;
@@ -265,27 +296,29 @@ template <bool F32, int HD>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint64_t aH,
                                            uint64_t aL, uint64_t bH,
                                            uint64_t bL) {
-  constexpr int KS = Head<HD>::HDP / 16;
+  using H = Head<HD>;
+  constexpr int KS = H::HDP / 16;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    wgmma_ss(d, aH + 2 * kk, bH + 2 * kk, kk);
+    wgmma_ss(d, aH + H::k_step(kk), bH + H::k_step(kk), kk);
   if constexpr (F32) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_ss(d, aH + 2 * kk, bL + 2 * kk, 1);
+      wgmma_ss(d, aH + H::k_step(kk), bL + H::k_step(kk), 1);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_ss(d, aL + 2 * kk, bH + 2 * kk, 1);
+      wgmma_ss(d, aL + H::k_step(kk), bH + H::k_step(kk), 1);
   }
 }
 
 // d += A B over a 64-row tile (K = 64), A in registers, B MN-major in
-// shared memory with N = HDP: one pass, or three
+// shared memory with N = SUB (one sub-tile: bH, bL its descriptors): one
+// pass, or three
 template <int NP, int HD>
-__device__ __forceinline__ void product_rs(float (&d)[Head<HD>::HDP / 2],
+__device__ __forceinline__ void product_rs(float (&d)[Head<HD>::SUB / 2],
                                            const uint32_t (&a)[NP][16],
                                            uint64_t bH, uint64_t bL) {
-  constexpr int N = Head<HD>::HDP, STEP = Head<HD>::MN_STEP;
+  constexpr int N = Head<HD>::SUB, STEP = Head<HD>::MN_STEP;
 #pragma unroll
   for (int kk = 0; kk < 64 / 16; ++kk)
     wgmma_rs<N>(d, a[0][4 * kk], a[0][4 * kk + 1], a[0][4 * kk + 2],
@@ -300,6 +333,15 @@ __device__ __forceinline__ void product_rs(float (&d)[Head<HD>::HDP / 2],
       wgmma_rs<N>(d, a[1][4 * kk], a[1][4 * kk + 1], a[1][4 * kk + 2],
                   a[1][4 * kk + 3], bH + kk * STEP);
   }
+}
+
+// sub-tile h's N = SUB sums of an m64nHDP accumulator (the m64n128 sums
+// are two m64n64 halves one after the other; below 128, d itself)
+template <int HD>
+__device__ __forceinline__ float (&sub_of(float (&d)[Head<HD>::HDP / 2],
+                                          int h))[Head<HD>::SUB / 2] {
+  return *reinterpret_cast<float(*)[Head<HD>::SUB / 2]>(
+      &d[h * (Head<HD>::SUB / 2)]);
 }
 
 template <int NP>
@@ -317,6 +359,45 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // (wgmma operands read from shared memory)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The f32 bodies' split pre-pass (flash_attn.cu's forward, flash_bwd.cu's
+// backward at HD = 128): hi and lo of n4 float4s of each of the gridDim.y
+// (<= 4) tensors t0 .. t3 into dst: [2 * gridDim.y][n] bf16, tensor y's hi
+// at 2y, its lo at 2y + 1
+static __global__ void __launch_bounds__(256)
+    split_kernel(const float4* __restrict__ t0, const float4* __restrict__ t1,
+                 const float4* __restrict__ t2, const float4* __restrict__ t3,
+                 uint2* __restrict__ dst, size_t n4) {
+  const float4* src = blockIdx.y == 0   ? t0
+                      : blockIdx.y == 1 ? t1
+                      : blockIdx.y == 2 ? t2
+                                        : t3;
+  uint2* hi = dst + 2 * blockIdx.y * n4;
+  uint2* lo = hi + n4;
+  for (size_t i = blockIdx.x * 256 + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * 256) {
+    const float4 x = src[i];
+    uint2 h, l;
+    split2(x.x, x.y, h.x, l.x);
+    split2(x.z, x.w, h.y, l.y);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// split_kernel over the ``count`` (<= 4) f32 tensors of n elements each
+// (n a multiple of 4) at src, into split; returns cudaGetLastError()
+static inline int split_launch(const void* const* src, int count,
+                               void* split, size_t n, cudaStream_t st) {
+  const float4* t[4] = {nullptr, nullptr, nullptr, nullptr};
+  for (int i = 0; i < count; ++i) t[i] = static_cast<const float4*>(src[i]);
+  const size_t n4 = n / 4;
+  const unsigned gx = (unsigned)((n4 + 255) / 256 < 132 * 8
+                                     ? (n4 + 255) / 256 : 132 * 8);
+  split_kernel<<<dim3(gx, count), 256, 0, st>>>(
+      t[0], t[1], t[2], t[3], static_cast<uint2*>(split), n4);
+  return (int)cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, looked up once per process through the CUDA
@@ -346,7 +427,7 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// [BH, T, HD] bf16 as a 3-D map, innermost first, HDP x 64 x 1 boxes in
+// [BH, T, HD] bf16 as a 3-D map, innermost first, SUB x 64 x 1 boxes in
 // Head<HD>'s swizzle; rows past T, and at HD = 8 the columns past 8, read
 // as zeros
 template <int HD>
@@ -355,7 +436,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int BH, int T) {
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {HD, (cuuint64_t)T, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {HD * 2, (cuuint64_t)T * HD * 2};
-  const cuuint32_t box[3] = {Head<HD>::HDP, 64, 1};
+  const cuuint32_t box[3] = {Head<HD>::SUB, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

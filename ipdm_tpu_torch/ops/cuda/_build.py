@@ -45,13 +45,13 @@ SIGNATURES = {
     # q, k, v, split (scratch), out, lse (or null), BH, T, hd, scale_log2,
     # stream
     "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, I, ctypes.c_float, P],
-    # q, k, v, out, do, lse, D, dq, BH, T, hd, scale_log2, scale2, bf16,
-    # stream
-    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
-                            ctypes.c_float, I, P],
-    # q, k, v, do, lse, D, dk, dv, BH, T, hd, scale_log2, scale2, bf16,
-    # stream
-    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, I, I, I,
+    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd 128, or
+    # null), BH, T, hd, scale_log2, scale2, bf16, stream
+    "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
+                            ctypes.c_float, ctypes.c_float, I, P],
+    # q, k, v, do, lse, D, dk, dv, split (as dq's), BH, T, hd, scale_log2,
+    # scale2, bf16, stream
+    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                              ctypes.c_float, ctypes.c_float, I, P],
     # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
     "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
@@ -65,13 +65,15 @@ SIGNATURES = {
     "bp_shift_single_launch": [P, P, P, P, P, I, I, I, P],
 }
 
-# the head dimensions the flash kernels are instantiated for: every head
-# dim of an attention block at T >= FLASH_MIN_SEQ in the UNets the repo
-# ships (the presets' and FULL_ARCH's 64; the ablation UNets' middle block
-# at 8; the flagship-small UNet's at 16; tests/test_torch_flash_head_dims.py
-# walks them). csrc/hopper.cuh IPDM_FLASH_HEAD_DIMS lists the same set for
-# the entry points' switches
-FLASH_HEAD_DIMS = (8, 16, 32, 64)
+# the head dimensions the flash kernels are instantiated for: the UNets the
+# repo ships reach 64 (the presets' and FULL_ARCH's), 8 (the ablation
+# UNets' middle block) and 16 (the flagship-small UNet); 128 is the head
+# dim of the presets at model_channels 128. Every other head dim up to 128
+# runs on the next instance up, zero-padded (ops/cuda/attention.py
+# flash_instance; tests/test_torch_flash_head_dims.py walks the UNets).
+# csrc/hopper.cuh IPDM_FLASH_HEAD_DIMS lists the same set for the entry
+# points' switches
+FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def flash_counter(name: str, hd: int) -> str:

@@ -12,6 +12,14 @@ split operands); on a CPU tensor it runs :func:`attention_plain`, the einsum
 formula of unet.py:659-662. Shorter sequences take :func:`attention_plain`
 on every device, as the JAX package does.
 
+The kernels are instantiated at the head dims :data:`FLASH_HEAD_DIMS`; any
+other head dim up to 128 runs on the next instance up
+(:func:`flash_instance`): the wrappers zero-pad q, k, v (and out, do) to
+its width and cut the outputs back. Zero columns add nothing to q·kᵀ, to
+rowsum(do ∘ out) or to do·vᵀ, and the caller's scale is that of the real
+head dim, so the result is the function at the real head dim. Head dims
+above 128 raise before any launch.
+
 Where grad mode is on and q, k or v requires a gradient, the call goes
 through an ``autograd.Function``. Its forward also returns the softmax's
 log-normaliser per query row (lse, the counterpart of the TPU kernel's
@@ -111,8 +119,8 @@ def attention_bwd_plain(q, k, v, out, lse, do, scale, D=None):
 def flash_attention(q, k, v, scale):
     """The same function as :func:`attention_plain`. The kernels apply
     scale² once to the f32 score instead of scale to each operand, and
-    take contiguous [BH, T, hd] tensors in bf16 or f32, hd in
-    :data:`FLASH_HEAD_DIMS`. Differentiable in
+    take contiguous [BH, T, hd] tensors in bf16 or f32, hd up to 128
+    (:func:`flash_instance`). Differentiable in
     q, k and v (backward by the flash backward kernels on the card)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -160,12 +168,43 @@ def _check(name, tensors, like):
                              "aligned")
 
 
+def flash_instance(hd: int) -> int:
+    """The head dim of the kernel instance that runs head dim ``hd``: the
+    smallest of :data:`FLASH_HEAD_DIMS` not below it (1-7 on 8, 9-15 on
+    16, 17-31 on 32, 33-63 on 64, 65-127 on 128). Raises ValueError
+    outside 1..128."""
+    for inst in FLASH_HEAD_DIMS:
+        if 1 <= hd <= inst:
+            return inst
+    raise ValueError(
+        f"flash attention: head dim {hd} is outside 1..{FLASH_HEAD_DIMS[-1]}"
+        f", the head dims the flash kernels run (an attention block's head "
+        f"dim is its channels ÷ its 4 heads: model_channels_img / "
+        f"model_channels_proj times channel_mult at that level, ÷ 4)")
+
+
 def _check_cuda(name, q):
+    """q is a [BH, T, hd] CUDA tensor with a head dim up to 128; returns
+    the instance that runs it."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.dim() != 3 or q.shape[2] not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: q {tuple(q.shape)} must be [BH, T, hd] "
-                         f"with hd in {FLASH_HEAD_DIMS}")
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be [BH, T, hd]")
+    return flash_instance(q.shape[2])
+
+
+def _pad(inst, *tensors):
+    """Each tensor zero-padded along its last dim to ``inst`` columns (a
+    copy), or as it is where it has them."""
+    return [t if t.shape[-1] == inst else
+            torch.nn.functional.pad(t, (0, inst - t.shape[-1]))
+            for t in tensors]
+
+
+def _cut(hd, *tensors):
+    """Each tensor's first ``hd`` columns, contiguous."""
+    return [t if t.shape[-1] == hd else t[..., :hd].contiguous()
+            for t in tensors]
 
 
 def _check_rows(name, tensors, q):
@@ -186,24 +225,37 @@ def _forward(q, k, v, scale, with_lse=False):
         if with_lse:
             return attention_lse_plain(q, k, v, scale)
         return attention_plain(q, k, v, scale)
-    _check_cuda("flash_attention", q)
+    inst = _check_cuda("flash_attention", q)
+    hd = q.shape[2]
+    q, k, v = _pad(inst, q, k, v)
     _check("flash_attention", (("q", q), ("k", k), ("v", v)), q)
-    BH, T, hd = q.shape
+    BH, T, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((BH, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     entry, counter = _FORWARD[q.dtype]
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if q.dtype == torch.float32:   # the kernel's bf16 hi and lo of q, k, v
-        split = torch.empty((6, BH, T, hd), dtype=torch.bfloat16,
+        split = torch.empty((6, BH, T, inst), dtype=torch.bfloat16,
                             device=q.device)
         ptrs.append(split.data_ptr())
     code = getattr(_build.library(), entry)(
         *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(), BH,
-        T, hd, scale * scale * math.log2(math.e), _build.stream_ptr(q))
+        T, inst, scale * scale * math.log2(math.e), _build.stream_ptr(q))
     _build.check(code, counter)
-    _build.LAUNCHES[_build.flash_counter(counter, hd)] += 1
+    _build.LAUNCHES[_build.flash_counter(counter, inst)] += 1
+    out, = _cut(hd, out)
     return (out, lse) if with_lse else out
+
+
+def _bwd_split(q, inst):
+    """The backward kernels' scratch for hi and lo of q, k, v and do: f32
+    at head dim 128 (else None, passed as null)."""
+    if q.dtype != torch.float32 or inst != 128:
+        return None
+    BH, T, _ = q.shape
+    return torch.empty((8, BH, T, inst), dtype=torch.bfloat16,
+                       device=q.device)
 
 
 def flash_bwd_dq(q, k, v, out, lse, do, scale):
@@ -216,20 +268,25 @@ def flash_bwd_dq(q, k, v, out, lse, do, scale):
         D = _rowsum(out, do)
         _, ks, _, _, ds = _probs_ds(q, k, v, lse, do, D, scale)
         return (torch.matmul(ds, ks) * scale).to(q.dtype), D
-    _check_cuda("flash_bwd_dq", q)
+    inst = _check_cuda("flash_bwd_dq", q)
+    hd = q.shape[2]
+    q, k, v, out, do = _pad(inst, q, k, v, out, do)
     _check("flash_bwd_dq", (("q", q), ("k", k), ("v", v), ("out", out),
                             ("do", do)), q)
     _check_rows("flash_bwd_dq", (("lse", lse),), q)
-    BH, T, hd = q.shape
+    BH, T, _ = q.shape
     dq = torch.empty_like(q)
     D = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    split = _bwd_split(q, inst)
     code = _build.library().flash_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(), BH, T,
-        hd, scale * scale * math.log2(math.e), scale * scale,
+        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        None if split is None else split.data_ptr(), BH, T, inst,
+        scale * scale * math.log2(math.e), scale * scale,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dq")
-    _build.LAUNCHES[_build.flash_counter("flash_bwd_dq", hd)] += 1
+    _build.LAUNCHES[_build.flash_counter("flash_bwd_dq", inst)] += 1
+    dq, = _cut(hd, dq)
     return dq, D
 
 
@@ -242,16 +299,20 @@ def flash_bwd_dkv(q, k, v, lse, do, D, scale):
         qs, _, dof, p, ds = _probs_ds(q, k, v, lse, do, D, scale)
         return ((torch.matmul(ds.transpose(1, 2), qs) * scale).to(k.dtype),
                 torch.matmul(p.transpose(1, 2), dof).to(v.dtype))
-    _check_cuda("flash_bwd_dkv", q)
+    inst = _check_cuda("flash_bwd_dkv", q)
+    hd = q.shape[2]
+    q, k, v, do = _pad(inst, q, k, v, do)
     _check("flash_bwd_dkv", (("q", q), ("k", k), ("v", v), ("do", do)), q)
     _check_rows("flash_bwd_dkv", (("lse", lse), ("D", D)), q)
-    BH, T, hd = q.shape
+    BH, T, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    split = _bwd_split(q, inst)
     code = _build.library().flash_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, T,
-        hd, scale * scale * math.log2(math.e), scale * scale,
+        lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if split is None else split.data_ptr(), BH, T, inst,
+        scale * scale * math.log2(math.e), scale * scale,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dkv")
-    _build.LAUNCHES[_build.flash_counter("flash_bwd_dkv", hd)] += 1
-    return dk, dv
+    _build.LAUNCHES[_build.flash_counter("flash_bwd_dkv", inst)] += 1
+    return tuple(_cut(hd, dk, dv))

@@ -29,7 +29,12 @@ and on each input:
   distance from each other (bf16: none allowed: out and lse bit for
   bit; the backward's dq, dk, dv and D printed too), and SDPA's time in
   the same call beside the A B B A; a parent whose flash entries take
-  the head dimension (attention.py FLASH_HEAD_DIMS) gets 64;
+  the head dimension (attention.py FLASH_HEAD_DIMS) gets the tensors'
+  (and a null split scratch where its backward entries take one);
+* where the parent's kernels take the head dimension, its forward and
+  backward against this tree's at head dims 8, 16 and 32 (both dtypes)
+  on seeded inputs at T = 4097: the largest parent − new distance of
+  every output;
 * times the parent's kernel (launched bare) and this tree's (through
   its wrapper, with the host bounds the main path passes), back to back
   with the stream held by a spin kernel (device time), in the order
@@ -97,6 +102,14 @@ def parent_takes_hd(parent: Path) -> bool:
                                  / "attention.py").read_text()
 
 
+def parent_bwd_takes_split(parent: Path) -> bool:
+    """Whether the parent's flash backward entries take a split scratch
+    pointer after dq / dv (the f32 hd-128 instances' hi and lo of q, k,
+    v, do)."""
+    return "_bwd_split" in (parent / "ipdm_tpu_torch" / "ops" / "cuda"
+                            / "attention.py").read_text()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -136,11 +149,22 @@ def build_parent(parent: Path) -> ctypes.CDLL:
             if name in HD_ENTRIES and parent_takes_hd(parent):
                 at = argtypes.index(I) + 2    # after BH, T
                 argtypes = argtypes[:at] + [I] + argtypes[at:]
+            if (name in ("flash_bwd_dq_launch", "flash_bwd_dkv_launch")
+                    and parent_bwd_takes_split(parent)):
+                argtypes = argtypes[:8] + [P] + argtypes[8:]
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.f32_takes_split = parent_f32_takes_split(parent)
-    # the head-dim argument to pass the parent's flash entries after T
-    lib.hd_args = (64,) if parent_takes_hd(parent) else ()
+    lib.takes_hd = parent_takes_hd(parent)
+    # the split scratch pointer of the parent's backward entries: null, as
+    # no case here runs the f32 hd-128 instances that read it
+    lib.split_args = (None,) if parent_bwd_takes_split(parent) else ()
     return lib
+
+
+def hd_args(lib, q) -> tuple:
+    """The head-dim argument to pass the parent's flash entries after T
+    (none where they are the head-dim-64 kernels alone)."""
+    return (q.shape[2],) if lib.takes_hd else ()
 
 
 def record_inputs(seed: int):
@@ -340,7 +364,8 @@ def record_flash_bwd(seed: int):
 def flash_bwd_case(lib, dtype_name, args, reps):
     """The parent's flash_bwd_dq / flash_bwd_dkv against this tree's on
     one recorded input: both held to the plain backward at chip_smoke.py's
-    rule, each kernel timed A B B A."""
+    rule, each kernel timed A B B A. With ``reps`` 0: the parent's dq,
+    dk, dv and D alone."""
     import math
 
     import torch
@@ -359,18 +384,20 @@ def flash_bwd_case(lib, dtype_name, args, reps):
         _build.check(lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), D_p.data_ptr(), dq_p.data_ptr(),
-            BH, T, *lib.hd_args, c2l, c2, bf16, stream),
-            "parent flash_bwd_dq")
+            *lib.split_args, BH, T, *hd_args(lib, q), c2l, c2, bf16,
+            stream), "parent flash_bwd_dq")
 
     def parent_dkv():
         _build.check(lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), D_p.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(),
-            BH, T, *lib.hd_args, c2l, c2, bf16, stream),
-            "parent flash_bwd_dkv")
+            *lib.split_args, BH, T, *hd_args(lib, q), c2l, c2, bf16,
+            stream), "parent flash_bwd_dkv")
 
     parent_dq()
     parent_dkv()
+    if not reps:   # the outputs alone
+        return dq_p, dk_p, dv_p, D_p
     dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
     dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
     fwd_in = ((out, lse) if bf16 else
@@ -426,14 +453,54 @@ def parent_forward(lib, q, k, v, c2l):
     if q.dtype == torch.float32:
         entry = "flash_attn_f32_launch"
         if lib.f32_takes_split:
-            split = torch.empty((6, BH, T, 64), dtype=torch.bfloat16,
+            split = torch.empty((6, BH, T, q.shape[2]), dtype=torch.bfloat16,
                                 device=q.device)
             ptrs.append(split.data_ptr())
     _build.check(getattr(lib, entry)(*ptrs, out.data_ptr(), lse.data_ptr(),
-                                     BH, T, *lib.hd_args, c2l,
+                                     BH, T, *hd_args(lib, q), c2l,
                                      _build.stream_ptr(q)),
                  "parent " + entry)
     return out, lse
+
+
+# the other head dims the parent's and this tree's kernels both run (the
+# head-dim-64 ones are the recorded cases)
+AB_HEAD_DIMS = (8, 16, 32)
+
+
+def flash_head_dim_case(lib, hd, dtype_name, seed):
+    """The parent's forward and backward kernels against this tree's at
+    head dim ``hd`` on seeded N(0, 1) q, k, v, dO [4, 4097, hd] (one live
+    row in the last tile), the backward on this tree's out and lse: the
+    parent − new max |diff| of out, lse, dq, dk, dv and D (--same-bits
+    wants every one 0)."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + hd)
+    q, k, v, do = (torch.randn((4, 4097, hd), generator=gen,
+                               device="cuda").to(getattr(torch, dtype_name))
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    out_p, lse_p = parent_forward(lib, q, k, v,
+                                  scale * scale * math.log2(math.e))
+    dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+    dq_p, dk_p, dv_p, D_p = flash_bwd_case(
+        lib, dtype_name, (q, k, v, out, lse, do, scale), 0)
+    torch.cuda.synchronize()
+    gaps = [float((a.float() - b.float()).abs().max())
+            for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
+    res = dict(kernel="flash_hd", dtype=dtype_name, hd=hd, T=4097,
+               out_gap=float((out - out_p).abs().max()),
+               lse_gap=float((lse - lse_p).abs().max()), parent_gaps=gaps)
+    cs.log(f"ab: flash [4,4097,{hd}] {dtype_name}: parent − new max |diff| "
+           f"out {res['out_gap']:.3e}, lse {res['lse_gap']:.3e}, dq/dk/dv/D "
+           + " / ".join(f"{g:.3e}" for g in gaps))
+    return res
 
 
 def flash_fwd_case(lib, dtype_name, args, reps):
@@ -540,6 +607,12 @@ def main() -> int:
                 if "flash_bwd" in a.kernels:
                     res.append(flash_bwd_case(lib, dtype_name, args,
                                               a.reps))
+        if lib.takes_hd:
+            with torch.no_grad():
+                for hd in AB_HEAD_DIMS:
+                    for dtype_name in ("bfloat16", "float32"):
+                        res.append(flash_head_dim_case(lib, hd, dtype_name,
+                                                       a.seed))
     line = json.dumps({"device": smi, "ab": res})
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)

@@ -423,11 +423,12 @@ def test_bwd_plain_in_f64_is_autograd_of_the_plain_forward():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-# -- the smaller head dims the kernels are instantiated for ------------------
+# -- the other head dims the kernels are instantiated for --------------------
 # (FLASH_HEAD_DIMS; below hd 16 every tile zero-padded to 16 columns, as
-# hopper.cuh's Head<HD> lays them out), each with its scale 1/√√hd
+# hopper.cuh's Head<HD> lays them out; at 128 two 64-column sub-tiles, the
+# same sums per column), each with its scale 1/√√hd
 
-@pytest.mark.parametrize("hd", [8, 16, 32])
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_kernel_tiling_matches_the_plain_functions_small_head_dims(hd):
     """test_kernel_tiling_matches_the_plain_functions at head dim ``hd``
     and T = 130 (two live keys in the last tile), ragged inputs."""
@@ -449,7 +450,7 @@ def test_kernel_tiling_matches_the_plain_functions_small_head_dims(hd):
 
 
 @pytest.mark.parametrize("fault", ["drop_d", "no_mask", "one_pass"])
-@pytest.mark.parametrize("hd", [8, 16, 32])
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_planted_faults_miss_the_tolerance_small_head_dims(hd, fault):
     """test_planted_faults_miss_the_tolerance at head dim ``hd``: each
     fault moves a gradient past its tolerance at T = 130."""
@@ -469,7 +470,7 @@ def test_planted_faults_miss_the_tolerance_small_head_dims(hd, fault):
     assert _missed(got, want, rel, absmax), (hd, fault)
 
 
-@pytest.mark.parametrize("hd", [8, 16, 32])
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_bf16_body_matches_library_vjp_small_head_dims(hd):
     """test_bf16_body_matches_library_vjp at head dim ``hd``, T = 130."""
     scale = 1.0 / math.sqrt(math.sqrt(hd))
@@ -488,7 +489,7 @@ def test_bf16_body_matches_library_vjp_small_head_dims(hd):
 
 
 @pytest.mark.parametrize("inputs", ["random", "ragged"])
-@pytest.mark.parametrize("hd", [8, 16, 32])
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_f32_split_body_gate_small_head_dims(hd, inputs):
     """test_f32_split_body_gate at head dim ``hd`` and T = 191: the
     three-pass body meets the f32 rule (random inputs) and the f64

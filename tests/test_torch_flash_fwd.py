@@ -214,8 +214,9 @@ def test_body_without_split_is_the_plain_forward():
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
 
 
-# the gate at the smaller head dims the kernels are instantiated for
-# (FLASH_HEAD_DIMS; hd 8 on operands zero-padded to 16): (T, inputs, BH,
+# the gate at the other head dims the kernels are instantiated for
+# (FLASH_HEAD_DIMS; hd 8 on operands zero-padded to 16; hd 128 in two
+# 64-column sub-tiles, the same sums per column): (T, inputs, BH,
 # the checks that see the one-pass body at every one of them). With fewer
 # products in each score the dropped lo halves move the out of the random
 # inputs less (1.95× the rule at hd 32, T = 191): there the lse bound
@@ -227,7 +228,7 @@ HD_CASES = [(191, "random", 2, ("lse",)),
 
 @pytest.mark.parametrize("T,kind,BH,control", HD_CASES,
                          ids=[f"{c[0]}-{c[1]}" for c in HD_CASES])
-@pytest.mark.parametrize("hd", [8, 16, 32])
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_f32_split_body_gate_small_head_dims(hd, T, kind, BH, control):
     """test_f32_split_body_gate at head dim ``hd`` (the scale 1/√√hd): the
     three-pass body on the kernel's padded tiles meets the f32 rule and

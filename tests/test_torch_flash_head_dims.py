@@ -9,9 +9,17 @@
   ablation studies' UNets, ``examples/ablations.py:245-248``) and
   ``__graft_entry__.py``'s flagship-small UNet. The walk of
   ``UNetModel.plan()`` is held to the blocks a real forward reaches.
-* The port's AttentionBlock at head dimensions 8 and 16 and T = 4096 and
-  4097 (the flash route; on the CPU its plain formula) against the Flax
-  block, weights carried across through ``state_dict_from_flax``."""
+* Every head dim from 1 to 128 maps to the kernel instance that runs it
+  (``attention.flash_instance``: the next instance up, zero-padded by the
+  wrappers), and above 128 the wrappers raise naming the limit. The
+  presets at ``model_channels`` 8 to 128 (each attention block's head dim
+  is the width) are served, 160 is flagged.
+* Zero-padding q, k, v to an instance and cutting the outputs back is
+  the function at the real head dim, forward and backward.
+* The port's AttentionBlock at head dimensions 8, 16, 24, 48, 96 and 128
+  and T = 4096 and 4097 (the flash route; on the CPU its plain formula)
+  against the Flax block, weights carried across through
+  ``state_dict_from_flax``."""
 
 import json
 import math
@@ -163,35 +171,121 @@ def test_kernel_head_dims_are_one_set():
     assert tuple(int(h) for h in re.findall(r"X\((\d+)\)", line)) == \
         _build.FLASH_HEAD_DIMS
     assert attention.FLASH_HEAD_DIMS is _build.FLASH_HEAD_DIMS
+    assert _build.FLASH_HEAD_DIMS[-1] == 128
     for name in _build.FLASH_KERNELS:
         for hd in _build.FLASH_HEAD_DIMS:
             assert _build.LAUNCHES[_build.flash_counter(name, hd)] >= 0
 
 
 def test_head_dims_outside_the_set_raise_on_cuda_tensors():
-    """A head dim the kernels lack raises before any launch, naming the
-    set (checked on a CUDA-typed shape through _check_cuda's message:
-    the CPU has no CUDA tensors, so the check is called with a stand-in
-    that reports cuda)."""
+    """Every head dim from 1 to 128 reaches an instance (the next one up),
+    and a head dim above 128 raises before any launch, naming the limit
+    and the options that set it (checked on a CUDA-typed shape through
+    _check_cuda: the CPU has no CUDA tensors, so the check is called with
+    a stand-in that reports cuda). Written for the set (8, 16, 32, 64),
+    where 12 raised; 12 now runs on 16."""
     class Fake:
         device = torch.device("cuda")
         shape = (4, 4096, 12)
 
         def dim(self):
             return 3
-    with pytest.raises(ValueError, match=r"\(8, 16, 32, 64\)"):
-        attention._check_cuda("flash_attention", Fake())
-    for hd in attention.FLASH_HEAD_DIMS:
+    for hd in range(1, 129):
         Fake.shape = (4, 4096, hd)
-        attention._check_cuda("flash_attention", Fake())
+        inst = attention._check_cuda("flash_attention", Fake())
+        assert inst in attention.FLASH_HEAD_DIMS and inst >= hd
+        assert all(i < hd for i in attention.FLASH_HEAD_DIMS if i < inst)
+    for hd in (129, 160, 256):
+        Fake.shape = (4, 4096, hd)
+        with pytest.raises(ValueError, match=r"1\.\.128.*model_channels_img"):
+            attention._check_cuda("flash_attention", Fake())
+
+
+@pytest.mark.parametrize("hd,inst", [
+    (1, 8), (7, 8), (8, 8), (9, 16), (12, 16), (16, 16), (17, 32), (31, 32),
+    (32, 32), (33, 64), (40, 64), (63, 64), (64, 64), (65, 128), (96, 128),
+    (127, 128), (128, 128)])
+def test_flash_instance(hd, inst):
+    """Head dims 1-7 run on 8, 9-15 on 16, 17-31 on 32, 33-63 on 64 and
+    65-127 on 128; the instances on themselves."""
+    assert attention.flash_instance(hd) == inst
+
+
+@pytest.mark.parametrize("hd", [0, 129, 160, 256])
+def test_flash_instance_raises_outside_the_range(hd):
+    with pytest.raises(ValueError, match="128"):
+        attention.flash_instance(hd)
+
+
+@pytest.mark.parametrize("mc", [8, 12, 24, 40, 48, 64, 80, 96, 128, 160])
+def test_presets_at_other_widths(mc):
+    """The three Mayo presets with model_channels_img and
+    model_channels_proj set to ``mc``: every attention block at T >=
+    FLASH_MIN_SEQ, at 64²-512², has head dim ``mc`` (4 heads over 4·mc
+    channels), which an instance serves up to 128; at 160 the block is
+    flagged: flash_instance raises naming 128."""
+    dims = set()
+    for name in PRESETS:
+        with open(osp.join(ROOT, "Config", "Mayo-Config",
+                           f"{name}.json")) as f:
+            opt = dict(json.load(f), model_channels_img=mc,
+                       model_channels_proj=mc)
+        for domain in ("img", "proj"):
+            model = build_unet(opt, domain, device="meta")
+            for size in SIZES:
+                dims |= {hd for _, T, hd in attention_blocks(
+                    model, *_input_hw(domain, size))
+                    if T >= attention.FLASH_MIN_SEQ}
+    assert dims == {mc}, dims
+    if mc <= 128:
+        assert attention.flash_instance(mc) >= mc
+    else:
+        with pytest.raises(ValueError, match="128"):
+            attention.flash_instance(mc)
+
+
+@pytest.mark.parametrize("hd", [12, 40, 96])
+def test_zero_padding_is_exact(hd):
+    """What the wrappers do for a head dim between instances: q, k, v
+    zero-padded to the instance, the function there, the outputs cut
+    back. Against the function at the real head dim (attention_plain and
+    its autograd; attention_bwd_plain, the kernels' formulas, on the
+    padded tensors), f32, to 1e-6: zero columns add nothing to q·kᵀ, to
+    rowsum(do ∘ out) or to do·vᵀ."""
+    inst = attention.flash_instance(hd)
+    rng = np.random.default_rng(hd)
+    q, k, v, do = (torch.tensor(rng.normal(0, 1, (2, 300, hd)),
+                                dtype=torch.float32) for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = attention.attention_plain(*leaves, scale)
+    want.backward(do)
+    padded = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = attention._cut(hd, attention.attention_plain(
+        *attention._pad(inst, *padded), scale))[0]
+    got.backward(do)
+    np.testing.assert_allclose(got.detach(), want.detach(), rtol=1e-6,
+                               atol=1e-6)
+    for a, b in zip(padded, leaves):
+        np.testing.assert_allclose(a.grad, b.grad, rtol=1e-6, atol=1e-6)
+    # the kernels' backward formulas on the padded tensors, cut back
+    qp, kp, vp, dop = attention._pad(inst, q, k, v, do)
+    outp, lsep = attention.attention_lse_plain(qp, kp, vp, scale)
+    grads = attention._cut(hd, *attention.attention_bwd_plain(
+        qp, kp, vp, outp, lsep, dop, scale))
+    for a, b in zip(grads, leaves):
+        np.testing.assert_allclose(a, b.grad, rtol=1e-6, atol=1e-6)
 
 
 def _block_vs_flax(hd, H, W, seed):
     """The middle AttentionBlock (4 heads of head dim ``hd``) of a
     one-level UNet in both packages on the same NHWC input (B = 1): the
-    Flax UNet's parameters drawn N(0, 0.3) and carried to the port's UNet
+    Flax UNet's parameters drawn N(0, σ) and carried to the port's UNet
     by state_dict_from_flax, then each package's block alone on the
-    input."""
+    input. σ = 0.3 up to C = 64 channels, then 0.3·√(64 / C), as a
+    fan-in init scales it: the 1×1 convolutions sum over C channels, and
+    N(0, 0.3) weights at C = 512 put the outputs at ~10, where f32
+    rounding alone reaches 1e-4 absolute."""
     C = 4 * hd
     cfg = dict(in_channels=1, model_channels=C // 2, out_channels=1,
                num_res_blocks=1, attention_resolutions=(),
@@ -200,8 +294,9 @@ def _block_vs_flax(hd, H, W, seed):
     shapes = jax.eval_shape(FlaxUNet(**cfg).init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 8, 8, 1)),
                             jnp.zeros((1,), jnp.int32))
+    sd = 0.3 * min(1.0, math.sqrt(64 / C))
     params = jax.tree_util.tree_map(
-        lambda s: rng.normal(0, 0.3, s.shape).astype(np.float32), shapes)
+        lambda s: rng.normal(0, sd, s.shape).astype(np.float32), shapes)
     model = UNetModel(**cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(model, params))
     blk = model.middle_block[1]
@@ -214,7 +309,7 @@ def _block_vs_flax(hd, H, W, seed):
     return got.permute(0, 2, 3, 1).numpy(), want
 
 
-@pytest.mark.parametrize("hd", [8, 16])
+@pytest.mark.parametrize("hd", [8, 16, 24, 48, 96, 128])
 @pytest.mark.parametrize("H,W", [(64, 64), (17, 241)],
                          ids=["T4096", "T4097"])
 def test_attention_block_at_small_head_dims_matches_flax(hd, H, W):

@@ -1,5 +1,6 @@
 """The port stands alone: importing ipdm_tpu_torch and every submodule,
-its entry script main_torch.py, its examples and chip_smoke.py loads
+its entry script main_torch.py, its examples, chip_smoke.py and
+scripts/multihost_dryrun_torch.py loads
 neither JAX nor the JAX package, and its entry points run on CUDA unless
 the caller passes device="cpu"."""
 
@@ -23,7 +24,8 @@ for name in names:
 import runpy
 scripts = ("main_torch.py", "examples/synthetic_e2e_torch.py",
            "examples/bench_train_torch.py", "chip_smoke.py",
-           "examples/ablations_torch.py", "__graft_entry_torch__.py")
+           "examples/ablations_torch.py", "__graft_entry_torch__.py",
+           "scripts/multihost_dryrun_torch.py")
 for script in scripts:
     runpy.run_path(script, run_name="imported")  # its imports, not its main
 names += list(scripts)
@@ -55,7 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ipdm_tpu_torch.data.dicom",
                  "main_torch.py", "examples/synthetic_e2e_torch.py",
                  "examples/bench_train_torch.py", "chip_smoke.py",
-                 "examples/ablations_torch.py", "__graft_entry_torch__.py"):
+                 "examples/ablations_torch.py", "__graft_entry_torch__.py",
+                 "scripts/multihost_dryrun_torch.py"):
         assert name in out["modules"]
     assert out["loaded"] == []
 

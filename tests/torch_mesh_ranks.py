@@ -166,3 +166,17 @@ def engine_run(rank, tmp, cfgs):
                           for d, _, fs in os.walk(root) for f in fs)
     out["dirs"] = osp.exists(root)
     return out
+
+
+def dryrun_step(rank, tmp, perturb):
+    """Check 3 of scripts/multihost_dryrun_torch.py on this rank, with
+    ``perturb`` added to rank 1's half of the batch; returns the loss."""
+    import sys
+    sys.path.insert(0, osp.join(osp.dirname(osp.dirname(
+        osp.abspath(__file__))), "scripts"))
+    import multihost_dryrun_torch as mh
+    from ipdm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([2, 1], ("data", "view"), "cpu")
+    return mh.dp_step_check(rank, mesh, torch.device("cpu"),
+                            perturb if rank == 1 else 0.0)["loss"]
