@@ -233,22 +233,25 @@ exits non-zero without a result line:
    every float within 1e-3 relative, each histogram within an L1
    distance of 1% of the pixel count;
    wide — the shipped test preset (f32) with model_channels_img and
-   model_channels_proj at 128 (head dim 128: the hd-128 instance), 96
-   (96, zero-padded onto 128) and 48 (48, onto 64), seeded random
-   weights: per width a warm ART slice through progressive_denoiser
-   (s/slice, peak memory, flash launches by instance), the f32 forward
-   on its recorded q, k, v against the plain version (with a planted
-   fault of the padding at 96 and 48); then 3 fit() steps each of
-   train_img and train_proj at width 128 (f32, B = 1, remat, the engine
-   phase's corpus), the hd-128 backward pair on their recorded inputs;
+   model_channels_proj at 256 (head dim 256: the wide bodies) and 96
+   (96, zero-padded by the wrappers onto the hd-128 instance), seeded
+   random weights: per width a first and a warm ART slice through
+   progressive_denoiser (s/slice, peak memory, flash launches by
+   instance), the f32 forward on its recorded q, k, v against the plain
+   version; then 3 fit() steps each of train_img and train_proj at each
+   width (f32, B = 1, remat, the engine phase's corpus), the backward
+   pair on their first backward's inputs;
    flash-hd — (after kernels-train) the flash forward (bf16, f32) and
-   both backward kernels at head dims 8, 16, 32 and 128 and at the
-   padded 24, 48 and 96, T = 4097 and 7125,
-   on the ragged inputs (q, k scaled so live scores stay ≈ −8) at the
-   main path's rules, beside the planted controls of flash_ragged and
-   bwd_ragged; then the f32 head-dim-8 kernels at T = 16 384 and
-   114 000 and the head-dim-128 ones at 7125 and 16 384 (their chained
-   f32 sums) against a plain forward and backward over query blocks in
+   both backward kernels at head dims 8, 16, 32 and 128, at the padded
+   24, 48 and 96, and on the wide bodies at 160, 192, 256 and 512, T =
+   4097 and 7125, on the ragged inputs (q, k scaled so live scores stay
+   ≈ −8) at the main path's rules, beside the planted controls of
+   flash_ragged and bwd_ragged; the padding's planted fault (the pad
+   read from the next row) at 24, 48, 96 and 160; then the f32
+   head-dim-8 kernels at T = 16 384 and 114 000 (the forward on
+   csrc/flash_narrow.cu), the head-dim-128 ones at 7125 and 16 384 and
+   the wide bodies at head dim 256 and T = 16 384 (their chained f32
+   sums) against a plain forward and backward over query blocks in
    f64 (out at the f32 rule, the lse within lse_check's bound, dq, dk,
    dv at the f32 rule plus the f64 witness allowance), two launches
    bit-equal, beside planted controls (at head dim 8 the pad columns
@@ -267,9 +270,10 @@ exits non-zero without a result line:
    with its checked shapes under ``shapes_unfused``; the quality
    phase's under ``launches_quality`` and ``launches_quality_full``;
    the ablations phase's under ``launches_ablations``; the head-dim-8
-   f32 flash rows, the head-dim-128 f32 rows of the wide phase (their
-   long-T numbers under ``shapes_long``, the padded widths under
-   ``padded``), and every flash row's ``head_dims``),
+   f32 flash rows, the f32 rows of the wide phase (the wide bodies at
+   256, the hd-128 instance at the padded 96, each row's ``head_dim``
+   and ``instance``; their long-T numbers under ``shapes_long``), and
+   every flash row's ``head_dims``),
    the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -4614,6 +4618,12 @@ FLASH_HD_PADDED = (24, 48, 96)
 # the hd-128 instance's chained f32 sums, held at the proj UNet's token
 # count and beyond it
 FLASH_HD128_LONG = (7125, 16384)
+# head dims of the wide bodies (above 128, zero-padded to a multiple of
+# 64: 160 on 192; 192, 256 and 512 on themselves), each on the ragged
+# inputs; the chained f32 backward sums at head dim 256 beyond the proj
+# UNet's token count
+FLASH_HD_WIDE = (160, 192, 256, 512)
+FLASH_HD_WIDE_LONG = (16384,)
 LONG_BLOCK = 512                   # query rows per block of the plain loop
 # the ablations phase's main-path run: the SIEMENS scanner's full size
 # (--size 512: 512² images, 2000×912 sinograms) and examples/ablations.py's
@@ -4695,16 +4705,17 @@ def _plain_long(q, k, v, do, scale, f64=True):
 
 def flash_long(T, reps, hd=8):
     """The f32 kernels at head dim ``hd`` (8: the ablation UNets' middle
-    block; 128: the new instance's chained sums) and 4 heads at long token
-    counts, on seeded random q, k (sd 1), v (head h: mean h + 1) and
-    dO, against the plain forward and backward in f64 over query blocks
-    (:func:`_plain_long`): out at the f32 rule, the lse within lse_check's
-    bound, dq, dk and dv at the f32 rule plus the f64 witness allowance
-    (2⁻²⁰·Σ|terms before the cancellation|, :func:`bwd_ragged`'s), two
-    launches bit-equal; beside planted controls that must fail: at head
-    dim 8 the plain forward on q and k whose pad columns hold the next
-    row's values, the lse in log2 units, and the dK kernel with D
-    dropped. Times: the kernels, the plain forward over query blocks in
+    block, the forward on csrc/flash_narrow.cu; 128 and 256: the chained
+    backward sums of the hd-128 instance and the wide bodies) and 4 heads
+    at long token counts, on seeded random q, k (sd 1), v (head h: mean
+    h + 1) and dO, against the plain forward and backward in f64 over
+    query blocks (:func:`_plain_long`): out at the f32 rule, the lse
+    within lse_check's bound, dq, dk and dv at the f32 rule plus the f64
+    witness allowance (2⁻²⁰·Σ|terms before the cancellation|,
+    :func:`bwd_ragged`'s), two launches bit-equal; beside planted
+    controls that must fail: at head dim 8 the plain forward on q and k
+    whose pad columns hold the next row's values, the lse in log2 units,
+    and the dK kernel with D dropped. Times: the kernels, the plain forward over query blocks in
     f32, SDPA's forward and forward + backward, and each kernel's
     bound."""
     import torch
@@ -4825,14 +4836,15 @@ def head_dim_rows(rows, short, long, abl):
     ablation path's: their launches in the ablations phase's main-path
     run; numbers at T = 16 384, where the plain versions fit, with
     T = 114 000 under ``shapes``), and each existing flash row's
-    ``head_dims``: its kernel at head dims 8, 16 and 32 on the ragged
+    ``head_dims``: its kernel at every other head dim on the ragged
     inputs of phase_flash_hd (launched by no main path but the
-    head-dim-8 f32 ones and the hd-128 f32 ones of the wide phase; a
-    padded head dim's launches are its instance's)."""
+    head-dim-8 f32 ones and the hd-128 and wide f32 ones of the wide
+    phase; a padded head dim's launches are its instance's or the wide
+    body's)."""
     from ipdm_tpu_torch.ops.cuda import _build
     from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
-    src = {"fwd": "ipdm_tpu_torch/csrc/flash_attn.cu",
+    src = {"fwd": "ipdm_tpu_torch/csrc/flash_narrow.cu",
            "dq": "ipdm_tpu_torch/csrc/flash_bwd.cu",
            "dkv": "ipdm_tpu_torch/csrc/flash_bwd.cu"}
     rep = {"fwd": "ipdm_tpu/models/unet.py:601",
@@ -4892,33 +4904,83 @@ def head_dim_rows(rows, short, long, abl):
     return out
 
 
-def phase_flash_hd(reps):
-    """The flash kernels at head dims 8, 16, 32 and 128 and at the padded
-    head dims 24, 48 and 96: the forward in bf16 and f32 and both
-    backward kernels at T = 4097 and 7125 on the ragged inputs
-    (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its planted
-    controls), then the f32 kernels at head dim 8 at the ablation UNets'
-    T = 16 384 and 114 000 and at head dim 128 at T = 7125 and 16 384
-    (:func:`flash_long`). Returns (the ragged stats, the long-T stats of
-    head dim 8, those of head dim 128)."""
+def _pad_from_next_row(x, inst):
+    """x [BH, T, hd] padded to ``inst`` columns with the next row's first
+    columns: what a kernel would read past a row's end with the wrong
+    stride (a planted fault of the zero padding)."""
     import torch
-    from ipdm_tpu_torch.ops.cuda import _build
+    return torch.cat([x, x.roll(-1, 1)[..., :inst - x.shape[-1]]], -1)
+
+
+def flash_pad_control(hd, T=4097):
+    """The zero padding at a head dim between the kernels' widths (``hd``
+    runs at flash_instance(hd) columns): the f32 forward on seeded
+    N(0, 1) q, k, v [4, T, hd] against the plain version at the f32 rule,
+    beside a planted fault that must fail it, the plain version on q and
+    k whose pad columns hold the next row's values
+    (:func:`_pad_from_next_row`). (The ragged inputs of
+    :func:`flash_ragged` are near constant, so a pad read from the next
+    row shifts every score alike there.)"""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    inst = attention.flash_instance(hd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + hd)
+    q, k, v = (torch.randn((4, T, hd), generator=gen, device="cuda")
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    got = attention.flash_attention(q, k, v, scale)
+    want = attention.attention_plain(q, k, v, scale)
+    bad = attention.attention_plain(
+        _pad_from_next_row(q, inst), _pad_from_next_row(k, inst),
+        attention._pad(inst, v)[0], scale)[..., :hd]
+    torch.cuda.synchronize()
+    rtol, atol = flash_tol(want, "float32")
+    ok, err = _within(got, want, rtol, atol)
+    bad_ok, bad_err = _within(bad, want, rtol, atol)
+    log(f"flash-hd: f32 [4,{T},{hd}] on the width-{inst} kernel, N(0, 1) "
+        f"inputs: max |diff| {err:.3e} (tol {atol:.2e} + {rtol:g}·|plain|); "
+        f"planted control, the pad columns of q and k from the next row: "
+        f"max |diff| {bad_err:.3e}, {'passes' if bad_ok else 'fails'}")
+    if not ok or bad_ok:
+        raise AssertionError(f"flash-hd pad control hd {hd}: {err}, the "
+                             f"control {'passes' if bad_ok else 'fails'}")
+
+
+def phase_flash_hd(reps):
+    """The flash kernels at head dims 8, 16, 32 and 128, at the padded
+    head dims 24, 48 and 96 and on the wide bodies at
+    :data:`FLASH_HD_WIDE`: the forward in bf16 and f32 and both backward
+    kernels at T = 4097 and 7125 on the ragged inputs
+    (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its planted
+    controls) and the padding's planted fault at each padded head dim
+    (:func:`flash_pad_control`), then the f32 kernels at head dim 8 (the
+    forward on csrc/flash_narrow.cu) at the ablation UNets' T = 16 384
+    and 114 000, at head dim 128 at T = 7125 and 16 384 and at head dim
+    256 at T = 16 384 (:func:`flash_long`). Returns (the ragged stats, the
+    long-T stats of head dim 8, those of head dim 128, those of 256)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
 
     t0 = time.perf_counter()
     short = []
     r = max(2, reps // 4)
     with torch.no_grad():
         for hd in [h for h in _build.FLASH_HEAD_DIMS if h != 64] + list(
-                FLASH_HD_PADDED):
+                FLASH_HD_PADDED + FLASH_HD_WIDE):
             for dtype_name in ("bfloat16", "float32"):
                 short += flash_ragged(r, dtype_name, (4097, 7125), hd,
                                       tag="flash-hd")
             short += bwd_ragged(r, (4097, 7125), hd, tag="flash-hd")
+        for hd in FLASH_HD_PADDED + FLASH_HD_WIDE:
+            if attention.flash_instance(hd) != hd:
+                flash_pad_control(hd)
         long = [flash_long(T, 3) for T in FLASH_HD_LONG]
         long128 = [flash_long(T, 3, hd=128) for T in FLASH_HD128_LONG]
+        long256 = [flash_long(T, 3, hd=256) for T in FLASH_HD_WIDE_LONG]
     log(f"flash-hd: {time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return short, long, long128
+    return short, long, long128, long256
 
 
 def _ablation_numbers(res) -> str:
@@ -5178,18 +5240,13 @@ def phase_graft(seed: int) -> None:
 # -- part B: UNets wider than the presets, and the multi-process twin -------
 
 # model_channels of both UNets in the wide phase, the head dim of every
-# flash block (4 heads over 4·mc channels): 128 runs the hd-128 instance,
-# 96 the same instance zero-padded, 48 the hd-64 instance zero-padded
-WIDE_WIDTHS = (128, 96, 48)
-WIDE_TRAIN_STEPS = 3   # fit() steps of each domain at width 128
-
-
-def _pad_from_next_row(x, inst):
-    """x [BH, T, hd] padded to ``inst`` columns with the next row's first
-    columns: what a kernel would read past a row's end with the wrong
-    stride (a planted fault of the zero padding)."""
-    import torch
-    return torch.cat([x, x.roll(-1, 1)[..., :inst - x.shape[-1]]], -1)
+# flash block (4 heads over 4·mc channels): 256 runs the wide bodies, 96
+# the hd-128 instance on operands zero-padded by the wrappers (the padded
+# route on a main path). The other padded routes (48 on 64, 160 on the
+# wide bodies at 192) are held by flash-hd's ragged checks and padding
+# controls
+WIDE_WIDTHS = (256, 96)
+WIDE_TRAIN_STEPS = 3   # fit() steps of each domain at each width
 
 
 def _wide_slice(w, ld_proj, seed, reps):
@@ -5246,25 +5303,8 @@ def _wide_slice(w, ld_proj, seed, reps):
     del models, out
     with torch.no_grad():
         stats = flash_f32_check("wide", fa.calls, reps)
-        for (args, _), st in zip(fa.calls, stats):
-            q, k, v, scale = args
+        for st in stats:
             st["hd"], st["instance"] = w, inst
-            if inst == w:
-                continue
-            # the zero padding's planted fault: the pad columns of q and k
-            # from the next row, through the plain version
-            want = attention.attention_plain(q, k, v, scale)
-            bad = attention.attention_plain(
-                _pad_from_next_row(q, inst), _pad_from_next_row(k, inst),
-                attention._pad(inst, v)[0], scale)[..., :w]
-            rtol, atol = flash_tol(want, "float32")
-            ok, err = _within(bad, want, rtol, atol)
-            log(f"wide: mc {w} T={q.shape[1]}: planted control, the pad "
-                f"columns of q and k from the next row: max |diff| "
-                f"{err:.3e}, {'passes' if ok else 'fails'}")
-            if ok:
-                raise AssertionError(f"wide mc {w}: the padding control "
-                                     f"passes")
     return dict(s=dt, first_s=first, peak_gib=peak, launches=launches,
                 name=name, stats=stats)
 
@@ -5276,13 +5316,13 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
     ART slice through progressive_denoiser at these shapes, then a warm
     one with the launch counters set to 0 just before it and read just
     after (s/slice, peak memory, the flash launches by instance: only the
-    instance of that head dim), and the f32 forward on its recorded q, k,
-    v (T = 7125 and 4096) by :func:`flash_f32_check`, beside a planted
-    fault of the padding at 96 and 48. Then at width 128, fit() of
-    train_img and train_proj for :data:`WIDE_TRAIN_STEPS` steps each (f32,
-    B = 1, remat, the engine phase's corpus), whose first backward's
-    inputs feed :func:`bwd_call_stats`. Returns the hd-128 rows of the
-    kernels JSON line."""
+    kernel of that head dim, the wide body at 256), and the f32 forward on
+    its recorded q, k, v (T = 7125 and 4096) by :func:`flash_f32_check`.
+    Then at each width, fit() of train_img and train_proj for
+    :data:`WIDE_TRAIN_STEPS` steps each (f32, B = 1, remat, the engine
+    phase's corpus; the counters set to 0 just before each step), whose
+    first backward's inputs feed :func:`bwd_call_stats`. Returns the rows
+    of the kernels JSON line of the wide and hd-128 f32 kernels."""
     import torch
     from ipdm_tpu_torch.ops.cuda import _build, attention
 
@@ -5295,37 +5335,40 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
         slices = {w: _wide_slice(w, ld_proj, seed, max(2, reps // 4))
                   for w in WIDE_WIDTHS}
         paths = _example().dataset_paths(out)
-        runs, bwd = {}, []
-        for domain in ("img", "proj"):
-            with Recorder(attention, "flash_bwd_dq", limit=1) as rec:
-                eng, steps, runs[domain], t_fit = _train_run(
-                    domain, out, seed, paths, overrides={
-                        f"model_channels_{domain}": 128, "save_freq": 1000,
-                        "test_numbers": 0,
-                        "run_name": f"chip_smoke_wide_{domain}"},
-                    max_iter=WIDE_TRAIN_STEPS)
-            del eng
-            bwd += rec.calls
-            losses = [st["loss"] for st in steps]
-            warm = [st["s"] for st in steps[1:]]
-            per_step = steps[-1]["launches"]
-            log(f"wide: train_{domain} at mc 128, {len(steps)} steps: losses "
-                + ", ".join(f"{x:.5f}" for x in losses)
-                + f"; warm {sum(warm) / len(warm):.4f} s/step (first "
-                f"{steps[0]['s']:.4f} s); peak memory of a step "
-                f"{max(st['peak'] for st in steps):.2f} GiB; launches per "
-                f"step {per_step}")
-            want = [_build.flash_counter(k, 128) for k in (
-                "flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv")]
-            if (len(steps) != WIDE_TRAIN_STEPS
-                    or not all(math.isfinite(x) for x in losses)
-                    or any(per_step.get(k, 0) <= 0 for k in want)):
-                raise AssertionError(f"wide train_{domain}: {len(steps)} "
-                                     f"steps, losses {losses}, launches "
-                                     f"{per_step}")
-        with torch.no_grad():
-            per = [bwd_call_stats("wide", "float32", args, reps)
-                   for args, _ in bwd]
+        runs, per = {}, {}
+        for w in WIDE_WIDTHS:
+            runs[w], bwd = {}, []
+            inst = attention.flash_instance(w)
+            for domain in ("img", "proj"):
+                with Recorder(attention, "flash_bwd_dq", limit=1) as rec:
+                    eng, steps, runs[w][domain], t_fit = _train_run(
+                        domain, out, seed, paths, overrides={
+                            f"model_channels_{domain}": w,
+                            "save_freq": 1000, "test_numbers": 0,
+                            "run_name": f"chip_smoke_wide{w}_{domain}"},
+                        max_iter=WIDE_TRAIN_STEPS)
+                del eng
+                bwd += rec.calls
+                losses = [st["loss"] for st in steps]
+                warm = [st["s"] for st in steps[1:]]
+                per_step = steps[-1]["launches"]
+                log(f"wide: train_{domain} at mc {w}, {len(steps)} steps: "
+                    "losses " + ", ".join(f"{x:.5f}" for x in losses)
+                    + f"; warm {sum(warm) / len(warm):.4f} s/step (first "
+                    f"{steps[0]['s']:.4f} s); peak memory of a step "
+                    f"{max(st['peak'] for st in steps):.2f} GiB; launches "
+                    f"per step {per_step}")
+                want = [_build.flash_counter(k, inst) for k in (
+                    "flash_attn_f32", "flash_bwd_dq", "flash_bwd_dkv")]
+                if (len(steps) != WIDE_TRAIN_STEPS
+                        or not all(math.isfinite(x) for x in losses)
+                        or any(per_step.get(k, 0) <= 0 for k in want)):
+                    raise AssertionError(
+                        f"wide train_{domain} mc {w}: {len(steps)} steps, "
+                        f"losses {losses}, launches {per_step}")
+            with torch.no_grad():
+                per[w] = [bwd_call_stats("wide", "float32", args, reps)
+                          for args, _ in bwd]
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
@@ -5334,44 +5377,43 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
 
 
 def wide_rows(slices, runs, per):
-    """The kernels JSON line's rows of the hd-128 f32 instances: the
-    forward's launches in the width-128 slice's warm run, its numbers on
-    that run's q, k, v (T = 7125 and 4096 under ``shapes``) and the
-    padded widths' under ``padded``; the backward pair's launches in the
-    two width-128 train runs and its numbers on their first backward."""
+    """The kernels JSON line's rows of the f32 kernels at each width of
+    :data:`WIDE_WIDTHS` (the wide bodies at 256, the hd-128 instances at
+    the padded 96): the forward's launches in that width's warm slice, its numbers
+    on that run's q, k, v (T = 7125 and 4096 under ``shapes``); the
+    backward pair's launches in the width's two train runs and its
+    numbers on their first backward."""
     from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
     rows = []
-    top = slices[128]
-    summarise(rows, "wide", top["name"], "ipdm_tpu_torch/csrc/flash_attn.cu",
-              "ipdm_tpu/models/unet.py:601", top["stats"], True)
-    rows[-1].update(
-        launches=top["launches"][top["name"]], head_dim=128,
-        dtype="float32", shapes=f32_shapes(top["stats"]),
-        padded=[dict(hd=w, instance=slices[w]["stats"][0]["instance"],
-                     launches=slices[w]["launches"][slices[w]["name"]],
-                     counter=slices[w]["name"],
-                     shapes=f32_shapes(slices[w]["stats"]))
-                for w in WIDE_WIDTHS if w != 128],
-        slices={w: dict(s=x["s"], peak_gib=x["peak_gib"])
-                for w, x in slices.items()})
-    for i, kind in enumerate(("dq", "dkv")):
-        name = _build.flash_counter(f"flash_bwd_{kind}", 128)
-        st = [p[i] for p in per]
-        summarise(rows, "wide", name, "ipdm_tpu_torch/csrc/flash_bwd.cu",
-                  "ipdm_tpu/models/unet.py:601 → jax/experimental/pallas/"
-                  "ops/tpu/flash_attention.py:"
-                  + ("1287" if kind == "dq" else "941"), st, True)
+    for w in WIDE_WIDTHS:
+        top, inst = slices[w], flash_instance(w)
+        summarise(rows, "wide", top["name"],
+                  "ipdm_tpu_torch/csrc/flash_attn.cu",
+                  "ipdm_tpu/models/unet.py:601", top["stats"], True)
         rows[-1].update(
-            launches=runs["img"][name] + runs["proj"][name],
-            launches_train_img=runs["img"][name],
-            launches_train_proj=runs["proj"][name], head_dim=128,
-            dtype="float32",
-            library="SDPA forward + backward of the same q, k, v, dO",
-            shapes=[dict(T=x["T"], ms=x["ms"], plain_ms=x["plain_ms"],
-                         library_ms=x["library_ms"],
-                         bound_ms=max(x["bytes_ms"], x["ops_ms"]),
-                         max_abs_err=x["err"]) for x in st])
+            launches=top["launches"][top["name"]], head_dim=w,
+            instance=inst, dtype="float32", shapes=f32_shapes(top["stats"]),
+            slice=dict(s=top["s"], first_s=top["first_s"],
+                       peak_gib=top["peak_gib"]))
+        for i, kind in enumerate(("dq", "dkv")):
+            name = _build.flash_counter(f"flash_bwd_{kind}", inst)
+            st = [p[i] for p in per[w]]
+            summarise(rows, "wide", name, "ipdm_tpu_torch/csrc/flash_bwd.cu",
+                      "ipdm_tpu/models/unet.py:601 → jax/experimental/"
+                      "pallas/ops/tpu/flash_attention.py:"
+                      + ("1287" if kind == "dq" else "941"), st, True)
+            rows[-1].update(
+                launches=runs[w]["img"][name] + runs[w]["proj"][name],
+                launches_train_img=runs[w]["img"][name],
+                launches_train_proj=runs[w]["proj"][name], head_dim=w,
+                instance=inst, dtype="float32",
+                library="SDPA forward + backward of the same q, k, v, dO",
+                shapes=[dict(T=x["T"], ms=x["ms"], plain_ms=x["plain_ms"],
+                             library_ms=x["library_ms"],
+                             bound_ms=max(x["bytes_ms"], x["ops_ms"]),
+                             max_abs_err=x["err"]) for x in st])
     for row in rows:
         log(f"kernels: {row['name']}: {row['launches']} launches in the "
             f"wide phase's main-path runs")
@@ -5462,7 +5504,7 @@ def main() -> int:
         wide = phase_wide(SEED, out, ld_proj, REPS)
     train_rows, train_fwd = phase_kernels_train(
         fwd_calls, bwd_calls, grad_calls, train_runs, REPS)
-    hd_short, hd_long, hd_long128 = phase_flash_hd(REPS)
+    hd_short, hd_long, hd_long128, hd_long256 = phase_flash_hd(REPS)
     phase_graft(SEED)
     phase_multihost()
     # the f32 forward's row is the f32 ART slice's (its main path); the
@@ -5586,15 +5628,17 @@ def main() -> int:
     log("kernels: launches in the ablations phase's main-path run: "
         + ", ".join(f"{row['name']} {row['launches_ablations']}"
                     for row in rows))
-    # the wide phase's hd-128 rows; the hd-128 f32 trio at long T
+    # the wide phase's rows (the wide bodies at mc 256, the hd-128
+    # instances at the padded mc 96); each f32 trio at long T
     for row in wide:
-        part = {"flash_attn_f32_hd128": "fwd", "flash_bwd_dq_hd128": "dq",
-                "flash_bwd_dkv_hd128": "dkv"}[row["name"]]
+        part = ("fwd" if row["name"].startswith("flash_attn") else
+                row["name"].split("_")[2])
         row["shapes_long"] = [dict(
             T=x["T"], ms=x[f"{part}_ms"], bound_ms=x["bound_ms"][part],
             library_ms=x["sdpa_fwd_ms" if part == "fwd"
                          else "sdpa_fwd_bwd_ms"],
-            over=x["over"]) for x in hd_long128]
+            over=x["over"]) for x in (hd_long256 if row["head_dim"] > 128
+                                      else hd_long128)]
     rows += wide
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,6 +1,7 @@
-// Forward flash attention for head dimensions 8, 16, 32, 64 and 128 on Hopper
-// (sm_90a): wgmma for both products, TMA for the loads; bf16 or f32 in and
-// out.
+// Forward flash attention on Hopper (sm_90a) for head dimensions 8, 16,
+// 32, 64 and 128 (template instances) and every multiple of 64 above 128
+// (the wide body): wgmma for both products, TMA for the loads; bf16 or f32
+// in and out. The f32 forward at head dim 8 runs flash_narrow.cu's body.
 //
 // Replaces the TPU flash kernel that ipdm_tpu/models/unet.py:601
 // _flash_attention calls (jax.experimental.pallas.ops.tpu.flash_attention)
@@ -12,8 +13,9 @@
 // q, k, v, out: [BH, T, HD] of one element type, contiguous, HD in
 // {8, 16, 32, 64, 128} (one template instance each; hopper.cuh's
 // Head<HD>: at HD = 8 the operands lie zero-padded to 16 columns in shared
-// memory, at HD = 128 as two 64-column sub-tiles; other head dims reach a
-// kernel zero-padded by the wrapper, ops/cuda/attention.py). With lse !=
+// memory, at HD = 128 as two 64-column sub-tiles) or a multiple of 64
+// above 128 (the wide body, below); other head dims reach a kernel
+// zero-padded by the wrapper, ops/cuda/attention.py. With lse !=
 // nullptr (the autograd path asks for it) the kernel also writes the f32
 // natural-log softmax normaliser lse[bh, t] = log(sum_s exp(scale2 * q.k))
 // that the backward kernels (flash_bwd.cu) rebuild P from, the counterpart
@@ -42,12 +44,11 @@
 // per SM, 4.2e12/s: 0.049 ms there, as long as the bf16 products). Below
 // HD = 64 the exp2 leads: at HD = 8 (the middle attention of the ablation
 // UNets), T = 114 000 and 4 heads the softmax takes T*T*4 = 5.2e10 exp2,
-// 12.4 ms, and the f32 products 2 * 3 * 2*T*T*8*4 = 5.0e12 flops, 5.0 ms.
-// This kernel runs HD = 8 at 16 columns (K padded to 16 in Q K^T, N = 16
-// in P V): twice the products the function needs (10.1 ms at the peak,
-// still under the exp2), a gap from the bound and not a part of it.
-// Padded to 64 they would take 40 ms. The T x T score matrix never leaves
-// the SM.
+// 12.4 ms, and the f32 products 2 * 3 * 2*T*T*8*4 = 5.0e12 flops, 5.0 ms
+// (the f32 forward there is flash_narrow.cu's). This kernel runs HD = 8
+// at 16 columns (K padded to 16 in Q K^T, N = 16 in P V): twice the
+// products the function needs, a gap from the bound and not a part of
+// it. The T x T score matrix never leaves the SM.
 //
 // Design (one CTA = 128 query rows of one head):
 // - Warp 8 is the producer: one thread loads the CTA's Q tiles once and
@@ -105,6 +106,15 @@
 //   192 KB (4 would take 320 KB), at most 168 registers, where it spills
 //   408 bytes a thread (scripts/ptxas_report.py) beside O, P's
 //   two fragment sets and S. A first body, right and not yet fast.
+// - Above 128 (the presets at model_channels 160-512): the wide body
+//   (flash_wide_kernel, below) takes the head dim as a runtime count nc
+//   of 64-column chunks. Each CTA owns 128 query rows and one 64-column
+//   slice of O (blockIdx.z), so its sums are HD = 64's; the producer
+//   streams Q's and K's chunks for S and V's slice for P V through the
+//   ring. Bound at hd 256, T = 7125, 4 heads: the products, 4*T*T*256*4
+//   flops, 0.210 ms at the bf16 peak, 0.631 ms for f32's three passes;
+//   each of the nc slices' CTAs rebuilds S, nc + 1 products where the
+//   function has 2, a gap from the bound.
 // - No setmaxnreg: an increase asks for registers that some warp has
 //   given back (setmaxnreg.inc blocks until they are free), and the one
 //   producer warp frees 72 x 32, too few to lift 256 consumer threads by
@@ -115,6 +125,11 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+
+// the f32 forward at head dim 8 (flash_narrow.cu)
+int flash_narrow_f32(const void* q, const void* k, const void* v, void* split,
+                     void* out, void* lse, int BH, int T, float scale_log2,
+                     cudaStream_t st);
 
 namespace {
 
@@ -193,6 +208,134 @@ __device__ __forceinline__ void add_pv(float (&o)[Head<HD>::SUB / 2],
     o[4 * n + 2] = fmaf(o[4 * n + 2], cr1, pv[4 * n + 2]);
     o[4 * n + 3] = fmaf(o[4 * n + 3], cr1, pv[4 * n + 3]);
   }
+}
+
+// The wide body's steps of one key tile (consume_wide), the same
+// arithmetic as consume's above, which keeps its own inline copy: routed
+// through these helpers, the template's bf16 head-dim-64 forward kept its
+// bits but ran 9% slower at T = 4096 on an H100
+// (scripts/torch_kernels_ab.py).
+
+// The online softmax of one key tile on one warpgroup's registers: sc
+// holds the tile's scores (keys >= T already -inf); the rows' running max
+// m0, m1 (log2 units of the scaled score) and the thread's partial row
+// sums l0, l1 are updated, O's rescale factors come back in cr0, cr1, and
+// P goes into the register-A fragments p (p[.][4kk .. 4kk+3] is the
+// m64k16 fragment of keys 16kk ..): rounded to bf16 (NP = 1) or split
+// into hi and lo (NP = 2). A thread holds 16 scores of two rows; the row
+// max and sum are reduced over the quad of lanes that shares a row.
+template <int NP>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, uint32_t (&p)[NP][16],
+                                             float& cr0, float& cr1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  // finite: every tile holds at least one key < T
+  const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+  const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+  cr0 = fast_exp2(m0 - mn0);
+  cr1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float p00 = fast_exp2(fmaf(sc[4 * n], scale_log2, -mn0));
+    const float p01 = fast_exp2(fmaf(sc[4 * n + 1], scale_log2, -mn0));
+    const float p10 = fast_exp2(fmaf(sc[4 * n + 2], scale_log2, -mn1));
+    const float p11 = fast_exp2(fmaf(sc[4 * n + 3], scale_log2, -mn1));
+    sum0 += p00 + p01;
+    sum1 += p10 + p11;
+    if constexpr (NP == 2) {
+      split2(p00, p01, p[0][2 * n], p[1][2 * n]);
+      split2(p10, p11, p[0][2 * n + 1], p[1][2 * n + 1]);
+    } else {
+      p[0][2 * n] = pack_bf16(p00, p01);
+      p[0][2 * n + 1] = pack_bf16(p10, p11);
+    }
+  }
+  l0 = l0 * cr0 + sum0;  // per-thread partial sums, reduced at the end
+  l1 = l1 * cr1 + sum1;
+}
+
+// O = O corr + P V over one 64-column chunk of V (descriptors vH, vL): in
+// f32 the tile's P V summed from zero in sc (dead after the softmax) and
+// added with an f32 FMA, in bf16 onto O in the tensor cores
+template <bool F32>
+__device__ __forceinline__ void pv_chunk(float (&o)[32], float (&sc)[32],
+                                         uint32_t (&p)[F32 ? 2 : 1][16],
+                                         float cr0, float cr1, uint64_t vH,
+                                         uint64_t vL) {
+  constexpr int NP = F32 ? 2 : 1;
+  if constexpr (F32) {
+    add_pv<NP, 64>(o, sc, p, cr0, cr1, vH, vL);
+  } else {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[4 * n] *= cr0;
+      o[4 * n + 1] *= cr0;
+      o[4 * n + 2] *= cr1;
+      o[4 * n + 3] *= cr1;
+    }
+    reg_fence(o);
+    reg_fence_a(p);
+    wg_fence();
+    product_rs<NP, 64>(o, p, vH, vL);
+    wg_commit();
+    reg_fence(o);
+    wg_wait_all();
+    reg_fence(o);
+  }
+}
+
+// The rows' lse (where lse != nullptr; m is in log2 units of the score)
+// and O / l: NCOLS columns of rows r0, r0 + 8 at out (column 0 of row 0;
+// ld elements a row). Rows >= T are not written.
+template <bool F32, int NCOLS, int NO>
+__device__ __forceinline__ void finish(const float (&o)[NO], float m0,
+                                       float m1, float l0, float l1,
+                                       Out<F32>* out, size_t ld, float* lse,
+                                       int r0, int T) {
+  const int lane = threadIdx.x % 32, c2 = (lane % 4) * 2, r1 = r0 + 8;
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  if (lse != nullptr && lane % 4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < T) lse[r0] = (m0 + log2f(sum0)) * LN2;
+    if (r1 < T) lse[r1] = (m1 + log2f(sum1)) * LN2;
+  }
+#pragma unroll
+  for (int n = 0; n < NCOLS / 8; ++n) {  // the pad columns are not written
+    const int col = 8 * n + c2;
+    if constexpr (F32) {
+      if (r0 < T)
+        *reinterpret_cast<float2*>(out + (size_t)r0 * ld + col) =
+            make_float2(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      if (r1 < T)
+        *reinterpret_cast<float2*>(out + (size_t)r1 * ld + col) =
+            make_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    } else {
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * ld + col) =
+            pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r1 * ld + col) =
+            pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
+  }
+}
+
+// keys >= T of the last key tile score -inf, not 0 (a zero-filled key)
+__device__ __forceinline__ void mask_keys(float (&sc)[32], int live) {
+  const int c2 = (threadIdx.x % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if (8 * (i / 4) + c2 + (i & 1) >= live) sc[i] = -INFINITY;
 }
 
 // One consumer warpgroup: 64 query rows against every key tile.
@@ -400,6 +543,202 @@ __global__ void __launch_bounds__(NTHREADS, F32 || HD == 128 ? 1 : 2)
   }
 }
 
+// The wide body: head dims above 128 as hdw = WIDE_CHUNK * nc columns,
+// nc a runtime count of 64-column chunks (the wrapper zero-pads the head
+// dim to a multiple of 64). Each CTA owns 128 query rows of one head and
+// one 64-column slice z = blockIdx.z of O, so its sums stay one m64n64
+// accumulator as at HD = 64 (O at 256 columns would take 128 f32
+// registers a thread). The producer streams every operand through the
+// ring in 64-column chunks: for each key tile, nc steps of [Q's chunk c
+// for both warpgroups, K's chunk c] whose products sum S over the head
+// dimension, then one step of V's chunk z for P V. Q is re-read from L2
+// for every key tile (a whole 128-row Q tile at hd 512 would take 256 KB
+// of shared memory in f32 hi and lo), and each of the nc slices' CTAs
+// rebuilds S: nc + 1 products of the 2 the function needs. A slot is
+// released once the next chunk's products are issued and its own have
+// completed (wgmma.wait_group 1), so one chunk's loads overlap the
+// previous chunk's products. bf16 slots 24 KB, f32 (hi and lo) 48 KB,
+// 4 of them either way; one CTA per SM.
+template <bool F32>
+struct WideSmem {
+  static constexpr int STAGES = 4, NP = F32 ? 2 : 1;
+  struct Slot {
+    bf16 q[NWG][NP][TILE<64>];  // chunk c of the CTA's query rows
+    bf16 kv[NP][TILE<64>];      // chunk c of the key tile, or V's chunk z
+  } slot[STAGES];
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+};
+
+// this warp is done with slot s
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
+}
+
+template <bool F32>
+__device__ __forceinline__ void consume_wide(WideSmem<F32>& sm, int wg,
+                                             Out<F32>* out, float* lse,
+                                             int T, int nc, float scale_log2,
+                                             int bh, int q0, int nk) {
+  using S = WideSmem<F32>;
+  constexpr int STAGES = S::STAGES, NP = S::NP;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int z = blockIdx.z, hdw = nc * WIDE_CHUNK;
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  int i = 0;  // ring step: nc + 1 per key tile
+  for (int j = 0; j < nk; ++j) {
+    // S = Q K^T, summed over the nc chunks of the head dimension
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    reg_fence(sc);
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+      const auto& sl = sm.slot[s];
+      wg_fence();
+      product_ss<F32, 64>(sc, sw_desc<64>(sl.q[wg][0]),
+                          sw_desc<64>(sl.q[wg][NP - 1]),
+                          sw_desc<64>(sl.kv[0]), sw_desc<64>(sl.kv[NP - 1]),
+                          c > 0);
+      wg_commit();
+      reg_fence(sc);
+      if (c > 0) {  // the previous chunk's products are done with its slot
+        wg_wait<1>();
+        release(&sm.empty[(i - 1) % STAGES]);
+      }
+    }
+    wg_wait_all();
+    reg_fence(sc);
+    release(&sm.empty[(i - 1) % STAGES]);
+
+    if (j == nk - 1 && T % BK) mask_keys(sc, T - j * BK);
+    uint32_t p[NP][16];
+    float cr0, cr1;
+    softmax_tile<NP>(sc, scale_log2, m0, m1, l0, l1, p, cr0, cr1);
+    // O = O corr + P V over V's chunk z
+    const int s = i % STAGES;
+    mbar_wait(&sm.full[s], (i / STAGES) & 1);
+    pv_chunk<F32>(o, sc, p, cr0, cr1, sw_desc<64>(sm.slot[s].kv[0]),
+                  sw_desc<64>(sm.slot[s].kv[NP - 1]));
+    release(&sm.empty[s]);
+    ++i;
+  }
+
+  const int r0 = q0 + wg * BM + warp * 16 + lane / 4;
+  finish<F32, WIDE_CHUNK>(
+      o, m0, m1, l0, l1, out + (size_t)bh * T * hdw + z * WIDE_CHUNK, hdw,
+      lse == nullptr || z ? nullptr : lse + (size_t)bh * T, r0, T);
+}
+
+template <bool F32>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_wide_kernel(const __grid_constant__ Maps maps,
+                      Out<F32>* __restrict__ out, float* __restrict__ lse,
+                      int T, int nc, float scale_log2) {
+  using S = WideSmem<F32>;
+  constexpr int STAGES = S::STAGES, NP = S::NP;
+  extern __shared__ unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + SW_ATOM - 1) &
+      ~uintptr_t(SW_ATOM - 1));
+  const int warp = threadIdx.x / 32;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, z = blockIdx.z;
+  const int nk = (T + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], NWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // producer
+    if (threadIdx.x % 32 == 0) {
+      for (int i = 0; i < nk * (nc + 1); ++i) {
+        const int s = i % STAGES, j = i / (nc + 1), c = i % (nc + 1);
+        auto& sl = sm.slot[s];
+        mbar_wait(&sm.empty[s], ((i / STAGES) & 1) ^ 1);
+        if (c < nc) {  // Q's and K's chunk c
+          mbar_expect_tx(&sm.full[s], (NWG + 1) * NP * TILE_BYTES<64>);
+          for (int p = 0; p < NP; ++p) {
+            for (int w = 0; w < NWG; ++w)
+              tma_load(sl.q[w][p], &maps.q[p], &sm.full[s], q0 + w * BM, bh,
+                       c * WIDE_CHUNK);
+            tma_load(sl.kv[p], &maps.k[p], &sm.full[s], j * BK, bh,
+                     c * WIDE_CHUNK);
+          }
+        } else {  // V's chunk z
+          mbar_expect_tx(&sm.full[s], NP * TILE_BYTES<64>);
+          for (int p = 0; p < NP; ++p)
+            tma_load(sl.kv[p], &maps.v[p], &sm.full[s], j * BK, bh,
+                     z * WIDE_CHUNK);
+        }
+      }
+    }
+  } else {
+    consume_wide<F32>(sm, warp / 4, out, lse, T, nc, scale_log2, bh, q0, nk);
+  }
+}
+
+template <bool F32>
+int launch_wide(const Maps& maps, void* out, void* lse, int BH, int T,
+                int hdw, float scale_log2, cudaStream_t st) {
+  constexpr int SMEM_BYTES = (int)sizeof(WideSmem<F32>) + SW_ATOM;
+  static bool smem_set = false;  // the attribute is set once per process
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wide_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int nc = hdw / WIDE_CHUNK;
+  dim3 grid((T + BQ - 1) / BQ, BH, nc);
+  flash_wide_kernel<F32><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+      maps, static_cast<Out<F32>*>(out), static_cast<float*>(lse), T, nc,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// a head dim the wide body runs: above the largest instance, whole chunks
+inline bool wide_hd(int hd) { return hd > 128 && hd % WIDE_CHUNK == 0; }
+
+int forward_wide_bf16(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int BH, int T, int hdw, float scale_log2,
+                      cudaStream_t st) {
+  Maps maps;
+  if (!make_map_wide(&maps.q[0], q, BH, T, hdw) ||
+      !make_map_wide(&maps.k[0], k, BH, T, hdw) ||
+      !make_map_wide(&maps.v[0], v, BH, T, hdw))
+    return (int)cudaErrorInvalidValue;
+  return launch_wide<false>(maps, out, lse, BH, T, hdw, scale_log2, st);
+}
+
+int forward_wide_f32(const void* q, const void* k, const void* v, void* split,
+                     void* out, void* lse, int BH, int T, int hdw,
+                     float scale_log2, cudaStream_t st) {
+  const size_t n = (size_t)BH * T * hdw;
+  const bf16* sp = static_cast<const bf16*>(split);
+  Maps maps;
+  for (int p = 0; p < 2; ++p)
+    if (!make_map_wide(&maps.q[p], sp + p * n, BH, T, hdw) ||
+        !make_map_wide(&maps.k[p], sp + (2 + p) * n, BH, T, hdw) ||
+        !make_map_wide(&maps.v[p], sp + (4 + p) * n, BH, T, hdw))
+      return (int)cudaErrorInvalidValue;
+  const void* src[3] = {q, k, v};
+  const int e = split_launch(src, 3, split, n, st);
+  if (e != 0) return e;
+  return launch_wide<true>(maps, out, lse, BH, T, hdw, scale_log2, st);
+}
+
 template <bool F32, int HD>
 int launch(const Maps& maps, void* out, void* lse, int BH, int T,
            float scale_log2, cudaStream_t st) {
@@ -448,21 +787,26 @@ template <int HD>
 int forward_f32(const void* q, const void* k, const void* v, void* split,
                 void* out, void* lse, int BH, int T, float scale_log2,
                 cudaStream_t st) {
-  Maps maps;
-  if (!split_maps<HD>(&maps, split, BH, T)) return (int)cudaErrorInvalidValue;
-  const void* src[3] = {q, k, v};
-  const int e = split_launch(src, 3, split, (size_t)BH * T * HD, st);
-  if (e != 0) return e;
-  return launch<true, HD>(maps, out, lse, BH, T, scale_log2, st);
+  if constexpr (HD == 8) {  // the narrow body (flash_narrow.cu)
+    return flash_narrow_f32(q, k, v, split, out, lse, BH, T, scale_log2, st);
+  } else {
+    Maps maps;
+    if (!split_maps<HD>(&maps, split, BH, T))
+      return (int)cudaErrorInvalidValue;
+    const void* src[3] = {q, k, v};
+    const int e = split_launch(src, 3, split, (size_t)BH * T * HD, st);
+    if (e != 0) return e;
+    return launch<true, HD>(maps, out, lse, BH, T, scale_log2, st);
+  }
 }
 
 }  // namespace
 
 // q, k, v, out: [BH, T, hd] bf16, contiguous, 16-byte aligned, hd in
-// {8, 16, 32, 64}; lse: [BH, T] f32 or null. scale_log2 = (scale applied
-// to q.k) * log2(e). Returns cudaGetLastError() (cudaErrorInvalidValue for
-// bad sizes, another hd, or a tensor map that cuTensorMapEncodeTiled
-// refuses).
+// {8, 16, 32, 64, 128} or a multiple of 64 above 128 (the wide body); lse:
+// [BH, T] f32 or null. scale_log2 = (scale applied to q.k) * log2(e).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for bad sizes, another
+// hd, or a tensor map that cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, void* lse, int BH, int T, int hd,
                                  float scale_log2, void* stream) {
@@ -474,14 +818,18 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     return forward_bf16<H>(q, k, v, out, lse, BH, T, scale_log2, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_BF16)
 #undef IPDM_BF16
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      return wide_hd(hd) ? forward_wide_bf16(q, k, v, out, lse, BH, T, hd,
+                                             scale_log2, st)
+                         : (int)cudaErrorInvalidValue;
   }
 }
 
 // The same for f32 q, k, v, out, with split: a [6, BH, T, hd] bf16
-// scratch tensor (16-byte aligned) that the split pre-pass fills with hi
-// and lo of q, k and v before the main kernel reads them. Returns
-// cudaGetLastError() of the first launch that fails.
+// scratch tensor (16-byte aligned; at hd 8 the narrow body's
+// [5, BH, T, 16]) that the split pre-pass fills with hi and lo of q, k and
+// v before the main kernel reads them. Returns cudaGetLastError() of the
+// first launch that fails.
 extern "C" int flash_attn_f32_launch(const void* q, const void* k,
                                      const void* v, void* split, void* out,
                                      void* lse, int BH, int T, int hd,
@@ -494,6 +842,9 @@ extern "C" int flash_attn_f32_launch(const void* q, const void* k,
     return forward_f32<H>(q, k, v, split, out, lse, BH, T, scale_log2, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_F32)
 #undef IPDM_F32
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      return wide_hd(hd) ? forward_wide_f32(q, k, v, split, out, lse, BH, T,
+                                            hd, scale_log2, st)
+                         : (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Backward of flash attention for head dimensions 8, 16, 32, 64 and 128 on
-// Hopper (sm_90a): every product on wgmma (bf16 operands, f32 sums), TMA
-// for the loads.
+// Backward of flash attention on Hopper (sm_90a) for head dimensions 8,
+// 16, 32, 64 and 128 (template instances) and every multiple of 64 above
+// 128 (the wide body): every product on wgmma (bf16 operands, f32 sums),
+// TMA for the loads.
 //
 // Replaces the two Pallas kernels of the TPU flash attention's backward
 // that ipdm_tpu/models/unet.py:601 _flash_attention reaches when the JAX
@@ -22,7 +23,8 @@
 // f32), contiguous, HD in {8, 16, 32, 64, 128} (a template instance each;
 // the tiles lie HDP = max(HD, 16) columns wide in shared memory,
 // zero-padded at HD = 8, two 64-column sub-tiles at HD = 128: hopper.cuh's
-// Head<HD>; other head dims reach a kernel zero-padded by the wrapper);
+// Head<HD>) or a multiple of 64 above 128 (the wide body, after the
+// template); other head dims reach a kernel zero-padded by the wrapper;
 // lse, D: [BH, T] f32. The gradients are with respect to the unscaled q
 // and k, so each carries c once.
 //
@@ -125,6 +127,16 @@
 //   dkv 255 with 40 bytes spilled (scripts/ptxas_report.py). One ring
 //   slot puts the loads between the tiles' products: a first body, right
 //   and not yet fast.
+// - Above 128 (the presets at model_channels 160-512): the wide body
+//   (flash_bwd_wide_kernel) takes the head dim as a runtime count of
+//   64-column chunks; each CTA owns one 64-column slice of the outputs,
+//   as at 128, and streams the resident rows' chunks with the ring
+//   tile's. Its f32 sums are chained over the ring tiles, as at 64 and
+//   128: at hd 256, T = 16 384 they are within the f32 rule
+//   (chip_smoke.py flash-hd), and the tile sums would add 64 registers
+//   to dkv's 177. Bound at hd 256, T = 7125, 4 heads, f32: dq 0.946, dkv
+//   1.261 ms (three passes of 6 and 8 * T*T*256*4 flops); each of the nc
+//   slices rebuilds S and dP, a gap from it.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -161,23 +173,21 @@ __device__ __forceinline__ float seen(float x) {
   return hi + ipdm::round_bf16(x - hi);
 }
 
-// D[r] = sum_d o[r][d] * seen(do[r][d]), one warp per row, two columns a
-// lane (four at HD = 128; lanes past HD / 2 add 0)
-template <typename E, int HD>
+// D[r] = sum_d o[r][d] * seen(do[r][d]) over the hd columns of a row
+// (any head dim: an instance's, or a padded width of the wide body), one
+// warp per row, two columns a lane per 64 (lanes past hd / 2 add 0)
+template <typename E>
 __global__ void __launch_bounds__(256)
     flash_bwd_dot_kernel(const E* __restrict__ o, const E* __restrict__ dout,
-                         float* __restrict__ D, int rows) {
+                         float* __restrict__ D, int rows, int hd) {
   const int r = blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= rows) return;
-  const size_t at = (size_t)r * HD + 2 * lane;
+  const size_t row = (size_t)r * hd;
   float acc = 0.f;
-  if (2 * lane < HD)
-    acc = ipdm::to_f32(o[at]) * seen(dout[at]) +
-          ipdm::to_f32(o[at + 1]) * seen(dout[at + 1]);
-  if constexpr (HD > 64)  // two more columns a lane
-    acc += ipdm::to_f32(o[at + 64]) * seen(dout[at + 64]) +
-           ipdm::to_f32(o[at + 65]) * seen(dout[at + 65]);
+  for (int c = 2 * lane; c < hd; c += 64)
+    acc += ipdm::to_f32(o[row + c]) * seen(dout[row + c]) +
+           ipdm::to_f32(o[row + c + 1]) * seen(dout[row + c + 1]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -656,14 +666,318 @@ int launch(const void* x, const void* y, const void* u, const void* w,
   return (int)cudaGetLastError();
 }
 
-// PRESPLIT: hi and lo of q, k, v and dO into split ([8][BH * T * HD]
-// bf16, tensor i's hi at 2i, its lo at 2i + 1), and hi[i] = tensor i's
-// hi part
-template <int HD>
+// The wide body: head dims above 128 as hdw = WIDE_CHUNK * nc columns (nc
+// a runtime count of 64-column chunks; the wrapper zero-pads the head dim
+// to a multiple of 64). As at HD = 128, each CTA owns one 64-column slice
+// z = blockIdx.z of the outputs, so its sums stay 32 registers a thread
+// (the chained sums of HD = 64 and 128), and every slice's CTA rebuilds S
+// and dP. No operand is resident: each ring tile j is nc + 1 steps, nc
+// of [X's and Y's chunk c for the CTA's 128 rows, U's and W's chunk c]
+// whose products sum S = X U^T and dP = Y W^T over the head dimension,
+// then one of [U's chunk z (and W's in dkv), the tile's lse and D] for
+// the products into the CTA's slice. The resident rows are re-read from
+// L2 for every ring tile (at hd 512 the 128 rows of X and Y would take
+// 256 KB in bf16). f32 takes hi and lo tiles from the split pre-pass, as
+// at HD = 128: slots of 96 KB (bf16 48 KB), 2 of them (bf16 4), 192 KB.
+// A slot is released once the next chunk's products are issued and its
+// own have completed.
+template <bool F32>
+struct WideSmem {
+  static constexpr int NP = F32 ? 2 : 1;
+  static constexpr int STAGES = F32 ? 2 : 4;
+  struct Slot {
+    bf16 x[NWG][NP][TILE<64>];  // chunk c of the resident rows, X and Y
+    bf16 y[NWG][NP][TILE<64>];
+    bf16 u[NP][TILE<64>];       // chunk c of the ring tile (or chunk z)
+    bf16 w[NP][TILE<64>];
+  } slot[STAGES];
+  float lse[STAGES][BN], Dc[STAGES][BN];  // the ring tile's rows (dkv)
+  uint64_t full[STAGES];
+  int released[STAGES];  // warps done with the slot's step
+};
+
+// A warp's loads, all 32 lanes: ring step i into slot i % STAGES (lane 0:
+// TMA; in dkv every lane also copies two of the tile's rows' lse and D,
+// as issue() does)
+template <bool DKV, bool F32>
+__device__ __forceinline__ void issue_wide(WideSmem<F32>& sm, int i,
+                                           const Maps& maps,
+                                           const float* lse, const float* D,
+                                           int bh, int T, int nc, int r0) {
+  using S = WideSmem<F32>;
+  constexpr int NP = S::NP;
+  constexpr uint32_t TB = TILE<64> * 2;
+  const int s = i % S::STAGES, j = i / (nc + 1), c = i % (nc + 1);
+  const int lane = threadIdx.x % 32;
+  auto& sl = sm.slot[s];
+  if (lane == 0) {
+    if (c < nc) {  // chunk c of X, Y, U, W
+      mbar_expect_tx(&sm.full[s], (2 * NWG + 2) * NP * TB);
+      for (int p = 0; p < NP; ++p) {
+        for (int w = 0; w < NWG; ++w) {
+          tma_load(sl.x[w][p], &maps.x[p], &sm.full[s], r0 + w * BM, bh,
+                   c * WIDE_CHUNK);
+          tma_load(sl.y[w][p], &maps.y[p], &sm.full[s], r0 + w * BM, bh,
+                   c * WIDE_CHUNK);
+        }
+        tma_load(sl.u[p], &maps.u[p], &sm.full[s], j * BN, bh,
+                 c * WIDE_CHUNK);
+        tma_load(sl.w[p], &maps.w[p], &sm.full[s], j * BN, bh,
+                 c * WIDE_CHUNK);
+      }
+    } else {  // chunk z of U (and W in dkv)
+      const int z = blockIdx.z;
+      mbar_expect_tx(&sm.full[s], (DKV ? 2 : 1) * NP * TB);
+      for (int p = 0; p < NP; ++p) {
+        tma_load(sl.u[p], &maps.u[p], &sm.full[s], j * BN, bh,
+                 z * WIDE_CHUNK);
+        if constexpr (DKV)
+          tma_load(sl.w[p], &maps.w[p], &sm.full[s], j * BN, bh,
+                   z * WIDE_CHUNK);
+      }
+    }
+  }
+  if constexpr (DKV) {
+    for (int r = lane; r < BN; r += 32) {
+      const int row = j * BN + r;
+      const size_t at = (size_t)bh * T + min(row, T - 1);
+      const int bytes = row < T ? 4 : 0;
+      cp_async4(&sm.lse[s][r], lse + at, bytes);
+      cp_async4(&sm.Dc[s][r], D + at, bytes);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     smem_u32(&sm.full[s]))
+                 : "memory");
+  }
+}
+
+template <bool DKV, bool F32>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_wide_kernel(const __grid_constant__ Maps maps,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ D,
+                          Elem<F32>* __restrict__ out0,
+                          Elem<F32>* __restrict__ out1, int T, int nc,
+                          float scale_log2, float scale2) {
+  extern __shared__ unsigned char smem_raw[];
+  using S = WideSmem<F32>;
+  constexpr int STAGES = S::STAGES, NP = S::NP;
+  S& sm = *reinterpret_cast<S*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + SW_ATOM - 1) &
+      ~uintptr_t(SW_ATOM - 1));
+  const int bh = blockIdx.y, r0 = blockIdx.x * BR, z = blockIdx.z;
+  const int nt = (T + BN - 1) / BN, steps = nt * (nc + 1);
+  const int hdw = nc * WIDE_CHUNK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], DKV ? 1 + 32 : 1);
+      sm.released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32)  // warp 0: the first STAGES steps
+    for (int i = 0; i < STAGES; ++i)
+      issue_wide<DKV, F32>(sm, i, maps, lse, D, bh, T, nc, r0);
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c2 = (lane % 4) * 2;
+  const int row0 = r0 + wg * BM + warp * 16 + lane / 4, row1 = row0 + 8;
+
+  // dq: the rows' log2-domain normaliser and D (rows past T: P = 0)
+  float lr[2] = {INFINITY, INFINITY}, dr[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+    if (row0 < T) {
+      lr[0] = lse[(size_t)bh * T + row0] * LOG2E;
+      dr[0] = D[(size_t)bh * T + row0];
+    }
+    if (row1 < T) {
+      lr[1] = lse[(size_t)bh * T + row1] * LOG2E;
+      dr[1] = D[(size_t)bh * T + row1];
+    }
+  }
+
+  // this warp is done with step i's slot; the last of the 8 refills it
+  // with step i + STAGES
+  auto release = [&](int i) {
+    const int s = i % STAGES;
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      last = atomicAdd(&sm.released[s], 1) == NWG * 4 - 1;
+      if (last) sm.released[s] = 0;
+      __threadfence_block();
+    }
+    if (__shfl_sync(0xffffffffu, last, 0) && i + STAGES < steps)
+      issue_wide<DKV, F32>(sm, i + STAGES, maps, lse, D, bh, T, nc, r0);
+  };
+
+  float acc0[32], acc1[32];  // dq; or dk, dv (this CTA's slice)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc0[e] = acc1[e] = 0.f;
+
+  int i = 0;  // ring step: nc + 1 per ring tile
+  for (int j = 0; j < nt; ++j) {
+    // S = X U^T, dP = Y W^T, summed over the nc chunks
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+    reg_fence(sc);
+    reg_fence(dp);
+    for (int c = 0; c < nc; ++c, ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+      const auto& sl = sm.slot[s];
+      wg_fence();
+      product_ss<F32, 64>(sc, sw_desc<64>(sl.x[wg][0]),
+                          sw_desc<64>(sl.x[wg][NP - 1]),
+                          sw_desc<64>(sl.u[0]), sw_desc<64>(sl.u[NP - 1]),
+                          c > 0);
+      product_ss<F32, 64>(dp, sw_desc<64>(sl.y[wg][0]),
+                          sw_desc<64>(sl.y[wg][NP - 1]),
+                          sw_desc<64>(sl.w[0]), sw_desc<64>(sl.w[NP - 1]),
+                          c > 0);
+      wg_commit();
+      reg_fence(sc);
+      reg_fence(dp);
+      if (c > 0) {  // the previous chunk's products are done with its slot
+        wg_wait<1>();
+        release(i - 1);
+      }
+    }
+    wg_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+    release(i - 1);
+
+    // the slice step: U's (and W's) chunk z, the tile's lse and D
+    const int s = i % STAGES;
+    mbar_wait(&sm.full[s], (i / STAGES) & 1);
+    // P into sc, dS into dp
+    const int live = T - j * BN;  // ring rows < T in this tile
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = 8 * (e / 4) + c2 + (e & 1);
+      float l2, dd;
+      if constexpr (DKV) {
+        l2 = sm.lse[s][col] * LOG2E;
+        dd = sm.Dc[s][col];
+      } else {
+        l2 = lr[(e >> 1) & 1];
+        dd = dr[(e >> 1) & 1];
+      }
+      float p = fast_exp2(fmaf(sc[e], scale_log2, -l2));
+      if (col >= live) p = 0.f;  // keys (dq) or queries (dkv) >= T
+      sc[e] = p;
+      dp[e] = p * (dp[e] - dd);
+    }
+    const uint64_t uH = sw_desc<64>(sm.slot[s].u[0]);
+    const uint64_t uL = sw_desc<64>(sm.slot[s].u[NP - 1]);
+    uint32_t da[NP][16];
+    to_a(da, dp);
+    if constexpr (DKV) {  // dV += P^T dO, dK += dS^T Q
+      uint32_t pa[NP][16];
+      to_a(pa, sc);
+      reg_fence(acc0);
+      reg_fence(acc1);
+      reg_fence_a(pa);
+      reg_fence_a(da);
+      wg_fence();
+      product_rs<NP, 64>(acc1, pa, sw_desc<64>(sm.slot[s].w[0]),
+                         sw_desc<64>(sm.slot[s].w[NP - 1]));
+      product_rs<NP, 64>(acc0, da, uH, uL);
+      wg_commit();
+      reg_fence(acc0);
+      reg_fence(acc1);
+      wg_wait_all();
+      reg_fence(acc0);
+      reg_fence(acc1);
+    } else {  // dQ += dS K
+      reg_fence(acc0);
+      reg_fence_a(da);
+      wg_fence();
+      product_rs<NP, 64>(acc0, da, uH, uL);
+      wg_commit();
+      reg_fence(acc0);
+      wg_wait_all();
+      reg_fence(acc0);
+    }
+    release(i);
+    ++i;
+  }
+
+  // rows < T: dq = c acc0; or dk = c acc0, dv = acc1 (the CTA's slice)
+  const size_t base = (size_t)bh * T * hdw + z * WIDE_CHUNK;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row1 : row0;
+    if (row >= T) continue;
+#pragma unroll
+    for (int n = 0; n < WIDE_CHUNK / 8; ++n) {
+      const int e = 4 * n + 2 * h;
+      const size_t at = base + (size_t)row * hdw + 8 * n + c2;
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(out0 + at) =
+            make_float2(acc0[e] * scale2, acc0[e + 1] * scale2);
+        if constexpr (DKV)
+          *reinterpret_cast<float2*>(out1 + at) =
+              make_float2(acc1[e], acc1[e + 1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(out0 + at) =
+            pack_bf16(acc0[e] * scale2, acc0[e + 1] * scale2);
+        if constexpr (DKV)
+          *reinterpret_cast<uint32_t*>(out1 + at) =
+              pack_bf16(acc1[e], acc1[e + 1]);
+      }
+    }
+  }
+}
+
+// the wide body of dq (DKV = false) or dkv: X, Y resident and U, W walked
+// ((q, do, k, v) for dq, (k, v, q, do) for dkv); f32 from the split
+// pre-pass (hi of each tensor, its lo BH * T * hdw elements on), bf16 the
+// tensors themselves
+template <bool DKV, bool F32>
+int launch_wide(const void* x, const void* y, const void* u, const void* w,
+                const void* lse, const void* D, void* out0, void* out1,
+                int BH, int T, int hdw, float scale_log2, float scale2,
+                cudaStream_t st) {
+  constexpr int SMEM_BYTES = (int)sizeof(WideSmem<F32>) + SW_ATOM;
+  static bool smem_set = false;  // the attribute is set once per process
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_wide_kernel<DKV, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const size_t n = (size_t)BH * T * hdw;
+  const bf16* t[4] = {
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y),
+      static_cast<const bf16*>(u), static_cast<const bf16*>(w)};
+  Maps maps{};
+  CUtensorMap* m[4] = {maps.x, maps.y, maps.u, maps.w};
+  for (int i = 0; i < 4; ++i)
+    for (int p = 0; p < (F32 ? 2 : 1); ++p)
+      if (!make_map_wide(&m[i][p], t[i] + p * n, BH, T, hdw))
+        return (int)cudaErrorInvalidValue;
+  const int nc = hdw / WIDE_CHUNK;
+  dim3 grid((T + BR - 1) / BR, BH, nc);
+  flash_bwd_wide_kernel<DKV, F32><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+      maps, static_cast<const float*>(lse), static_cast<const float*>(D),
+      static_cast<Elem<F32>*>(out0), static_cast<Elem<F32>*>(out1), T, nc,
+      scale_log2, scale2);
+  return (int)cudaGetLastError();
+}
+
+// PRESPLIT and the wide f32 body: hi and lo of q, k, v and dO (n elements
+// each) into split ([8][n] bf16, tensor i's hi at 2i, its lo at 2i + 1),
+// and hi[i] = tensor i's hi part
 int presplit(const void* q, const void* k, const void* v, const void* dout,
-             void* split, int BH, int T, const void* (&hi)[4],
-             cudaStream_t st) {
-  const size_t n = (size_t)BH * T * HD;
+             void* split, size_t n, const void* (&hi)[4], cudaStream_t st) {
   const void* src[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i)
     hi[i] = static_cast<const bf16*>(split) + 2 * i * n;
@@ -677,14 +991,15 @@ int dq_launch(const void* q, const void* k, const void* v, const void* o,
               cudaStream_t st) {
   using E = Elem<F32>;
   const int rows = BH * T;
-  flash_bwd_dot_kernel<E, HD><<<(rows + 7) / 8, 256, 0, st>>>(
+  flash_bwd_dot_kernel<E><<<(rows + 7) / 8, 256, 0, st>>>(
       static_cast<const E*>(o), static_cast<const E*>(dout),
-      static_cast<float*>(D), rows);
+      static_cast<float*>(D), rows, HD);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (PRESPLIT<F32, HD>) {
     const void* hi[4];
-    const int es = presplit<HD>(q, k, v, dout, split, BH, T, hi, st);
+    const int es =
+        presplit(q, k, v, dout, split, (size_t)BH * T * HD, hi, st);
     if (es != 0) return es;
     return launch<false, F32, HD>(hi[0], hi[3], hi[1], hi[2], lse, D, dq,
                                   nullptr, BH, T, scale_log2, scale2, st);
@@ -701,7 +1016,8 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                cudaStream_t st) {
   if constexpr (PRESPLIT<F32, HD>) {
     const void* hi[4];
-    const int es = presplit<HD>(q, k, v, dout, split, BH, T, hi, st);
+    const int es =
+        presplit(q, k, v, dout, split, (size_t)BH * T * HD, hi, st);
     if (es != 0) return es;
     return launch<true, F32, HD>(hi[1], hi[2], hi[0], hi[3], lse, D, dk, dv,
                                  BH, T, scale_log2, scale2, st);
@@ -733,12 +1049,60 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
                                         BH, T, scale_log2, scale2, st);
 }
 
+// the wide body's dq: D (over hdw columns), then dQ
+template <bool F32>
+int dq_wide(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const void* lse, void* D, void* dq, void* split,
+            int BH, int T, int hdw, float scale_log2, float scale2,
+            cudaStream_t st) {
+  using E = Elem<F32>;
+  const int rows = BH * T;
+  flash_bwd_dot_kernel<E><<<(rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const E*>(o), static_cast<const E*>(dout),
+      static_cast<float*>(D), rows, hdw);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (F32) {
+    const void* hi[4];
+    const int es = presplit(q, k, v, dout, split, (size_t)rows * hdw, hi, st);
+    if (es != 0) return es;
+    return launch_wide<false, true>(hi[0], hi[3], hi[1], hi[2], lse, D, dq,
+                                    nullptr, BH, T, hdw, scale_log2, scale2,
+                                    st);
+  } else {
+    return launch_wide<false, false>(q, dout, k, v, lse, D, dq, nullptr, BH,
+                                     T, hdw, scale_log2, scale2, st);
+  }
+}
+
+template <bool F32>
+int dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* D, void* dk, void* dv, void* split,
+             int BH, int T, int hdw, float scale_log2, float scale2,
+             cudaStream_t st) {
+  if constexpr (F32) {
+    const void* hi[4];
+    const int es =
+        presplit(q, k, v, dout, split, (size_t)BH * T * hdw, hi, st);
+    if (es != 0) return es;
+    return launch_wide<true, true>(hi[1], hi[2], hi[0], hi[3], lse, D, dk,
+                                   dv, BH, T, hdw, scale_log2, scale2, st);
+  } else {
+    return launch_wide<true, false>(k, v, q, dout, lse, D, dk, dv, BH, T,
+                                    hdw, scale_log2, scale2, st);
+  }
+}
+
+// a head dim the wide body runs: above the largest instance, whole chunks
+inline bool wide_hd(int hd) { return hd > 128 && hd % WIDE_CHUNK == 0; }
+
 }  // namespace
 
 // D = rowsum(o * do) (f32: with do's hi + lo, see above), then dQ. q, k, v,
 // o, do, dq: [BH, T, hd] bf16 (is_bf16 = 1) or f32, contiguous, 16-byte
-// aligned, hd in {8, 16, 32, 64, 128}; lse, D: [BH, T] f32 (D written
-// here, read by flash_bwd_dkv_launch); split: for f32 at hd 128 a
+// aligned, hd in {8, 16, 32, 64, 128} or a multiple of 64 above 128 (the
+// wide body); lse, D: [BH, T] f32 (D written here, read by
+// flash_bwd_dkv_launch); split: for f32 at hd 128 and above a
 // [8, BH, T, hd] bf16 scratch (16-byte aligned) for hi and lo of q, k, v
 // and do, else unused (may be null). scale_log2 = scale2 * log2(e).
 // Returns cudaGetLastError() (cudaErrorInvalidValue for bad sizes,
@@ -759,7 +1123,12 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                        scale_log2, scale2, is_bf16, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_DQ)
 #undef IPDM_DQ
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!wide_hd(hd)) return (int)cudaErrorInvalidValue;
+      return is_bf16 ? dq_wide<false>(q, k, v, o, dout, lse, D, dq, split, BH,
+                                      T, hd, scale_log2, scale2, st)
+                     : dq_wide<true>(q, k, v, o, dout, lse, D, dq, split, BH,
+                                     T, hd, scale_log2, scale2, st);
   }
 }
 
@@ -781,6 +1150,11 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                         scale_log2, scale2, is_bf16, st);
     IPDM_FLASH_HEAD_DIMS(IPDM_DKV)
 #undef IPDM_DKV
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!wide_hd(hd)) return (int)cudaErrorInvalidValue;
+      return is_bf16 ? dkv_wide<false>(q, k, v, dout, lse, D, dk, dv, split,
+                                       BH, T, hd, scale_log2, scale2, st)
+                     : dkv_wide<true>(q, k, v, dout, lse, D, dk, dv, split,
+                                      BH, T, hd, scale_log2, scale2, st);
   }
 }

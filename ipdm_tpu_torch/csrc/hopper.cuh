@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_attn.cu, flash_bwd.cu): mbarriers, TMA loads of [BH, T, HD]
-// tensors, wgmma m64nNk16 in bf16 with f32 sums, f32 products as three
-// bf16 passes, and the register layouts between them.
+// (flash_attn.cu, flash_narrow.cu, flash_bwd.cu): mbarriers, TMA loads of
+// [BH, T, HD] tensors, wgmma m64nNk16 in bf16 with f32 sums, f32 products
+// as three bf16 passes, and the register layouts between them.
 //
 // Head dimensions: the kernels are templates over HD in {8, 16, 32, 64,
 // 128} (ops/cuda/attention.py FLASH_HEAD_DIMS; other head dims up to 128
-// run on the next instance up, zero-padded by the wrapper). A tile of 64
+// run on the next instance up, zero-padded by the wrapper); above 128 one
+// wide body per kernel takes the head dim as a runtime count of
+// WIDE_CHUNK-column chunks (the wrapper zero-pads it to a multiple of 64),
+// each chunk a Head<64> tile of its own. A tile of 64
 // rows lies in shared memory HDP = max(HD, 16) columns wide: bf16 wgmma
 // takes K in steps of 16, so at HD = 8 the contraction over the head
 // dimension runs on operands zero-padded to 16 (the TMA box is 16 columns
@@ -45,6 +48,11 @@ namespace hopper {
 // ops/cuda/_build.py FLASH_HEAD_DIMS names the same set on the Python
 // side; tests/test_torch_flash_head_dims.py holds the two equal
 #define IPDM_FLASH_HEAD_DIMS(X) X(8) X(16) X(32) X(64) X(128)
+// the wide bodies' chunk of the head dimension (flash_attn.cu,
+// flash_bwd.cu): head dims above the largest instance run as a runtime
+// count of chunks this wide; _build.py FLASH_WIDE_CHUNK names it too
+#define IPDM_FLASH_WIDE_CHUNK 64
+constexpr int WIDE_CHUNK = IPDM_FLASH_WIDE_CHUNK;
 
 constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
                               // largest swizzle atom
@@ -184,6 +192,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// waits until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving register reads or writes across the
 // asynchronous wgmma that owns these registers
@@ -233,26 +246,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
       "+f"(d[6]), "+f"(d[7])
 
-// d += A B, A [64 x 16] bf16 in registers, B [16 x N] MN-major in shared
-// memory (transposed operand), N = 64, 32 or 16 (N / 2 sums a thread)
+// d (+)= A B, A [64 x 16] bf16 in registers, B [16 x N] MN-major in
+// shared memory (transposed operand), N = 64, 32 or 16 (N / 2 sums a
+// thread); accumulate = 0 overwrites d
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
+                                         uint32_t a3, uint64_t db,
+                                         int accumulate = 1) {
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : WG_D32_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
   } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
         ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
         : WG_D16_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
   } else {
     static_assert(N == 16, "wgmma_rs: N is 64, 32 or 16");
     asm volatile(
@@ -260,7 +275,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
         ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
         : WG_D8_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
   }
 }
 
@@ -291,16 +306,18 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
 }
 
 // d (+)= A B^T over the head dimension (HDP / 16 steps of 16), A and B
-// K-major in shared memory: one pass, or three (hi hi, hi lo, lo hi)
+// K-major in shared memory: one pass, or three (hi hi, hi lo, lo hi); the
+// first step overwrites d unless ``accumulate`` (a wide body's later
+// chunks of the head dimension)
 template <bool F32, int HD>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint64_t aH,
                                            uint64_t aL, uint64_t bH,
-                                           uint64_t bL) {
+                                           uint64_t bL, int accumulate = 0) {
   using H = Head<HD>;
   constexpr int KS = H::HDP / 16;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    wgmma_ss(d, aH + H::k_step(kk), bH + H::k_step(kk), kk);
+    wgmma_ss(d, aH + H::k_step(kk), bH + H::k_step(kk), kk | accumulate);
   if constexpr (F32) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
@@ -362,9 +379,9 @@ __device__ __forceinline__ void fence_async_smem() {
 }
 
 // The f32 bodies' split pre-pass (flash_attn.cu's forward, flash_bwd.cu's
-// backward at HD = 128): hi and lo of n4 float4s of each of the gridDim.y
-// (<= 4) tensors t0 .. t3 into dst: [2 * gridDim.y][n] bf16, tensor y's hi
-// at 2y, its lo at 2y + 1
+// backward at HD = 128 and the wide bodies): hi and lo of n4 float4s of
+// each of the gridDim.y (<= 4) tensors t0 .. t3 into dst:
+// [2 * gridDim.y][n] bf16, tensor y's hi at 2y, its lo at 2y + 1
 static __global__ void __launch_bounds__(256)
     split_kernel(const float4* __restrict__ t0, const float4* __restrict__ t1,
                  const float4* __restrict__ t2, const float4* __restrict__ t3,
@@ -444,6 +461,25 @@ inline bool make_map(CUtensorMap* map, const void* base, int BH, int T) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+
+// [BH, T, hdw] bf16 (hdw a multiple of WIDE_CHUNK) as a 3-D map of
+// WIDE_CHUNK x 64 x 1 boxes in Head<WIDE_CHUNK>'s (128-byte) swizzle:
+// chunk c of a 64-row tile is the box at column c * WIDE_CHUNK; rows past
+// T read as zeros
+inline bool make_map_wide(CUtensorMap* map, const void* base, int BH, int T,
+                          int hdw) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hdw, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)hdw * 2,
+                                 (cuuint64_t)T * hdw * 2};
+  const cuuint32_t box[3] = {WIDE_CHUNK, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            Head<WIDE_CHUNK>::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // [BH, T, HD] f32 as a 3-D map, HD x 64 x 1 boxes (4 * HD-byte rows) with
 // no swizzle; rows past T read as zeros

@@ -42,10 +42,10 @@ SIGNATURES = {
     # template instance each) after T
     # q, k, v, out, lse (or null), BH, T, hd, scale_log2, stream
     "flash_attn_launch": [P, P, P, P, P, I, I, I, ctypes.c_float, P],
-    # q, k, v, split (scratch), out, lse (or null), BH, T, hd, scale_log2,
-    # stream
+    # q, k, v, split (scratch: attention._fwd_split), out, lse (or null),
+    # BH, T, hd, scale_log2, stream
     "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, I, ctypes.c_float, P],
-    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd 128, or
+    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd >= 128, or
     # null), BH, T, hd, scale_log2, scale2, bf16, stream
     "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                             ctypes.c_float, ctypes.c_float, I, P],
@@ -74,18 +74,26 @@ SIGNATURES = {
 # csrc/hopper.cuh IPDM_FLASH_HEAD_DIMS lists the same set for the entry
 # points' switches
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
+# above the largest instance, each flash kernel's wide body takes the head
+# dim zero-padded to a multiple of this many columns, as a runtime count of
+# chunks (csrc/hopper.cuh IPDM_FLASH_WIDE_CHUNK)
+FLASH_WIDE_CHUNK = 64
 
 
 def flash_counter(name: str, hd: int) -> str:
     """The :data:`LAUNCHES` key of flash kernel ``name`` at head dimension
-    ``hd``."""
-    return name if hd == 64 else f"{name}_hd{hd}"
+    ``hd`` (an instance's, or above them a padded width of the wide
+    body)."""
+    if hd == 64:
+        return name
+    return f"{name}_hd{hd}" if hd in FLASH_HEAD_DIMS else f"{name}_wide"
 
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. The flash kernels
-# count head dimension 64 under their own name and each other head
-# dimension's instance under "<name>_hd<hd>" (flash_counter)
+# count head dimension 64 under their own name, each other head
+# dimension's instance under "<name>_hd<hd>" and the wide body at every
+# width under "<name>_wide" (flash_counter)
 FLASH_KERNELS = ("flash_attn", "flash_attn_f32", "flash_bwd_dq",
                  "flash_bwd_dkv")
 LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,
@@ -94,7 +102,7 @@ LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,
             "fp_shift_deposit_batched": 0, "fp_shift_deposit": 0,
             "flash_attn_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             **{flash_counter(k, hd): 0 for k in FLASH_KERNELS
-               for hd in FLASH_HEAD_DIMS}}
+               for hd in FLASH_HEAD_DIMS + (2 * FLASH_HEAD_DIMS[-1],)}}
 
 _lock = threading.Lock()
 _lib = None

@@ -13,12 +13,14 @@ formula of unet.py:659-662. Shorter sequences take :func:`attention_plain`
 on every device, as the JAX package does.
 
 The kernels are instantiated at the head dims :data:`FLASH_HEAD_DIMS`; any
-other head dim up to 128 runs on the next instance up
-(:func:`flash_instance`): the wrappers zero-pad q, k, v (and out, do) to
-its width and cut the outputs back. Zero columns add nothing to q·kᵀ, to
-rowsum(do ∘ out) or to do·vᵀ, and the caller's scale is that of the real
-head dim, so the result is the function at the real head dim. Head dims
-above 128 raise before any launch.
+other head dim up to 128 runs on the next instance up, and every head dim
+above 128 on each kernel's wide body at the next multiple of
+:data:`FLASH_WIDE_CHUNK` columns (:func:`flash_instance`): the wrappers
+zero-pad q, k, v (and out, do) to that width and cut the outputs back.
+Zero columns add nothing to q·kᵀ, to rowsum(do ∘ out) or to do·vᵀ, and
+the caller's scale is that of the real head dim, so the result is the
+function at the real head dim. The f32 forward at head dim 8 runs its own
+narrow body (``csrc/flash_narrow.cu``).
 
 Where grad mode is on and q, k or v requires a gradient, the call goes
 through an ``autograd.Function``. Its forward also returns the softmax's
@@ -45,6 +47,8 @@ from ipdm_tpu_torch.ops.cuda import _build
 FLASH_MIN_SEQ = 4096
 # the head dimensions the kernels are instantiated for
 FLASH_HEAD_DIMS = _build.FLASH_HEAD_DIMS
+# above them, the wide bodies' column chunk
+FLASH_WIDE_CHUNK = _build.FLASH_WIDE_CHUNK
 HEAD_DIM = 64  # the shipped presets' head dimension
 # forward kernel of each activation dtype: (C entry, launch counter)
 _FORWARD = {torch.bfloat16: ("flash_attn_launch", "flash_attn"),
@@ -119,7 +123,7 @@ def attention_bwd_plain(q, k, v, out, lse, do, scale, D=None):
 def flash_attention(q, k, v, scale):
     """The same function as :func:`attention_plain`. The kernels apply
     scale² once to the f32 score instead of scale to each operand, and
-    take contiguous [BH, T, hd] tensors in bf16 or f32, hd up to 128
+    take contiguous [BH, T, hd] tensors in bf16 or f32, any hd
     (:func:`flash_instance`). Differentiable in
     q, k and v (backward by the flash backward kernels on the card)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -169,23 +173,21 @@ def _check(name, tensors, like):
 
 
 def flash_instance(hd: int) -> int:
-    """The head dim of the kernel instance that runs head dim ``hd``: the
-    smallest of :data:`FLASH_HEAD_DIMS` not below it (1-7 on 8, 9-15 on
-    16, 17-31 on 32, 33-63 on 64, 65-127 on 128). Raises ValueError
-    outside 1..128."""
+    """The width the kernels run head dim ``hd`` at: the smallest of
+    :data:`FLASH_HEAD_DIMS` not below it (1-7 on 8, 9-15 on 16, 17-31 on
+    32, 33-63 on 64, 65-127 on 128), and above 128 the wide body at the
+    next multiple of :data:`FLASH_WIDE_CHUNK` (129-192 on 192, 193-256 on
+    256, 449-512 on 512, ...). Raises ValueError below 1."""
+    if hd < 1:
+        raise ValueError(f"flash attention: head dim {hd} is below 1")
     for inst in FLASH_HEAD_DIMS:
-        if 1 <= hd <= inst:
+        if hd <= inst:
             return inst
-    raise ValueError(
-        f"flash attention: head dim {hd} is outside 1..{FLASH_HEAD_DIMS[-1]}"
-        f", the head dims the flash kernels run (an attention block's head "
-        f"dim is its channels ÷ its 4 heads: model_channels_img / "
-        f"model_channels_proj times channel_mult at that level, ÷ 4)")
+    return -(-hd // FLASH_WIDE_CHUNK) * FLASH_WIDE_CHUNK
 
 
 def _check_cuda(name, q):
-    """q is a [BH, T, hd] CUDA tensor with a head dim up to 128; returns
-    the instance that runs it."""
+    """q is a [BH, T, hd] CUDA tensor; returns the width that runs it."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 3:
@@ -236,7 +238,7 @@ def _forward(q, k, v, scale, with_lse=False):
     entry, counter = _FORWARD[q.dtype]
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if q.dtype == torch.float32:   # the kernel's bf16 hi and lo of q, k, v
-        split = torch.empty((6, BH, T, inst), dtype=torch.bfloat16,
+        split = torch.empty(_fwd_split(BH, T, inst), dtype=torch.bfloat16,
                             device=q.device)
         ptrs.append(split.data_ptr())
     code = getattr(_build.library(), entry)(
@@ -248,10 +250,18 @@ def _forward(q, k, v, scale, with_lse=False):
     return (out, lse) if with_lse else out
 
 
+def _fwd_split(BH, T, inst):
+    """The shape of the f32 forward's bf16 scratch: hi and lo of q, k and
+    v, [6, BH, T, inst]; at head dim 8 the narrow body's five padded
+    operands, [5, BH, T, 16] (csrc/flash_narrow.cu)."""
+    return (5, BH, T, 16) if inst == 8 else (6, BH, T, inst)
+
+
 def _bwd_split(q, inst):
     """The backward kernels' scratch for hi and lo of q, k, v and do: f32
-    at head dim 128 (else None, passed as null)."""
-    if q.dtype != torch.float32 or inst != 128:
+    at head dim 128 and the wide body's widths (else None, passed as
+    null)."""
+    if q.dtype != torch.float32 or inst < 128:
         return None
     BH, T, _ = q.shape
     return torch.empty((8, BH, T, inst), dtype=torch.bfloat16,

@@ -4,6 +4,7 @@ against a parent commit's, on one NVIDIA GPU, in one process.
 
     python3 scripts/torch_kernels_ab.py --parent DIR [--reps 20] [--out F]
         [--kernels deposit anterp flash_fwd flash_bwd] [--same-bits]
+    python3 scripts/torch_kernels_ab.py --narrow-variants NWG,KT [...]
 
 DIR is a checkout of the parent commit (``git archive <commit> | tar -x
 -C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
@@ -32,14 +33,29 @@ and on each input:
   the head dimension (attention.py FLASH_HEAD_DIMS) gets the tensors'
   (and a null split scratch where its backward entries take one);
 * where the parent's kernels take the head dimension, its forward and
-  backward against this tree's at head dims 8, 16 and 32 (both dtypes)
+  backward against this tree's at head dims 8, 16, 32 and 128 (and 192
+  and 256 on the wide bodies, where the parent has them), both dtypes,
   on seeded inputs at T = 4097: the largest parent − new distance of
-  every output;
+  every output, and the forward timed A B B A. Where this tree's f32
+  forward at head dim 8 is the narrow body (csrc/flash_narrow.cu) and
+  the parent's is not, that forward's distance is printed, not required
+  to be 0 (its backward runs on this tree's out and lse in both);
+* the f32 forward at head dim 8 (4 heads) at T = 16 384 and 114 000 on
+  seeded inputs: the parent's and this tree's, each held to the f64
+  plain forward over query blocks (out at chip_smoke.py's f32 rule, the
+  lse at flash_long's bound), timed A B B A;
 * times the parent's kernel (launched bare) and this tree's (through
   its wrapper, with the host bounds the main path passes), back to back
   with the stream held by a spin kernel (device time), in the order
   parent, new, new, parent; and this tree's wrapper alone, CUDA events
   around back-to-back calls (host time included where it is longer).
+
+With ``--narrow-variants`` (and no parent) the script instead builds
+``csrc/flash_narrow.cu`` at each given (warpgroups a CTA, 64-key
+sub-tiles a key tile) pair (its IPDM_NARROW_NWG / IPDM_NARROW_KT), each
+source with a C shim over its entry in an nvcc process of its own, and
+at T = 16 384 and 114 000 holds each to the f64 plain forward (as
+above) and times it against this tree's build (the wrapper) A B B A.
 
 The last line is a JSON object with the times; with ``--out`` it is also
 written to that file. With ``--same-bits`` the script exits 1 unless
@@ -110,6 +126,19 @@ def parent_bwd_takes_split(parent: Path) -> bool:
                             / "attention.py").read_text()
 
 
+def parent_takes_wide(parent: Path) -> bool:
+    """Whether the parent's flash entries run head dims above 128 (the
+    wide bodies)."""
+    return "FLASH_WIDE_CHUNK" in (parent / "ipdm_tpu_torch" / "ops" / "cuda"
+                                  / "attention.py").read_text()
+
+
+def parent_narrow(parent: Path) -> bool:
+    """Whether the parent's f32 forward at head dim 8 is the narrow body
+    (its [5, BH, T, 16] scratch)."""
+    return (parent / "ipdm_tpu_torch" / "csrc" / "flash_narrow.cu").exists()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -155,10 +184,26 @@ def build_parent(parent: Path) -> ctypes.CDLL:
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.f32_takes_split = parent_f32_takes_split(parent)
     lib.takes_hd = parent_takes_hd(parent)
-    # the split scratch pointer of the parent's backward entries: null, as
-    # no case here runs the f32 hd-128 instances that read it
-    lib.split_args = (None,) if parent_bwd_takes_split(parent) else ()
+    lib.bwd_split = parent_bwd_takes_split(parent)
+    lib.wide = parent_takes_wide(parent)
+    lib.narrow = parent_narrow(parent)
     return lib
+
+
+def split_args(lib, q) -> tuple:
+    """The split scratch argument of the parent's backward entries (none
+    where they take none): a [8, BH, T, hd] bf16 tensor for f32 at head
+    dims 128 and above (hi and lo of q, k, v and dO), else null."""
+    import torch
+    if not lib.bwd_split:
+        return ()
+    BH, T, hd = q.shape
+    if q.dtype != torch.float32 or hd < 128:
+        return (None,)
+    split = torch.empty((8, BH, T, hd), dtype=torch.bfloat16,
+                        device=q.device)
+    lib.keep = split   # alive until the next case's launches
+    return (split.data_ptr(),)
 
 
 def hd_args(lib, q) -> tuple:
@@ -379,19 +424,20 @@ def flash_bwd_case(lib, dtype_name, args, reps):
 
     dq_p, dk_p, dv_p = (torch.empty_like(q) for _ in range(3))
     D_p = torch.empty_like(lse)
+    split = split_args(lib, q)
 
     def parent_dq():
         _build.check(lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), D_p.data_ptr(), dq_p.data_ptr(),
-            *lib.split_args, BH, T, *hd_args(lib, q), c2l, c2, bf16,
+            *split, BH, T, *hd_args(lib, q), c2l, c2, bf16,
             stream), "parent flash_bwd_dq")
 
     def parent_dkv():
         _build.check(lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), D_p.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(),
-            *lib.split_args, BH, T, *hd_args(lib, q), c2l, c2, bf16,
+            *split, BH, T, *hd_args(lib, q), c2l, c2, bf16,
             stream), "parent flash_bwd_dkv")
 
     parent_dq()
@@ -453,8 +499,10 @@ def parent_forward(lib, q, k, v, c2l):
     if q.dtype == torch.float32:
         entry = "flash_attn_f32_launch"
         if lib.f32_takes_split:
-            split = torch.empty((6, BH, T, q.shape[2]), dtype=torch.bfloat16,
-                                device=q.device)
+            hd = q.shape[2]
+            shape = ((5, BH, T, 16) if hd == 8 and lib.narrow else
+                     (6, BH, T, hd))
+            split = torch.empty(shape, dtype=torch.bfloat16, device=q.device)
             ptrs.append(split.data_ptr())
     _build.check(getattr(lib, entry)(*ptrs, out.data_ptr(), lse.data_ptr(),
                                      BH, T, *hd_args(lib, q), c2l,
@@ -464,16 +512,27 @@ def parent_forward(lib, q, k, v, c2l):
 
 
 # the other head dims the parent's and this tree's kernels both run (the
-# head-dim-64 ones are the recorded cases)
-AB_HEAD_DIMS = (8, 16, 32)
+# head-dim-64 ones are the recorded cases); AB_WIDE_HEAD_DIMS where the
+# parent has the wide bodies
+AB_HEAD_DIMS = (8, 16, 32, 128)
+AB_WIDE_HEAD_DIMS = (192, 256)
 
 
-def flash_head_dim_case(lib, hd, dtype_name, seed):
+def narrow_is_new(lib, hd, dtype_name) -> bool:
+    """Whether this tree's forward at (hd, dtype) is the narrow body and
+    the parent's is not (their out and lse then differ by design)."""
+    from ipdm_tpu_torch.ops.cuda import _build
+    return (hd == 8 and dtype_name == "float32" and not lib.narrow
+            and (_build.SRC_DIR / "flash_narrow.cu").exists())
+
+
+def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
     """The parent's forward and backward kernels against this tree's at
     head dim ``hd`` on seeded N(0, 1) q, k, v, dO [4, 4097, hd] (one live
     row in the last tile), the backward on this tree's out and lse: the
     parent − new max |diff| of out, lse, dq, dk, dv and D (--same-bits
-    wants every one 0)."""
+    wants every one 0, but the forward's where :func:`narrow_is_new`),
+    and the forwards' device ms A B B A."""
     import math
 
     import torch
@@ -494,12 +553,199 @@ def flash_head_dim_case(lib, hd, dtype_name, seed):
     torch.cuda.synchronize()
     gaps = [float((a.float() - b.float()).abs().max())
             for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
+    c2l = scale * scale * math.log2(math.e)
+    t = abba(lambda: parent_forward(lib, q, k, v, c2l),
+             lambda: attention._forward(q, k, v, scale, with_lse=True), reps)
     res = dict(kernel="flash_hd", dtype=dtype_name, hd=hd, T=4097,
                out_gap=float((out - out_p).abs().max()),
-               lse_gap=float((lse - lse_p).abs().max()), parent_gaps=gaps)
+               lse_gap=float((lse - lse_p).abs().max()), parent_gaps=gaps,
+               fwd_body_changed=narrow_is_new(lib, hd, dtype_name),
+               fwd_parent_ms=t["parent"], fwd_new_ms=t["new"])
     cs.log(f"ab: flash [4,4097,{hd}] {dtype_name}: parent − new max |diff| "
-           f"out {res['out_gap']:.3e}, lse {res['lse_gap']:.3e}, dq/dk/dv/D "
-           + " / ".join(f"{g:.3e}" for g in gaps))
+           f"out {res['out_gap']:.3e}, lse {res['lse_gap']:.3e}"
+           + (" (the narrow body against the parent's)"
+              if res["fwd_body_changed"] else "")
+           + ", dq/dk/dv/D " + " / ".join(f"{g:.3e}" for g in gaps)
+           + f"; forward device ms parent {t['parent'][0]:.4f}, new "
+           f"{t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
+           f"{t['parent'][1]:.4f}")
+    return res
+
+
+# the ablation UNets' middle block: 4 heads of head dim 8 over 128² and
+# 500×228 tokens
+NARROW_T = (16384, 114000)
+
+
+def narrow_case(lib, T, seed, reps):
+    """The f32 forward at head dim 8 on seeded q, k (sd 1) and v (head h:
+    mean h + 1) [4, T, 8], chip_smoke.py flash_long's inputs: the
+    parent's and this tree's, each held to the f64 plain forward over
+    query blocks (out at the f32 rule, the lse within
+    2⁻¹⁶·R + T·2⁻²³), their distance, and device ms A B B A."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    BH, hd = 4, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + T)
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k = (torch.randn((BH, T, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((BH, T, hd), generator=gen, device="cuda") + torch.arange(
+        1.0, BH + 1, device="cuda").view(BH, 1, 1)
+    c2l = scale * scale * math.log2(math.e)
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    out_p, lse_p = parent_forward(lib, q, k, v, c2l)
+    ref = cs._plain_long(q, k, v, torch.zeros_like(q), scale)
+    torch.cuda.synchronize()
+    rtol, atol = cs.flash_tol(ref["out"], "float32")
+    ltol = cs.LSE_EPS["float32"] * ref["R"] + T * 2.0 ** -23
+
+    def over(o, l_):
+        return (float(((o.double() - ref["out"]).abs()
+                       / (atol + rtol * ref["out"].abs())).max()),
+                float(((l_.double() - ref["lse"]).abs() / ltol).max()))
+
+    new_over, parent_over = over(out, lse), over(out_p, lse_p)
+    del ref
+    t = abba(lambda: parent_forward(lib, q, k, v, c2l),
+             lambda: attention._forward(q, k, v, scale, with_lse=True), reps)
+    res = dict(kernel="flash_narrow", dtype="float32", BH=BH, T=T, hd=hd,
+               over=new_over, parent_over=parent_over,
+               fwd_body_changed=narrow_is_new(lib, hd, "float32"),
+               out_gap=float((out - out_p).abs().max()),
+               lse_gap=float((lse - lse_p).abs().max()),
+               parent_ms=t["parent"], new_ms=t["new"])
+    faster = max(t["new"]) < min(t["parent"])
+    cs.log(f"ab: flash f32 [{BH},{T},{hd}] (f64 plain over query blocks): "
+           f"out / lse at {new_over[0]:.4f} / {new_over[1]:.4f} of the f32 "
+           f"rule (parent {parent_over[0]:.4f} / {parent_over[1]:.4f}); "
+           f"parent − new max |diff| out {res['out_gap']:.3e}, lse "
+           f"{res['lse_gap']:.3e}; device ms parent {t['parent'][0]:.4f}, "
+           f"new {t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
+           f"{t['parent'][1]:.4f} (new "
+           f"{'faster' if faster else 'not faster'})")
+    if max(new_over) > 1.0:
+        raise AssertionError(f"flash f32 hd 8 T={T}: over {new_over}")
+    return res
+
+
+# a C entry over flash_narrow.cu's (C++) one, for a variant build
+NARROW_SHIM = """#include <cuda_runtime.h>
+int flash_narrow_f32(const void*, const void*, const void*, void*, void*,
+                     void*, int, int, float, cudaStream_t);
+extern "C" int narrow_launch(const void* q, const void* k, const void* v,
+                             void* split, void* out, void* lse, int BH,
+                             int T, float scale_log2, cudaStream_t st) {
+  return flash_narrow_f32(q, k, v, split, out, lse, BH, T, scale_log2, st);
+}
+"""
+
+
+def build_narrow_variants(pairs) -> dict:
+    """csrc/flash_narrow.cu built at each (warpgroups, sub-tiles) pair with
+    this tree's nvcc flags (one nvcc process each, all at once; ptxas's
+    registers and spills of the main kernel logged), each library's
+    ``narrow_launch`` typed: {pair: CDLL}."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="narrow-", dir=_build.BUILD_DIR))
+    shim = out / "shim.cu"
+    shim.write_text(NARROW_SHIM)
+    nvcc = _build._nvcc()
+    procs = {}
+    for nwg, kt in pairs:
+        lib = out / f"libnarrow_{nwg}_{kt}.so"
+        procs[(nwg, kt)] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             f"-DIPDM_NARROW_NWG={nwg}", f"-DIPDM_NARROW_KT={kt}", "-I",
+             str(_build.SRC_DIR), "-shared",
+             str(_build.SRC_DIR / "flash_narrow.cu"), str(shim), "-o",
+             str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for pair, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc flash_narrow.cu at {pair}:\n"
+                               f"{log.decode()}")
+        lines = log.decode(errors="replace").splitlines()
+        for i, ln in enumerate(lines):   # ptxas: the main kernel's registers
+            if "flash_narrow_kernel" in ln and "Compiling" in ln:
+                cs.log(f"ab: narrow build {pair}: " + "; ".join(
+                    x.strip() for x in lines[i + 1:i + 4]
+                    if "registers" in x or "spill" in x))
+        lib = ctypes.CDLL(str(path))
+        lib.narrow_launch.argtypes = [P, P, P, P, P, P, I, I, ctypes.c_float,
+                                      P]
+        lib.narrow_launch.restype = ctypes.c_int
+        libs[pair] = lib
+    return libs
+
+
+def narrow_variant_case(libs, T, seed, reps):
+    """Each variant build of the head-dim-8 f32 forward on narrow_case's
+    inputs at T: held to the f64 plain forward (out at the f32 rule, the
+    lse at flash_long's bound), its distance from this tree's build, and
+    both timed A B B A (this tree's through its wrapper)."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    BH, hd = 4, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + T)
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k = (torch.randn((BH, T, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((BH, T, hd), generator=gen, device="cuda") + torch.arange(
+        1.0, BH + 1, device="cuda").view(BH, 1, 1)
+    c2l = scale * scale * math.log2(math.e)
+    split = torch.empty((5, BH, T, 16), dtype=torch.bfloat16, device="cuda")
+    ref = cs._plain_long(q, k, v, torch.zeros_like(q), scale)
+    rtol, atol = cs.flash_tol(ref["out"], "float32")
+    ltol = cs.LSE_EPS["float32"] * ref["R"] + T * 2.0 ** -23
+
+    def over(o, l_):
+        return (float(((o.double() - ref["out"]).abs()
+                       / (atol + rtol * ref["out"].abs())).max()),
+                float(((l_.double() - ref["lse"]).abs() / ltol).max()))
+
+    def shipped():
+        return attention._forward(q, k, v, scale, with_lse=True)
+
+    out, lse = shipped()
+    res = []
+    for (nwg, kt), lib in libs.items():
+        o_v = torch.empty_like(q)
+        l_v = torch.empty((BH, T), dtype=torch.float32, device="cuda")
+
+        def variant(lib=lib, o_v=o_v, l_v=l_v):
+            _build.check(lib.narrow_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), split.data_ptr(),
+                o_v.data_ptr(), l_v.data_ptr(), BH, T, c2l,
+                _build.stream_ptr(q)), f"flash_narrow ({nwg}, {kt})")
+
+        variant()
+        torch.cuda.synchronize()
+        ov = over(o_v, l_v)
+        t = abba(shipped, variant, reps)
+        r = dict(kernel="flash_narrow_variant", T=T, nwg=nwg, kt=kt,
+                 over=ov, out_gap=float((o_v - out).abs().max()),
+                 lse_gap=float((l_v - lse).abs().max()),
+                 shipped_ms=t["parent"], variant_ms=t["new"])
+        cs.log(f"ab: flash f32 [{BH},{T},{hd}] narrow build at {nwg} "
+               f"warpgroups, {kt} sub-tile(s) a key tile: out / lse at "
+               f"{ov[0]:.4f} / {ov[1]:.4f} of the f32 rule; against the "
+               f"shipped build max |diff| out {r['out_gap']:.3e}, lse "
+               f"{r['lse_gap']:.3e}; device ms shipped {t['parent'][0]:.4f}"
+               f", variant {t['new'][0]:.4f}, variant {t['new'][1]:.4f}, "
+               f"shipped {t['parent'][1]:.4f}")
+        if max(ov) > 1.0:
+            raise AssertionError(f"narrow ({nwg}, {kt}) T={T}: over {ov}")
+        res.append(r)
     return res
 
 
@@ -560,7 +806,7 @@ def flash_fwd_case(lib, dtype_name, args, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--parent", type=Path)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path)
@@ -569,7 +815,13 @@ def main() -> int:
     ap.add_argument("--same-bits", action="store_true",
                     help="exit 1 unless every output of every kernel is "
                          "bit-equal to the parent's")
+    ap.add_argument("--narrow-variants", nargs="+", metavar="NWG,KT",
+                    help="time csrc/flash_narrow.cu built at these "
+                         "(warpgroups, sub-tiles) against this tree's "
+                         "build instead of a parent")
     a = ap.parse_args()
+    if (a.parent is None) == (a.narrow_variants is None):
+        ap.error("give --parent DIR or --narrow-variants, not both")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
@@ -579,6 +831,21 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     cs.log(f"ab: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.library()
+    if a.narrow_variants:
+        pairs = [tuple(int(x) for x in pv.split(",")) for pv in
+                 a.narrow_variants]
+        libs = build_narrow_variants(pairs)
+        res = []
+        with torch.no_grad():
+            for T in NARROW_T:
+                res += narrow_variant_case(libs, T, a.seed,
+                                           max(2, a.reps // 4))
+        line = json.dumps({"device": smi, "ab": res})
+        if a.out:
+            os.makedirs(a.out.parent, exist_ok=True)
+            a.out.write_text(line + "\n")
+        print(line)
+        return 0
     lib = build_parent(a.parent.resolve())
     res = []
     if {"deposit", "anterp"} & set(a.kernels):
@@ -608,17 +875,25 @@ def main() -> int:
                     res.append(flash_bwd_case(lib, dtype_name, args,
                                               a.reps))
         if lib.takes_hd:
+            dims = AB_HEAD_DIMS + (AB_WIDE_HEAD_DIMS if lib.wide else ())
             with torch.no_grad():
-                for hd in AB_HEAD_DIMS:
+                for hd in dims:
                     for dtype_name in ("bfloat16", "float32"):
-                        res.append(flash_head_dim_case(lib, hd, dtype_name,
-                                                       a.seed))
+                        res.append(flash_head_dim_case(
+                            lib, hd, dtype_name, a.seed, max(2, a.reps // 4)))
+                if "flash_fwd" in a.kernels:
+                    for T in NARROW_T:
+                        res.append(narrow_case(lib, T, a.seed,
+                                               max(2, a.reps // 4)))
     line = json.dumps({"device": smi, "ab": res})
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)
         a.out.write_text(line + "\n")
-    differ = [(r["kernel"], r.get("dtype"), r.get("T")) for r in res
-              if any(r.get(k) for k in ("parent_gap", "out_gap", "lse_gap"))
+    gap_keys = ("parent_gap", "out_gap", "lse_gap")
+    differ = [(r["kernel"], r.get("dtype"), r.get("T"), r.get("hd"))
+              for r in res
+              if any(r.get(k) for k in gap_keys[
+                  :1 if r.get("fwd_body_changed") else 3])
               or any(r.get("parent_gaps", ()))]
     if a.same_bits:
         cs.log(f"ab: outputs bit-equal to the parent's: "

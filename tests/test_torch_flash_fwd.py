@@ -23,7 +23,14 @@ FLASH_TOL), the lse within chip_smoke.py lse_check's per-row bound
 where the softmax is concentrated on few keys (T = 191, and the peaked
 inputs): over thousands of keys of near-equal weight the bf16 roundings
 of P and V average out below that rule, and there the lse bound is the
-check that sees a dropped lo (:data:`CASES`)."""
+check that sees a dropped lo (:data:`CASES`).
+
+At head dim 8 the f32 forward runs its own body (csrc/flash_narrow.cu):
+the same three passes over key tiles of 128, with P split by truncation
+(hi = the top 16 bits of p, lo = bf16(p − hi)) and the row sum l taken
+from P·V's column of ones, Σ (P_hi + P_lo); ``fwd_body(..., "narrow")``
+writes it out and
+:func:`test_f32_narrow_body_gate` holds it to the same rules."""
 
 import math
 
@@ -38,6 +45,7 @@ from ipdm_tpu_torch.ops.cuda import attention
 HD = attention.HEAD_DIM
 SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 TILE = 64          # keys per tile (flash_attn.cu BK)
+NARROW_TILE = 128  # keys per tile of the narrow body (flash_narrow.cu BK)
 KSTEP = 16         # bf16 wgmma's K step: head dims below it are padded
 RTOL, ATOL_SHARE = 1e-3, 1e-4   # the f32 rule (chip_smoke.py FLASH_TOL)
 LSE_EPS = 2.0 ** -16            # chip_smoke.py LSE_EPS["float32"]
@@ -90,6 +98,12 @@ def _split(x):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
+def _trunc_bf16(x):
+    """x with its mantissa cut to bf16's (the top 16 bits of its f32
+    bits kept), a bf16 value."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
 def _mm(a, b, body):
     """a @ b as the body's tensor cores take it, f32 sums: ``split``,
     hi·hi + hi·lo + lo·hi; ``one_pass``, hi·hi; ``exact``, a @ b in f32
@@ -110,26 +124,40 @@ def fwd_body(q, k, v, scale, body="split", rows=None):
     T zero-filled and scored −inf; per tile S by :func:`_mm`, the row max
     m ← max(m, rowmax(S)·c) with c = scale²·log2(e), P = exp2(S·c − m),
     l ← l·exp2(m_old − m) + Σ P (f32 P), O ← O·exp2(m_old − m) + P·V by
-    :func:`_mm` (P split). Returns out = O / l and lse = (m + log2 l)·ln 2."""
+    :func:`_mm` (P split). ``narrow`` (csrc/flash_narrow.cu, head dim 8):
+    key tiles of :data:`NARROW_TILE`, S as ``split``, P split by
+    truncation (:func:`_trunc_bf16`, lo = bf16(P − hi)), P·V as
+    P_hi·V_hi + P_hi·V_lo + P_lo·V_hi and l summed from P_hi + P_lo (V's
+    column of ones). Returns out = O / l and lse = (m + log2 l)·ln 2."""
     BH, T, hd = q.shape
     q, k, v = _pad_hd(q), _pad_hd(k), _pad_hd(v)
     c = scale * scale * math.log2(math.e)
     Q = q if rows is None else q[:, rows]
-    n = -(-T // TILE)
-    pad = torch.zeros(BH, n * TILE - T, q.shape[-1])
+    tile = NARROW_TILE if body == "narrow" else TILE
+    n = -(-T // tile)
+    pad = torch.zeros(BH, n * tile - T, q.shape[-1])
     K, V = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
     m = torch.full(Q.shape[:2], -math.inf)
     l = torch.zeros(Q.shape[:2])
     o = torch.zeros(Q.shape)
     for j in range(n):
-        s = _mm(Q, K[:, j * TILE:(j + 1) * TILE].transpose(1, 2), body)
-        keys = j * TILE + torch.arange(TILE)
+        s = _mm(Q, K[:, j * tile:(j + 1) * tile].transpose(1, 2),
+                "split" if body == "narrow" else body)
+        keys = j * tile + torch.arange(tile)
         s = s.masked_fill(keys >= T, -math.inf)
         mn = torch.maximum(m, s.max(-1).values * c)
         corr = torch.exp2(m - mn)
         p = torch.exp2(s * c - mn[..., None])
-        l = l * corr + p.sum(-1)
-        o = o * corr[..., None] + _mm(p, V[:, j * TILE:(j + 1) * TILE], body)
+        vt = V[:, j * tile:(j + 1) * tile]
+        if body == "narrow":
+            ph = _trunc_bf16(p)
+            pl = (p - ph).to(torch.bfloat16).float()
+            vh, vl = _split(vt)
+            l = l * corr + (ph + pl).sum(-1)
+            o = o * corr[..., None] + (ph @ vh + ph @ vl + pl @ vh)
+        else:
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + _mm(p, vt, body)
         m = mn
     return (o / l[..., None])[..., :hd], (m + torch.log2(l)) * math.log(2)
 
@@ -247,3 +275,32 @@ def test_f32_split_body_gate_small_head_dims(hd, T, kind, BH, control):
               "lse": _lse_over(c_lse, want_lse, R, T)}
     for name in control:
         assert missed[name] >= 2.0, (name, missed)
+
+
+@pytest.mark.parametrize("T,kind,BH,control", HD_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in HD_CASES])
+def test_f32_narrow_body_gate(T, kind, BH, control):
+    """The head-dim-8 f32 body of csrc/flash_narrow.cu (``fwd_body(...,
+    "narrow")``: P split by truncation, the row sums from P·V's column of
+    ones) meets the f32 rule and the lse bound against the JAX package's
+    attention, as the template's body does; the one-pass body misses each
+    check in ``control`` by ≥ 2×; and the truncated split stays within
+    2⁻¹⁶ of p (the rounded split's 2⁻¹⁷, twice as coarse)."""
+    hd = 8
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v = _inputs(T, 7, BH, kind, hd)
+    want, want_lse, R = _jax_reference(q, k, v, scale)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = fwd_body(tq, tk, tv, scale, "narrow")
+    assert out.shape == tq.shape
+    assert _over(out, want) <= 1.0
+    assert _lse_over(lse, want_lse, R, T) <= 1.0
+    c_out, c_lse = fwd_body(tq, tk, tv, scale, "one_pass")
+    missed = {"out": _over(c_out, want),
+              "lse": _lse_over(c_lse, want_lse, R, T)}
+    for name in control:
+        assert missed[name] >= 2.0, (name, missed)
+    p = torch.rand(1 << 16) + 2.0 ** -30
+    hi = _trunc_bf16(p)
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert float(((hi + lo - p).abs() / p).max()) <= 2.0 ** -16

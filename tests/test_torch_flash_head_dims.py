@@ -11,15 +11,18 @@
   ``UNetModel.plan()`` is held to the blocks a real forward reaches.
 * Every head dim from 1 to 128 maps to the kernel instance that runs it
   (``attention.flash_instance``: the next instance up, zero-padded by the
-  wrappers), and above 128 the wrappers raise naming the limit. The
-  presets at ``model_channels`` 8 to 128 (each attention block's head dim
-  is the width) are served, 160 is flagged.
-* Zero-padding q, k, v to an instance and cutting the outputs back is
-  the function at the real head dim, forward and backward.
+  wrappers), and every head dim above 128 to the wide bodies at the next
+  multiple of 64 columns; below 1 the wrappers raise. The presets at
+  ``model_channels`` 8 to 512 (each attention block's head dim is the
+  width) are all served.
+* Zero-padding q, k, v to an instance or a wide width and cutting the
+  outputs back is the function at the real head dim, forward and
+  backward.
 * The port's AttentionBlock at head dimensions 8, 16, 24, 48, 96 and 128
   and T = 4096 and 4097 (the flash route; on the CPU its plain formula)
   against the Flax block, weights carried across through
-  ``state_dict_from_flax``."""
+  ``state_dict_from_flax``; at head dims 160 and 256 (one head) its
+  output and its input gradient."""
 
 import json
 import math
@@ -160,30 +163,45 @@ def test_kernel_head_dims_are_one_set():
     """The C entry points' switches (csrc/hopper.cuh IPDM_FLASH_HEAD_DIMS)
     instantiate the set that _build.FLASH_HEAD_DIMS names, which
     attention.py checks against and whose every member has a launch
-    counter for each flash kernel."""
+    counter for each flash kernel; the wide bodies' chunk
+    (IPDM_FLASH_WIDE_CHUNK) is _build.FLASH_WIDE_CHUNK, and every wide
+    width of each kernel counts under one counter of its own. The entry
+    points the wrappers call are the ones the build binds."""
     import re
 
     from ipdm_tpu_torch.ops.cuda import _build
 
     with open(osp.join(ROOT, "ipdm_tpu_torch", "csrc", "hopper.cuh")) as f:
-        line = re.search(r"#define IPDM_FLASH_HEAD_DIMS\(X\)(.*)",
-                         f.read()).group(1)
+        text = f.read()
+    line = re.search(r"#define IPDM_FLASH_HEAD_DIMS\(X\)(.*)", text).group(1)
     assert tuple(int(h) for h in re.findall(r"X\((\d+)\)", line)) == \
         _build.FLASH_HEAD_DIMS
+    chunk = re.search(r"#define IPDM_FLASH_WIDE_CHUNK (\d+)", text).group(1)
+    assert int(chunk) == _build.FLASH_WIDE_CHUNK == \
+        attention.FLASH_WIDE_CHUNK
     assert attention.FLASH_HEAD_DIMS is _build.FLASH_HEAD_DIMS
     assert _build.FLASH_HEAD_DIMS[-1] == 128
     for name in _build.FLASH_KERNELS:
         for hd in _build.FLASH_HEAD_DIMS:
             assert _build.LAUNCHES[_build.flash_counter(name, hd)] >= 0
+        wide = {_build.flash_counter(name, attention.flash_instance(hd))
+                for hd in (129, 160, 192, 200, 256, 512)}
+        assert wide == {f"{name}_wide"}
+        assert _build.LAUNCHES[f"{name}_wide"] >= 0
+    for entry, _ in attention._FORWARD.values():
+        assert entry in _build.SIGNATURES
+    assert {"flash_bwd_dq_launch", "flash_bwd_dkv_launch"} <= set(
+        _build.SIGNATURES)
 
 
 def test_head_dims_outside_the_set_raise_on_cuda_tensors():
     """Every head dim from 1 to 128 reaches an instance (the next one up),
-    and a head dim above 128 raises before any launch, naming the limit
-    and the options that set it (checked on a CUDA-typed shape through
-    _check_cuda: the CPU has no CUDA tensors, so the check is called with
-    a stand-in that reports cuda). Written for the set (8, 16, 32, 64),
-    where 12 raised; 12 now runs on 16."""
+    every head dim from 129 to 1024 the wide bodies at the next multiple
+    of 64 columns, and only a head dim below 1 raises before any launch
+    (checked on a CUDA-typed shape through _check_cuda: the CPU has no
+    CUDA tensors, so the check is called with a stand-in that reports
+    cuda). Written for the set (8, 16, 32, 64), where 12 raised; 12 now
+    runs on 16, and 129-256, which raised up to 128, run wide."""
     class Fake:
         device = torch.device("cuda")
         shape = (4, 4096, 12)
@@ -195,35 +213,64 @@ def test_head_dims_outside_the_set_raise_on_cuda_tensors():
         inst = attention._check_cuda("flash_attention", Fake())
         assert inst in attention.FLASH_HEAD_DIMS and inst >= hd
         assert all(i < hd for i in attention.FLASH_HEAD_DIMS if i < inst)
-    for hd in (129, 160, 256):
+    chunk = attention.FLASH_WIDE_CHUNK
+    for hd in range(129, 1025):
         Fake.shape = (4, 4096, hd)
-        with pytest.raises(ValueError, match=r"1\.\.128.*model_channels_img"):
-            attention._check_cuda("flash_attention", Fake())
+        inst = attention._check_cuda("flash_attention", Fake())
+        assert inst % chunk == 0 and hd <= inst < hd + chunk
+    Fake.shape = (4, 4096, 0)
+    with pytest.raises(ValueError, match="below 1"):
+        attention._check_cuda("flash_attention", Fake())
+
+
+@pytest.mark.parametrize("inst", [8, 16, 32, 64, 128, 192, 256, 512])
+def test_f32_scratch_shapes(inst):
+    """The bf16 scratch the wrappers hand the f32 kernels at each width
+    they run: the forward's hi and lo of q, k, v, [6, BH, T, inst], at
+    head dim 8 the narrow body's five padded operands [5, BH, T, 16]
+    (csrc/flash_narrow.cu); the backward's hi and lo of q, k, v and do,
+    [8, BH, T, inst], at 128 and on the wide bodies, none below (the
+    kernels stage and split their f32 tiles themselves). A scratch short
+    of what a kernel writes would overrun on the card."""
+    BH, T = 2, 100
+    want = (5, BH, T, 16) if inst == 8 else (6, BH, T, inst)
+    assert attention._fwd_split(BH, T, inst) == want
+    q = torch.zeros((BH, T, inst))
+    split = attention._bwd_split(q, inst)
+    if inst < 128:
+        assert split is None
+    else:
+        assert split.shape == (8, BH, T, inst)
+        assert split.dtype == torch.bfloat16
+    assert attention._bwd_split(q.to(torch.bfloat16), inst) is None
 
 
 @pytest.mark.parametrize("hd,inst", [
     (1, 8), (7, 8), (8, 8), (9, 16), (12, 16), (16, 16), (17, 32), (31, 32),
     (32, 32), (33, 64), (40, 64), (63, 64), (64, 64), (65, 128), (96, 128),
-    (127, 128), (128, 128)])
+    (127, 128), (128, 128), (129, 192), (160, 192), (256, 256), (200, 256),
+    (257, 320), (512, 512), (513, 576)])
 def test_flash_instance(hd, inst):
     """Head dims 1-7 run on 8, 9-15 on 16, 17-31 on 32, 33-63 on 64 and
-    65-127 on 128; the instances on themselves."""
+    65-127 on 128; the instances on themselves; above 128 the wide bodies
+    at the next multiple of 64 (129-192 on 192, 193-256 on 256)."""
     assert attention.flash_instance(hd) == inst
 
 
-@pytest.mark.parametrize("hd", [0, 129, 160, 256])
+@pytest.mark.parametrize("hd", [0])
 def test_flash_instance_raises_outside_the_range(hd):
-    with pytest.raises(ValueError, match="128"):
+    with pytest.raises(ValueError, match="below 1"):
         attention.flash_instance(hd)
 
 
-@pytest.mark.parametrize("mc", [8, 12, 24, 40, 48, 64, 80, 96, 128, 160])
+@pytest.mark.parametrize("mc", [8, 12, 24, 40, 48, 64, 80, 96, 128, 160,
+                                192, 256, 512])
 def test_presets_at_other_widths(mc):
     """The three Mayo presets with model_channels_img and
     model_channels_proj set to ``mc``: every attention block at T >=
     FLASH_MIN_SEQ, at 64²-512², has head dim ``mc`` (4 heads over 4·mc
-    channels), which an instance serves up to 128; at 160 the block is
-    flagged: flash_instance raises naming 128."""
+    channels), which an instance serves up to 128 and the wide bodies
+    above it (at 160 once flagged: the kernels stopped at 128)."""
     dims = set()
     for name in PRESETS:
         with open(osp.join(ROOT, "Config", "Mayo-Config",
@@ -237,21 +284,21 @@ def test_presets_at_other_widths(mc):
                     model, *_input_hw(domain, size))
                     if T >= attention.FLASH_MIN_SEQ}
     assert dims == {mc}, dims
-    if mc <= 128:
-        assert attention.flash_instance(mc) >= mc
-    else:
-        with pytest.raises(ValueError, match="128"):
-            attention.flash_instance(mc)
+    inst = attention.flash_instance(mc)
+    assert inst >= mc
+    assert inst in attention.FLASH_HEAD_DIMS or (
+        mc > 128 and inst % attention.FLASH_WIDE_CHUNK == 0)
 
 
-@pytest.mark.parametrize("hd", [12, 40, 96])
+@pytest.mark.parametrize("hd", [12, 40, 96, 160, 200])
 def test_zero_padding_is_exact(hd):
-    """What the wrappers do for a head dim between instances: q, k, v
-    zero-padded to the instance, the function there, the outputs cut
-    back. Against the function at the real head dim (attention_plain and
-    its autograd; attention_bwd_plain, the kernels' formulas, on the
-    padded tensors), f32, to 1e-6: zero columns add nothing to q·kᵀ, to
-    rowsum(do ∘ out) or to do·vᵀ."""
+    """What the wrappers do for a head dim between instances (and above
+    128, to the wide bodies' multiple of 64): q, k, v zero-padded to the
+    width that runs it, the function there, the outputs cut back. Against
+    the function at the real head dim (attention_plain and its autograd;
+    attention_bwd_plain, the kernels' formulas, on the padded tensors),
+    f32, to 1e-6: zero columns add nothing to q·kᵀ, to rowsum(do ∘ out)
+    or to do·vᵀ."""
     inst = attention.flash_instance(hd)
     rng = np.random.default_rng(hd)
     q, k, v, do = (torch.tensor(rng.normal(0, 1, (2, 300, hd)),
@@ -334,3 +381,73 @@ def test_attention_block_at_small_head_dims_matches_flax(hd, H, W):
     assert calls == [(4, H * W, hd)]
     assert math.isfinite(float(np.abs(got).max()))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _one_head_vs_flax(hd, H, W, seed):
+    """One attention head of head dim ``hd`` (C = hd channels) in both
+    packages on the same NHWC input (B = 1): Flax's AttentionBlock(C, 1)
+    with N(0, 0.3·√(64 / C)) parameters, the port's AttentionBlock with
+    the same weights (state_dict_from_flax of a one-level UNet whose
+    middle block it is), each block's output and the gradient of
+    Σ out·g with respect to its input, g a seeded N(0, 1) cotangent."""
+    C = hd
+    cfg = dict(in_channels=1, model_channels=C // 2, out_channels=1,
+               num_res_blocks=1, attention_resolutions=(),
+               channel_mult=(1, 2), num_heads=1)
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(FlaxUNet(**cfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8, 8, 1)),
+                            jnp.zeros((1,), jnp.int32))
+    sd = 0.3 * math.sqrt(64 / C)
+    params = jax.tree_util.tree_map(
+        lambda s: rng.normal(0, sd, s.shape).astype(np.float32), shapes)
+    model = UNetModel(**cfg, device="cpu")
+    model.load_state_dict(state_dict_from_flax(model, params))
+    blk = model.middle_block[1]
+    assert isinstance(blk, AttentionBlock) and blk.num_heads == 1
+    x = rng.normal(0, 1, (1, H, W, C)).astype(np.float32)
+    g = rng.normal(0, 1, (1, H, W, C)).astype(np.float32)
+    flax_blk = FlaxAttention(C, 1)
+    mid = {"params": params["params"]["mid_attn"]}
+
+    def loss(xj):
+        out = flax_blk.apply(mid, xj)
+        return jnp.sum(out * g), out
+    (_, want), want_dx = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    got = blk(xt)
+    got.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    return (got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want),
+            xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_dx))
+
+
+@pytest.mark.parametrize("hd", [160, 256])
+@pytest.mark.parametrize("H,W", [(64, 64), (17, 241)],
+                         ids=["T4096", "T4097"])
+def test_attention_block_at_wide_head_dims_matches_flax(hd, H, W):
+    """One head of head dim 160 or 256 (the wide bodies' widths 192 and
+    256) at T = 4096 and 4097: the flash route with its autograd Function
+    (on the CPU the plain forward and the plain halves of the backward),
+    f32, against the Flax block and jax.grad: the output to 1e-4 relative,
+    1e-5 absolute (test_attention_block_at_small_head_dims_matches_flax's
+    rule), the input gradient, whose sums also run over the head dim and
+    over every query through the backward's dK, dV, to 1e-4·max|dx| +
+    1e-4·|dx|."""
+    calls = []
+    flash = unet.flash_attention
+
+    def spy(q, k, v, scale):
+        calls.append((tuple(q.shape), q.requires_grad))
+        return flash(q, k, v, scale)
+
+    unet.flash_attention = spy
+    try:
+        got, want, dx, want_dx = _one_head_vs_flax(hd, H, W, seed=hd + W)
+    finally:
+        unet.flash_attention = flash
+    assert calls == [((1, H * W, hd), True)]
+    assert math.isfinite(float(np.abs(got).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dx, want_dx, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want_dx).max()))
