@@ -4703,6 +4703,40 @@ def _plain_long(q, k, v, do, scale, f64=True):
     return res
 
 
+def narrow_drop_lo_dq(q, k, v, do, lse, D, scale):
+    """The planted fault of the narrow f32 backward at head dim 8: its dq
+    kernel (csrc/flash_narrow_bwd.cu) with the lo columns of the packed
+    ring rows written as zeros (its ``drop_lo``, which no main path
+    sets), launched outside the wrapper (no launch counted)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    BH, T, _ = q.shape
+    dq = torch.empty_like(q)
+    split = attention._bwd_split(q, 8)
+    _build.check(_build.library().flash_narrow_bwd_launch(
+        0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), None, split.data_ptr(),
+        BH, T, scale * scale * math.log2(math.e), scale * scale, 1,
+        _build.stream_ptr(q)), "flash_narrow_bwd (drop_lo)")
+    return dq
+
+
+def narrow_build(src):
+    """The build constants (warpgroups a CTA, 64-row sub-tiles a key or
+    ring tile) of csrc/``src`` (flash_narrow.cu: IPDM_NARROW_NWG / _KT;
+    flash_narrow_bwd.cu: IPDM_NARROW_BWD_NWG / _KT), from its defaults."""
+    import re
+
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    text = (_build.SRC_DIR / src).read_text()
+    pre = "IPDM_NARROW_BWD" if "bwd" in src else "IPDM_NARROW"
+    return {key.lower(): int(re.search(rf"#define {pre}_{key} (\d+)",
+                                       text).group(1))
+            for key in ("NWG", "KT")}
+
+
 def flash_long(T, reps, hd=8):
     """The f32 kernels at head dim ``hd`` (8: the ablation UNets' middle
     block, the forward on csrc/flash_narrow.cu; 128 and 256: the chained
@@ -4715,7 +4749,10 @@ def flash_long(T, reps, hd=8):
     :func:`bwd_ragged`'s), two launches bit-equal; beside planted
     controls that must fail: at head dim 8 the plain forward on q and k
     whose pad columns hold the next row's values, the lse in log2 units,
-    and the dK kernel with D dropped. Times: the kernels, the plain forward over query blocks in
+    the dK kernel with D dropped, and at T = 16 384 the narrow backward's
+    dq with the lo columns of its packed ring rows zeroed
+    (csrc/flash_narrow_bwd.cu's ``drop_lo``, launched outside the
+    wrapper). Times: the kernels, the plain forward over query blocks in
     f32, SDPA's forward and forward + backward, and each kernel's
     bound."""
     import torch
@@ -4741,6 +4778,8 @@ def flash_long(T, reps, hd=8):
     del out2, lse2, dq2, D2, dk2, dv2
     ctrl_dk, _ = attention.flash_bwd_dkv(q, k, v, lse, do,
                                          torch.zeros_like(D), scale)
+    ctrl_dq = narrow_drop_lo_dq(q, k, v, do, lse, D, scale) if (
+        hd == 8 and T == FLASH_HD_LONG[0]) else None
     ref = _plain_long(q, k, v, do, scale)
     torch.cuda.synchronize()
     rtol, atol = flash_tol(ref["out"], "float32")
@@ -4763,6 +4802,12 @@ def flash_long(T, reps, hd=8):
     dk_ctrl = float(((ctrl_dk.double() - w).abs()
                      / (share * float(w.abs().max()) + rel * w.abs()
                         + RAGGED_F32_EPS * ref["zk"])).max())
+    dq_ctrl = None
+    if ctrl_dq is not None:
+        w = ref["dq"]
+        dq_ctrl = float(((ctrl_dq.double() - w).abs()
+                         / (share * float(w.abs().max()) + rel * w.abs()
+                            + RAGGED_F32_EPS * ref["zq"])).max())
     err = dict(out=float((out.double() - ref["out"]).abs().max()),
                **{n: float((g.double() - ref[n]).abs().max())
                   for n, g in (("dq", dq), ("dk", dk), ("dv", dv))})
@@ -4811,7 +4856,10 @@ def flash_long(T, reps, hd=8):
            f"the pad read from the next row max |diff| {pad_err:.3e} "
            f"({'passes' if pad_ok else 'fails'}), ")
         + f"the lse in log2 units "
-        f"{lse_ctrl:.1f}×, D dropped {dk_ctrl:.1f}×; ms fwd "
+        f"{lse_ctrl:.1f}×, D dropped {dk_ctrl:.1f}×"
+        + ("" if dq_ctrl is None else
+           f", the narrow dq with its lo columns zeroed {dq_ctrl:.1f}×")
+        + f"; ms fwd "
         f"{t['fwd_ms']:.3f} (bound {bounds['fwd']:.3f}), dq "
         f"{t['dq_ms']:.3f} (bound {bounds['dq']:.3f}), dkv "
         f"{t['dkv_ms']:.3f} (bound {bounds['dkv']:.3f}); the plain forward "
@@ -4824,7 +4872,8 @@ def flash_long(T, reps, hd=8):
     if out_over > 1.0 or lse_over > 1.0 or max(over.values()) > 1.0:
         raise AssertionError(f"flash-hd T={T}: out {out_over}, lse "
                              f"{lse_over}, backward {over}")
-    if pad_ok or lse_ctrl <= 1.0 or dk_ctrl <= 1.0:
+    if (pad_ok or lse_ctrl <= 1.0 or dk_ctrl <= 1.0
+            or (dq_ctrl is not None and dq_ctrl <= 1.0)):
         raise AssertionError(f"flash-hd T={T}: a planted control passes")
     return dict(T=T, hd=hd, err=err, over=dict(over, out=out_over,
                                                lse=lse_over),
@@ -4845,8 +4894,8 @@ def head_dim_rows(rows, short, long, abl):
     from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
     src = {"fwd": "ipdm_tpu_torch/csrc/flash_narrow.cu",
-           "dq": "ipdm_tpu_torch/csrc/flash_bwd.cu",
-           "dkv": "ipdm_tpu_torch/csrc/flash_bwd.cu"}
+           "dq": "ipdm_tpu_torch/csrc/flash_narrow_bwd.cu",
+           "dkv": "ipdm_tpu_torch/csrc/flash_narrow_bwd.cu"}
     rep = {"fwd": "ipdm_tpu/models/unet.py:601",
            "dq": "ipdm_tpu/models/unet.py:601 → jax/experimental/pallas/"
                  "ops/tpu/flash_attention.py:1287",
@@ -4872,6 +4921,7 @@ def head_dim_rows(rows, short, long, abl):
             ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by="operations",
             library_ms=top["library_ms"], head_dim=8, dtype="float32",
+            build=narrow_build(src[kind].rsplit("/", 1)[1]),
             shapes=shapes))
         log(f"kernels: {name}: {abl[name]} launches in the ablations "
             f"phase's main-path run; at T = {top['T']} {top['ms']:.4f} ms "

@@ -1,7 +1,9 @@
 // Backward of flash attention on Hopper (sm_90a) for head dimensions 8,
 // 16, 32, 64 and 128 (template instances) and every multiple of 64 above
 // 128 (the wide body): every product on wgmma (bf16 operands, f32 sums),
-// TMA for the loads.
+// TMA for the loads. The f32 backward at head dim 8 runs its own narrow
+// body (flash_narrow_bwd.cu), through this file's entries; the template's
+// head-dim-8 instance is built in bf16 only.
 //
 // Replaces the two Pallas kernels of the TPU flash attention's backward
 // that ipdm_tpu/models/unet.py:601 _flash_attention reaches when the JAX
@@ -58,11 +60,10 @@
 // units beside them (4.2e12/s: 0.05 ms per kernel at T = 7125). At
 // HD = 8, T = 114 000 and 4 heads the exp2 leads: 12.4 ms per kernel,
 // against f32 products of 3 * 3 * 2*T*T*8*4 = 7.5e12 flops (dq, 7.6 ms)
-// and 4 * 3 * 2*T*T*8*4 = 1.0e13 (dkv, 10.1 ms). These kernels run HD = 8
-// at 16 columns (the head-dimension side of every product padded to 16):
-// twice those products (15.1 / 20.2 ms at the peak, past the exp2), a gap
-// from the bound and not a part of it. The T x T matrices never leave the
-// SM.
+// and 4 * 3 * 2*T*T*8*4 = 1.0e13 (dkv, 10.1 ms): flash_narrow_bwd.cu's
+// body in f32; the bf16 instance here runs HD = 8 at 16 columns (the
+// head-dimension side of every product padded to 16). The T x T matrices
+// never leave the SM.
 //
 // Design (one CTA = 128 resident rows of one head, both kernels):
 // - The dq kernel holds 128 query rows (Q, dO) and walks the 64-key tiles
@@ -102,8 +103,8 @@
 //   would not fit beside the chained sums in registers.
 // - f32: TMA brings the ring tile's f32 rows into a staging slot (no
 //   swizzle); the CTA's 256 threads split it into hi and lo bf16 tiles in
-//   the tile's swizzle (a double buffer; zeros in the pad columns at
-//   HD = 8), fence the stores for the async proxy and meet at a named
+//   the tile's swizzle (a double buffer), fence the stores for the async
+//   proxy and meet at a named
 //   barrier before the wgmmas read them. The resident rows are loaded and
 //   split once by their warpgroup.
 // - Waves and registers: 128-row CTAs give 56 x 4 = 224 CTAs at T = 7125
@@ -141,6 +142,15 @@
 
 #include "hopper.cuh"
 
+// the f32 backward at head dim 8 (flash_narrow_bwd.cu)
+extern "C" int flash_narrow_bwd_launch(int dkv, const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* D,
+                                       void* out0, void* out1, void* split,
+                                       int BH, int T, float scale_log2,
+                                       float scale2, int drop_lo,
+                                       void* stream);
+
 namespace {
 
 using namespace ipdm::hopper;
@@ -161,9 +171,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 // in the CTA would take 384 KB of shared memory)
 template <bool F32, int HD>
 constexpr bool PRESPLIT = F32 && HD == 128;
-// f32 below HD = 128: f32 rows staged by TMA, split in the CTA
+// f32 at HD = 8: flash_narrow_bwd.cu's body (the template's instance at
+// head dim 8 is not built in f32)
 template <bool F32, int HD>
-constexpr bool STAGED = F32 && !PRESPLIT<F32, HD>;
+constexpr bool NARROW = F32 && HD == 8;
+// f32 at HD = 16, 32, 64: f32 rows staged by TMA, split in the CTA
+template <bool F32, int HD>
+constexpr bool STAGED = F32 && !PRESPLIT<F32, HD> && !NARROW<F32, HD>;
 
 // the value of x that the products see: x in bf16; hi + lo of its split
 // in f32 (exact in f32)
@@ -996,7 +1010,10 @@ int dq_launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<float*>(D), rows, HD);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if constexpr (PRESPLIT<F32, HD>) {
+  if constexpr (NARROW<F32, HD>) {
+    return flash_narrow_bwd_launch(0, q, k, v, dout, lse, D, dq, nullptr,
+                                   split, BH, T, scale_log2, scale2, 0, st);
+  } else if constexpr (PRESPLIT<F32, HD>) {
     const void* hi[4];
     const int es =
         presplit(q, k, v, dout, split, (size_t)BH * T * HD, hi, st);
@@ -1014,7 +1031,10 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* D, void* dk, void* dv,
                void* split, int BH, int T, float scale_log2, float scale2,
                cudaStream_t st) {
-  if constexpr (PRESPLIT<F32, HD>) {
+  if constexpr (NARROW<F32, HD>) {
+    return flash_narrow_bwd_launch(1, q, k, v, dout, lse, D, dk, dv, split,
+                                   BH, T, scale_log2, scale2, 0, st);
+  } else if constexpr (PRESPLIT<F32, HD>) {
     const void* hi[4];
     const int es =
         presplit(q, k, v, dout, split, (size_t)BH * T * HD, hi, st);

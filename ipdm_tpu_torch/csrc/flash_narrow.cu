@@ -102,16 +102,6 @@ struct Maps {
   CUtensorMap m[NPARTS];
 };
 
-// 8 f32 (two float4) as hi and lo bf16 (uint4 each)
-__device__ __forceinline__ void split8(const float4* src, uint4& hi,
-                                       uint4& lo) {
-  const float4 a = src[0], b = src[1];
-  split2(a.x, a.y, hi.x, lo.x);
-  split2(a.z, a.w, hi.y, lo.y);
-  split2(b.x, b.y, hi.z, lo.z);
-  split2(b.z, b.w, hi.w, lo.w);
-}
-
 // row r of q, k, v ([rows, 8] f32) into row r of the five [rows, 16] bf16
 // tensors of dst (2 uint4 a row, 2 * rows a tensor)
 __global__ void __launch_bounds__(256)
@@ -144,37 +134,6 @@ __global__ void __launch_bounds__(256)
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// p00, p01 (two f32 of one row) as hi (their top 16 bits) and
-// lo = bf16(p - hi), each a bf16 pair
-__device__ __forceinline__ void split_trunc(float p00, float p01,
-                                            uint32_t& hi, uint32_t& lo) {
-  const uint32_t b0 = __float_as_uint(p00), b1 = __float_as_uint(p01);
-  hi = __byte_perm(b0, b1, 0x7632);
-  lo = pack_bf16(p00 - __uint_as_float(b0 & 0xffff0000u),
-                 p01 - __uint_as_float(b1 & 0xffff0000u));
-}
-
-// the high word of a Head<16> tile's wgmma descriptor (8-row groups 256
-// bytes apart, 32-byte swizzle; sw_desc<16>): the low word alone (start
-// address, leading offset) moves between tiles, in 32-bit arithmetic
-constexpr uint32_t DESC_HI =
-    (uint32_t)((8 * Head<16>::ROW) >> 4) | ((uint32_t)Head<16>::LAYOUT << 30);
-__device__ __forceinline__ uint64_t desc(uint32_t lo) {
-  return ((uint64_t)DESC_HI << 32) | lo;
-}
-
-// adds 1 to the shared counter at c and returns its value before, with
-// release and acquire ordering at CTA scope (each warp's reads of a slot
-// happen before the refill that the last of them issues)
-__device__ __forceinline__ int count_release(int* c) {
-  int old;
-  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;"
-               : "=r"(old)
-               : "r"(smem_u32(c))
-               : "memory");
-  return old;
 }
 
 // key tile j into slot j % STAGES: K1, K2, VH, VL of each sub-tile (one
@@ -227,8 +186,8 @@ __device__ __forceinline__ void consume(Smem& sm, const Maps& maps, int wg,
 #pragma unroll
     for (int h = 0; h < KT; ++h) {
       const uint32_t k1 = slot + 4 * PART * h;
-      wgmma_ss(sc[h], desc(qd), desc(k1), 0);
-      wgmma_ss(sc[h], desc(qd), desc(k1 + PART), 1);
+      wgmma_ss(sc[h], desc_at<16>(qd), desc_at<16>(k1), 0);
+      wgmma_ss(sc[h], desc_at<16>(qd), desc_at<16>(k1 + PART), 1);
     }
     wg_commit();
 #pragma unroll
@@ -289,15 +248,15 @@ __device__ __forceinline__ void consume(Smem& sm, const Maps& maps, int wg,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<16>(pv, ph[h][4 * kk], ph[h][4 * kk + 1], ph[h][4 * kk + 2],
-                     ph[h][4 * kk + 3], desc(vh + kk * MN), h | kk);
+                     ph[h][4 * kk + 3], desc_at<16>(vh + kk * MN), h | kk);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<16>(pv, ph[h][4 * kk], ph[h][4 * kk + 1], ph[h][4 * kk + 2],
-                     ph[h][4 * kk + 3], desc(vh + PART + kk * MN));
+                     ph[h][4 * kk + 3], desc_at<16>(vh + PART + kk * MN));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs<16>(pv, pl[h][4 * kk], pl[h][4 * kk + 1], pl[h][4 * kk + 2],
-                     pl[h][4 * kk + 3], desc(vh + kk * MN));
+                     pl[h][4 * kk + 3], desc_at<16>(vh + kk * MN));
     }
     wg_commit();
     reg_fence(pv);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_attn.cu, flash_narrow.cu, flash_bwd.cu): mbarriers, TMA loads of
-// [BH, T, HD] tensors, wgmma m64nNk16 in bf16 with f32 sums, f32 products
-// as three bf16 passes, and the register layouts between them.
+// (flash_attn.cu, flash_narrow.cu, flash_bwd.cu, flash_narrow_bwd.cu):
+// mbarriers, TMA loads of [BH, T, HD] tensors, wgmma m64nNk16 in bf16
+// with f32 sums, f32 products as three bf16 passes, and the register
+// layouts between them.
 //
 // Head dimensions: the kernels are templates over HD in {8, 16, 32, 64,
 // 128} (ops/cuda/attention.py FLASH_HEAD_DIMS; other head dims up to 128
@@ -246,10 +247,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
       "+f"(d[6]), "+f"(d[7])
 
+#define WG_D4 "{%0, %1, %2, %3}"
+#define WG_D4_OPS(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+
 // d (+)= A B, A [64 x 16] bf16 in registers, B [16 x N] MN-major in
-// shared memory (transposed operand), N = 64, 32 or 16 (N / 2 sums a
-// thread); accumulate = 0 overwrites d
-template <int N>
+// shared memory (transposed operand; with TB = 0, B^T: [N x 16] K-major),
+// N = 64, 32, 16 or 8 (N / 2 sums a thread); accumulate = 0 overwrites d.
+// At N = 8 an MN-major B reads the first 8 columns of its tile's rows
+template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db,
@@ -258,24 +263,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : WG_D32_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+          "n"(TB));
   } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
-        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : WG_D16_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  } else {
-    static_assert(N == 16, "wgmma_rs: N is 64, 32 or 16");
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+          "n"(TB));
+  } else if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
-        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : WG_D8_OPS(d)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+          "n"(TB));
+  } else {
+    static_assert(N == 8, "wgmma_rs: N is 64, 32, 16 or 8");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 " WG_D4
+        ", {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : WG_D4_OPS(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+          "n"(TB));
   }
 }
 
@@ -365,6 +381,52 @@ template <int NP>
 __device__ __forceinline__ void reg_fence_a(uint32_t (&a)[NP][16]) {
 #pragma unroll
   for (int p = 0; p < NP; ++p) reg_fence(a[p]);
+}
+
+// -- the narrow bodies' helpers (flash_narrow.cu, flash_narrow_bwd.cu): head
+// dim 8 in f32 on packed 16-column bf16 tiles ------------------------------
+
+// 8 f32 (two float4) as hi and lo bf16 (uint4 each)
+__device__ __forceinline__ void split8(const float4* src, uint4& hi,
+                                       uint4& lo) {
+  const float4 a = src[0], b = src[1];
+  split2(a.x, a.y, hi.x, lo.x);
+  split2(a.z, a.w, hi.y, lo.y);
+  split2(b.x, b.y, hi.z, lo.z);
+  split2(b.z, b.w, hi.w, lo.w);
+}
+
+// p00, p01 (two f32 of one row) as hi (their top 16 bits) and
+// lo = bf16(p - hi), each a bf16 pair
+__device__ __forceinline__ void split_trunc(float p00, float p01,
+                                            uint32_t& hi, uint32_t& lo) {
+  const uint32_t b0 = __float_as_uint(p00), b1 = __float_as_uint(p01);
+  hi = __byte_perm(b0, b1, 0x7632);
+  lo = pack_bf16(p00 - __uint_as_float(b0 & 0xffff0000u),
+                 p01 - __uint_as_float(b1 & 0xffff0000u));
+}
+
+// a Head<HD> tile's wgmma descriptor from its low word (start address,
+// leading offset; sw_desc<HD>'s): the high word (8-row group stride, the
+// swizzle) is a constant, so the low word alone moves between tiles, in
+// 32-bit arithmetic
+template <int HD>
+__device__ __forceinline__ uint64_t desc_at(uint32_t lo) {
+  constexpr uint32_t hi = (uint32_t)((8 * Head<HD>::ROW) >> 4) |
+                          ((uint32_t)Head<HD>::LAYOUT << 30);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// adds 1 to the shared counter at c and returns its value before, with
+// release and acquire ordering at CTA scope (each warp's reads of a slot
+// happen before the refill that the last of them issues)
+__device__ __forceinline__ int count_release(int* c) {
+  int old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "r"(smem_u32(c))
+               : "memory");
+  return old;
 }
 
 // a named barrier over ``n`` threads (a multiple of 32)

@@ -45,14 +45,21 @@ SIGNATURES = {
     # q, k, v, split (scratch: attention._fwd_split), out, lse (or null),
     # BH, T, hd, scale_log2, stream
     "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, I, ctypes.c_float, P],
-    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd >= 128, or
-    # null), BH, T, hd, scale_log2, scale2, bf16, stream
+    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd 8 and
+    # hd >= 128, or null: attention._bwd_split), BH, T, hd, scale_log2,
+    # scale2, bf16, stream
     "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                             ctypes.c_float, ctypes.c_float, I, P],
     # q, k, v, do, lse, D, dk, dv, split (as dq's), BH, T, hd, scale_log2,
     # scale2, bf16, stream
     "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                              ctypes.c_float, ctypes.c_float, I, P],
+    # dkv (0: dq into out0; 1: dk, dv), q, k, v, do, lse, D, out0, out1,
+    # split (attention._bwd_split), BH, T, scale_log2, scale2, drop_lo (a
+    # planted fault: chip_smoke.py's alone), stream: the f32 backward at
+    # head dim 8 that the two entries above run there (flash_narrow_bwd.cu)
+    "flash_narrow_bwd_launch": [I, P, P, P, P, P, P, P, P, P, I, I,
+                                ctypes.c_float, ctypes.c_float, I, P],
     # rows, s0, s1, w0, w1, out, V, B, W, L, n, stream
     "fp_deposit_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
     # x, rf, inv2, frac, s0, rows, nrmi, T, S, Vp, B, n, L, tile, lam,

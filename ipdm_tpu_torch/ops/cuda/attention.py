@@ -19,8 +19,9 @@ above 128 on each kernel's wide body at the next multiple of
 zero-pad q, k, v (and out, do) to that width and cut the outputs back.
 Zero columns add nothing to q·kᵀ, to rowsum(do ∘ out) or to do·vᵀ, and
 the caller's scale is that of the real head dim, so the result is the
-function at the real head dim. The f32 forward at head dim 8 runs its own
-narrow body (``csrc/flash_narrow.cu``).
+function at the real head dim. The f32 forward and backward at head dim 8
+run their own narrow bodies (``csrc/flash_narrow.cu``,
+``csrc/flash_narrow_bwd.cu``).
 
 Where grad mode is on and q, k or v requires a gradient, the call goes
 through an ``autograd.Function``. Its forward also returns the softmax's
@@ -258,14 +259,19 @@ def _fwd_split(BH, T, inst):
 
 
 def _bwd_split(q, inst):
-    """The backward kernels' scratch for hi and lo of q, k, v and do: f32
-    at head dim 128 and the wide body's widths (else None, passed as
-    null)."""
-    if q.dtype != torch.float32 or inst < 128:
+    """The f32 backward kernels' bf16 scratch (else None, passed as null).
+
+    * Head dim 128 and the wide body's widths: hi and lo of q, k, v and
+      do, [8, BH, T, inst].
+    * Head dim 8 (csrc/flash_narrow_bwd.cu): the ring side's packed rows
+      [hi(u) | lo(u) | hi(u) | f], then w's ([2, BH, T, 32]; u, w = k, v
+      in dq, q, do in dkv; f the lse and D terms), the same for both
+      kernels."""
+    if q.dtype != torch.float32 or 8 < inst < 128:
         return None
     BH, T, _ = q.shape
-    return torch.empty((8, BH, T, inst), dtype=torch.bfloat16,
-                       device=q.device)
+    shape = (2, BH, T, 32) if inst == 8 else (8, BH, T, inst)
+    return torch.empty(shape, dtype=torch.bfloat16, device=q.device)
 
 
 def flash_bwd_dq(q, k, v, out, lse, do, scale):

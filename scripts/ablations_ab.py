@@ -12,10 +12,14 @@ started in its tree's root so that it imports and builds that tree's
 package. A process builds its kernels, warms the card up with one short
 main (the hu-drift study alone, not timed), then times main with every
 study's seconds (the card synchronised before and after), and counts
-the UNets' flash_attention calls by (T, head dim, dtype). The first
-process of each tree then runs main once more under torch.profiler and
-sums the device time of each kernel whose name holds ``flash`` or
-``split`` (launches, ms): the head-dim-8 forward's share of the run.
+the UNets' flash_attention calls by (T, head dim, dtype) and the flash
+backward's launches (``flash_bwd_dq``, ``flash_bwd_dkv``) by (T, head
+dim). The first process of each tree then runs main once more under
+torch.profiler and sums the device time of each kernel whose name holds
+``flash`` or ``split`` (launches, ms), and of those the forward's and the
+backward's at head dim 8 (``bwd_hd8_ms``: flash_bwd_dot_kernel and the
+backward kernels and pre-passes that the hd-8 f32 backward launches, in
+either tree): their share of the run.
 
 The last line is a JSON object with every run; with ``--out`` it is also
 written to that file.
@@ -47,7 +51,7 @@ def child(root: Path, seed: int, argv: list, profile: bool) -> dict:
 
     from examples import ablations_torch as abl
     from ipdm_tpu_torch.models import unet
-    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.ops.cuda import _build, attention
 
     t0 = time.perf_counter()
     _build.library()
@@ -58,6 +62,16 @@ def child(root: Path, seed: int, argv: list, profile: bool) -> dict:
     def counted(q, k, v, scale):
         calls[f"T {q.shape[1]} hd {q.shape[2]} {str(q.dtype)[6:]}"] += 1
         return flash(q, k, v, scale)
+
+    bwd_calls = collections.Counter()
+    bwd = {n: getattr(attention, n) for n in ("flash_bwd_dq",
+                                              "flash_bwd_dkv")}
+
+    def bwd_counted(name):
+        def run(q, *a):
+            bwd_calls[f"{name} T {q.shape[1]} hd {q.shape[2]}"] += 1
+            return bwd[name](q, *a)
+        return run
 
     per = {}
 
@@ -85,16 +99,21 @@ def child(root: Path, seed: int, argv: list, profile: bool) -> dict:
         for n, f in studies.items():
             setattr(abl, f, timed(n, funcs[n]))
         unet.flash_attention = counted
+        for n in bwd:
+            setattr(attention, n, bwd_counted(n))
         _build.reset_launches()
         t0 = time.perf_counter()
         abl.main(["--out", os.path.join(out, "timed"), *common, *argv])
         torch.cuda.synchronize()
         res["main_s"] = round(time.perf_counter() - t0, 3)
         unet.flash_attention = flash
+        for n, f in bwd.items():
+            setattr(attention, n, f)
         for n, f in studies.items():
             setattr(abl, f, funcs[n])
-        res.update(study_s=per, flash_calls=dict(calls), launches={
-            k: v for k, v in _build.LAUNCHES.items() if v})
+        res.update(study_s=per, flash_calls=dict(calls),
+                   bwd_calls=dict(bwd_calls), launches={
+                       k: v for k, v in _build.LAUNCHES.items() if v})
         if profile:
             t0 = time.perf_counter()
             with torch.profiler.profile(
@@ -115,7 +134,21 @@ def child(root: Path, seed: int, argv: list, profile: bool) -> dict:
             res["device_ms_total"] = round(total, 3)
             res["device_ms"] = {k: [n, round(t, 3)]
                                 for k, (n, t) in kern.items()}
+            res["bwd_hd8_ms"] = round(sum(
+                t for k, (n, t) in kern.items() if is_bwd_hd8(k)), 3)
     return res
+
+
+def is_bwd_hd8(kernel: str) -> bool:
+    """Whether a profiled kernel name is one the f32 flash backward at
+    head dim 8 launches: the D kernel, then the template's head-dim-8
+    instance (a tree without csrc/flash_narrow_bwd.cu, with its split
+    staged in the CTA) or the narrow body and its pre-pass. The run's
+    other flash backward calls are none: the ablation UNets' attention
+    runs at head dim 8 alone."""
+    return ("flash_bwd_dot_kernel" in kernel
+            or ("flash_bwd_kernel" in kernel and ", 8>" in kernel)
+            or "narrow_bwd" in kernel)
 
 
 def run_child(root: Path, seed: int, argv: list, profile: bool,
@@ -167,9 +200,11 @@ def main() -> int:
         r["side"] = side
         runs.append(r)
         cs.log(f"ablations-ab: {side}: main {r['main_s']} s; studies "
-               f"{r['study_s']}; flash calls {r['flash_calls']}"
+               f"{r['study_s']}; flash calls {r['flash_calls']}; backward "
+               f"launches {r['bwd_calls']}"
                + (f"; profiled main {r['profiled_main_s']} s, device "
-                  f"{r['device_ms_total']} ms, of it {r['device_ms']}"
+                  f"{r['device_ms_total']} ms, the hd-8 backward's "
+                  f"{r['bwd_hd8_ms']} ms, by kernel {r['device_ms']}"
                   if "device_ms" in r else ""))
     line = json.dumps({"device": smi, "runs": runs})
     if a.out:

@@ -5,6 +5,7 @@ against a parent commit's, on one NVIDIA GPU, in one process.
     python3 scripts/torch_kernels_ab.py --parent DIR [--reps 20] [--out F]
         [--kernels deposit anterp flash_fwd flash_bwd] [--same-bits]
     python3 scripts/torch_kernels_ab.py --narrow-variants NWG,KT [...]
+    python3 scripts/torch_kernels_ab.py --narrow-bwd-variants NWG,KT [...]
 
 DIR is a checkout of the parent commit (``git archive <commit> | tar -x
 -C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
@@ -39,11 +40,17 @@ and on each input:
   every output, and the forward timed A B B A. Where this tree's f32
   forward at head dim 8 is the narrow body (csrc/flash_narrow.cu) and
   the parent's is not, that forward's distance is printed, not required
-  to be 0 (its backward runs on this tree's out and lse in both);
-* the f32 forward at head dim 8 (4 heads) at T = 16 384 and 114 000 on
-  seeded inputs: the parent's and this tree's, each held to the f64
-  plain forward over query blocks (out at chip_smoke.py's f32 rule, the
-  lse at flash_long's bound), timed A B B A;
+  to be 0 (its backward runs on this tree's out and lse in both); where
+  this tree's f32 backward at head dim 8 is the narrow body
+  (csrc/flash_narrow_bwd.cu) and the parent's is not, its dq, dk and dv
+  are held, the parent's beside them, to the f64 plain backward at
+  flash_long's rule instead of to the parent's bits (D still must be
+  bit-equal);
+* the f32 forward and backward at head dim 8 (4 heads) at T = 16 384 and
+  114 000 on chip_smoke.py flash_long's seeded inputs: the parent's and
+  this tree's, each held to the f64 plain version over query blocks (out
+  at chip_smoke.py's f32 rule, the lse at flash_long's bound, dq, dk, dv
+  at its f32 rule + witness), each kernel timed A B B A;
 * times the parent's kernel (launched bare) and this tree's (through
   its wrapper, with the host bounds the main path passes), back to back
   with the stream held by a spin kernel (device time), in the order
@@ -56,6 +63,11 @@ sub-tiles a key tile) pair (its IPDM_NARROW_NWG / IPDM_NARROW_KT), each
 source with a C shim over its entry in an nvcc process of its own, and
 at T = 16 384 and 114 000 holds each to the f64 plain forward (as
 above) and times it against this tree's build (the wrapper) A B B A.
+``--narrow-bwd-variants`` does the same for ``csrc/flash_narrow_bwd.cu``
+at each (warpgroups a CTA, 64-row sub-tiles a ring tile) pair
+(IPDM_NARROW_BWD_NWG / _KT): its dq and its dkv
+each held to the f64 plain backward and timed against this tree's build
+of the same entry (``flash_narrow_bwd_launch``), A B B A.
 
 The last line is a JSON object with the times; with ``--out`` it is also
 written to that file. With ``--same-bits`` the script exits 1 unless
@@ -139,6 +151,13 @@ def parent_narrow(parent: Path) -> bool:
     return (parent / "ipdm_tpu_torch" / "csrc" / "flash_narrow.cu").exists()
 
 
+def parent_narrow_bwd(parent: Path) -> bool:
+    """Whether the parent's f32 backward at head dim 8 is the narrow body
+    (csrc/flash_narrow_bwd.cu)."""
+    return (parent / "ipdm_tpu_torch" / "csrc"
+            / "flash_narrow_bwd.cu").exists()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -187,21 +206,25 @@ def build_parent(parent: Path) -> ctypes.CDLL:
     lib.bwd_split = parent_bwd_takes_split(parent)
     lib.wide = parent_takes_wide(parent)
     lib.narrow = parent_narrow(parent)
+    lib.narrow_bwd = parent_narrow_bwd(parent)
     return lib
 
 
 def split_args(lib, q) -> tuple:
     """The split scratch argument of the parent's backward entries (none
     where they take none): a [8, BH, T, hd] bf16 tensor for f32 at head
-    dims 128 and above (hi and lo of q, k, v and dO), else null."""
+    dims 128 and above (hi and lo of q, k, v and dO), the narrow
+    backward's scratch (attention._bwd_split) for f32 at head dim 8 where
+    the parent has that body, else null."""
     import torch
     if not lib.bwd_split:
         return ()
     BH, T, hd = q.shape
-    if q.dtype != torch.float32 or hd < 128:
+    if q.dtype != torch.float32 or 8 < hd < 128 or (hd == 8
+                                                   and not lib.narrow_bwd):
         return (None,)
-    split = torch.empty((8, BH, T, hd), dtype=torch.bfloat16,
-                        device=q.device)
+    from ipdm_tpu_torch.ops.cuda import attention
+    split = attention._bwd_split(q, hd)
     lib.keep = split   # alive until the next case's launches
     return (split.data_ptr(),)
 
@@ -406,22 +429,20 @@ def record_flash_bwd(seed: int):
     return calls
 
 
-def flash_bwd_case(lib, dtype_name, args, reps):
-    """The parent's flash_bwd_dq / flash_bwd_dkv against this tree's on
-    one recorded input: both held to the plain backward at chip_smoke.py's
-    rule, each kernel timed A B B A. With ``reps`` 0: the parent's dq,
-    dk, dv and D alone."""
+def parent_bwd(lib, args):
+    """The parent's flash_bwd_dq and flash_bwd_dkv on args (q, k, v, out,
+    lse, do, scale), each launched once: ((dq, dk, dv, D), a launcher of
+    each)."""
     import math
 
     import torch
-    from ipdm_tpu_torch.ops.cuda import _build, attention
+    from ipdm_tpu_torch.ops.cuda import _build
 
     q, k, v, out, lse, do, scale = args
     BH, T, _ = q.shape
     bf16 = int(q.dtype == torch.bfloat16)
     stream = _build.stream_ptr(q)
     c2, c2l = scale * scale, scale * scale * math.log2(math.e)
-
     dq_p, dk_p, dv_p = (torch.empty_like(q) for _ in range(3))
     D_p = torch.empty_like(lse)
     split = split_args(lib, q)
@@ -442,11 +463,25 @@ def flash_bwd_case(lib, dtype_name, args, reps):
 
     parent_dq()
     parent_dkv()
+    return (dq_p, dk_p, dv_p, D_p), parent_dq, parent_dkv
+
+
+def flash_bwd_case(lib, dtype_name, args, reps):
+    """The parent's flash_bwd_dq / flash_bwd_dkv against this tree's on
+    one recorded input: both held to the plain backward at chip_smoke.py's
+    rule, each kernel timed A B B A. With ``reps`` 0: the parent's dq,
+    dk, dv and D alone."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    q, k, v, out, lse, do, scale = args
+    BH, T, _ = q.shape
+    (dq_p, dk_p, dv_p, D_p), parent_dq, parent_dkv = parent_bwd(lib, args)
     if not reps:   # the outputs alone
         return dq_p, dk_p, dv_p, D_p
     dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
     dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
-    fwd_in = ((out, lse) if bf16 else
+    fwd_in = ((out, lse) if q.dtype == torch.bfloat16 else
               attention.attention_lse_plain(q, k, v, scale))
     want = attention.attention_bwd_plain(q, k, v, *fwd_in, do, scale)
     rel, share = cs.BWD_TOL[dtype_name]
@@ -526,13 +561,38 @@ def narrow_is_new(lib, hd, dtype_name) -> bool:
             and (_build.SRC_DIR / "flash_narrow.cu").exists())
 
 
+def narrow_bwd_is_new(lib, hd, dtype_name) -> bool:
+    """Whether this tree's backward at (hd, dtype) is the narrow body and
+    the parent's is not (their dq, dk and dv then differ by design; D is
+    the same kernel's)."""
+    from ipdm_tpu_torch.ops.cuda import _build
+    return (hd == 8 and dtype_name == "float32" and not lib.narrow_bwd
+            and (_build.SRC_DIR / "flash_narrow_bwd.cu").exists())
+
+
+def bwd_over(grads, ref) -> list:
+    """dq, dk, dv over chip_smoke.py flash_long's rule against the f64
+    plain backward ``ref`` (:func:`chip_smoke._plain_long`): the f32 rule
+    plus 2⁻²⁰·Σ|terms before the cancellation|."""
+    rel, share = cs.BWD_TOL["float32"]
+    res = []
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        w = ref[name]
+        rule = (share * float(w.abs().max()) + rel * w.abs()
+                + cs.RAGGED_F32_EPS * ref["z" + name[1]])
+        res.append(float(((g.double() - w).abs() / rule).max()))
+    return res
+
+
 def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
     """The parent's forward and backward kernels against this tree's at
     head dim ``hd`` on seeded N(0, 1) q, k, v, dO [4, 4097, hd] (one live
     row in the last tile), the backward on this tree's out and lse: the
     parent − new max |diff| of out, lse, dq, dk, dv and D (--same-bits
-    wants every one 0, but the forward's where :func:`narrow_is_new`),
-    and the forwards' device ms A B B A."""
+    wants every one 0, but the forward's where :func:`narrow_is_new` and
+    dq, dk, dv where :func:`narrow_bwd_is_new`: those are held, the
+    parent's beside them, to the f64 plain backward at flash_long's rule
+    instead), and the forwards' device ms A B B A."""
     import math
 
     import torch
@@ -553,6 +613,13 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
     torch.cuda.synchronize()
     gaps = [float((a.float() - b.float()).abs().max())
             for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
+    bwd_new = narrow_bwd_is_new(lib, hd, dtype_name)
+    over = {}
+    if bwd_new:
+        ref = cs._plain_long(q, k, v, do, scale)
+        over = dict(bwd_over=bwd_over((dq, dk, dv), ref),
+                    parent_bwd_over=bwd_over((dq_p, dk_p, dv_p), ref))
+        del ref
     c2l = scale * scale * math.log2(math.e)
     t = abba(lambda: parent_forward(lib, q, k, v, c2l),
              lambda: attention._forward(q, k, v, scale, with_lse=True), reps)
@@ -560,15 +627,24 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
                out_gap=float((out - out_p).abs().max()),
                lse_gap=float((lse - lse_p).abs().max()), parent_gaps=gaps,
                fwd_body_changed=narrow_is_new(lib, hd, dtype_name),
+               bwd_body_changed=bwd_new, **over,
                fwd_parent_ms=t["parent"], fwd_new_ms=t["new"])
     cs.log(f"ab: flash [4,4097,{hd}] {dtype_name}: parent − new max |diff| "
            f"out {res['out_gap']:.3e}, lse {res['lse_gap']:.3e}"
            + (" (the narrow body against the parent's)"
               if res["fwd_body_changed"] else "")
            + ", dq/dk/dv/D " + " / ".join(f"{g:.3e}" for g in gaps)
+           + (" (dq/dk/dv: the narrow backward against the parent's; "
+              "against the f64 plain backward at flash_long's rule "
+              + " / ".join(f"{x:.4f}" for x in over["bwd_over"])
+              + ", parent " + " / ".join(f"{x:.4f}"
+                                         for x in over["parent_bwd_over"])
+              + ")" if bwd_new else "")
            + f"; forward device ms parent {t['parent'][0]:.4f}, new "
            f"{t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
            f"{t['parent'][1]:.4f}")
+    if bwd_new and max(over["bwd_over"]) > 1.0:
+        raise AssertionError(f"flash bwd hd 8 f32 T=4097: over {over}")
     return res
 
 
@@ -588,13 +664,8 @@ def narrow_case(lib, T, seed, reps):
     import torch
     from ipdm_tpu_torch.ops.cuda import attention
 
-    BH, hd = 4, 8
-    gen = torch.Generator(device="cuda").manual_seed(seed + T)
-    scale = 1.0 / math.sqrt(math.sqrt(hd))
-    q, k = (torch.randn((BH, T, hd), generator=gen, device="cuda")
-            for _ in range(2))
-    v = torch.randn((BH, T, hd), generator=gen, device="cuda") + torch.arange(
-        1.0, BH + 1, device="cuda").view(BH, 1, 1)
+    q, k, v, _, scale = long_inputs(T, seed)
+    BH, _, hd = q.shape
     c2l = scale * scale * math.log2(math.e)
     out, lse = attention._forward(q, k, v, scale, with_lse=True)
     out_p, lse_p = parent_forward(lib, q, k, v, c2l)
@@ -632,6 +703,177 @@ def narrow_case(lib, T, seed, reps):
     return res
 
 
+def long_inputs(T, seed):
+    """chip_smoke.py flash_long's inputs at head dim 8: seeded q, k, dO
+    (sd 1) and v (head h: mean h + 1), [4, T, 8] f32, and the scale."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + T)
+    q, k = (torch.randn((4, T, 8), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((4, T, 8), generator=gen, device="cuda") + torch.arange(
+        1.0, 5, device="cuda").view(4, 1, 1)
+    do = torch.randn((4, T, 8), generator=gen, device="cuda")
+    return q, k, v, do, 1.0 / math.sqrt(math.sqrt(8))
+
+
+def narrow_bwd_case(lib, T, seed, reps):
+    """The f32 backward at head dim 8 (4 heads) on :func:`long_inputs`,
+    from this tree's forward's out and lse: the parent's dq / dkv and this
+    tree's, each held to the f64 plain backward over query blocks at
+    flash_long's rule (:func:`bwd_over`), D's distance, and each kernel's
+    device ms A B B A."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    q, k, v, do, scale = long_inputs(T, seed)
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    args = (q, k, v, out, lse, do, scale)
+    (dq_p, dk_p, dv_p, D_p), parent_dq, parent_dkv = parent_bwd(lib, args)
+    dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale)
+    ref = cs._plain_long(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    new_over = bwd_over((dq, dk, dv), ref)
+    parent_over = bwd_over((dq_p, dk_p, dv_p), ref)
+    del ref
+    t_dq = abba(parent_dq, lambda: attention.flash_bwd_dq(
+        q, k, v, out, lse, do, scale), reps)
+    t_dkv = abba(parent_dkv, lambda: attention.flash_bwd_dkv(
+        q, k, v, lse, do, D, scale), reps)
+    res = dict(kernel="flash_narrow_bwd", dtype="float32", BH=4, T=T, hd=8,
+               over=new_over, parent_over=parent_over,
+               bwd_body_changed=narrow_bwd_is_new(lib, 8, "float32"),
+               parent_gaps=[float((a - b).abs().max()) for a, b in
+                            ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))],
+               dq_parent_ms=t_dq["parent"], dq_new_ms=t_dq["new"],
+               dkv_parent_ms=t_dkv["parent"], dkv_new_ms=t_dkv["new"])
+    cs.log(f"ab: flash_bwd f32 [4,{T},8] (f64 plain over query blocks): "
+           f"dq/dk/dv at " + " / ".join(f"{x:.4f}" for x in new_over)
+           + " of flash_long's rule (parent "
+           + " / ".join(f"{x:.4f}" for x in parent_over) + "); parent − new "
+           "max |diff| dq/dk/dv/D " + " / ".join(
+               f"{x:.3e}" for x in res["parent_gaps"])
+           + f"; device ms dq parent {t_dq['parent'][0]:.4f}, new "
+           f"{t_dq['new'][0]:.4f}, new {t_dq['new'][1]:.4f}, parent "
+           f"{t_dq['parent'][1]:.4f}; dkv parent {t_dkv['parent'][0]:.4f}, "
+           f"new {t_dkv['new'][0]:.4f}, new {t_dkv['new'][1]:.4f}, parent "
+           f"{t_dkv['parent'][1]:.4f}")
+    if max(new_over) > 1.0:
+        raise AssertionError(f"flash bwd f32 hd 8 T={T}: over {new_over}")
+    return res
+
+
+def build_variants(src: str, kernel: str, defines: dict,
+                   shim: str = "") -> dict:
+    """csrc/``src`` built at each variant's -D ``defines`` {key: {name:
+    value}} with this tree's nvcc flags, with the C ``shim`` source beside
+    it where given (one nvcc process each, all at once; ptxas's registers
+    and spills of every kernel whose name holds ``kernel`` logged): {key:
+    CDLL}."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="variants-", dir=_build.BUILD_DIR))
+    extra = []
+    if shim:
+        (out / "shim.cu").write_text(shim)
+        extra = [str(out / "shim.cu")]
+    nvcc = _build._nvcc()
+    procs = {}
+    for key, defs in defines.items():
+        lib = out / ("lib_" + "_".join(str(x) for x in key) + ".so")
+        procs[key] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             *[f"-D{n}={v}" for n, v in defs.items()], "-I",
+             str(_build.SRC_DIR), "-shared", str(_build.SRC_DIR / src),
+             *extra, "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for key, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {src} at {key}:\n{log.decode()}")
+        lines = log.decode(errors="replace").splitlines()
+        for i, ln in enumerate(lines):   # ptxas: the main kernels' registers
+            if kernel in ln and "Compiling" in ln:
+                name = ln.split("'")[1]
+                at = name.find(kernel)
+                cs.log(f"ab: {src} build {key}: "
+                       f"{name[at:at + len(kernel) + 8]}: "
+                       + "; ".join(x.strip() for x in lines[i + 1:i + 4]
+                                   if "registers" in x or "spill" in x))
+        libs[key] = ctypes.CDLL(str(path))
+    return libs
+
+
+def narrow_bwd_variant_case(libs, T, seed, reps):
+    """Each variant build of the head-dim-8 f32 backward (flash_narrow_bwd
+    .cu's entry) on :func:`long_inputs` at T, with this tree's forward's
+    out and lse and its dq's D: held to the f64 plain backward at
+    flash_long's rule (:func:`bwd_over`), and its dq and its dkv each timed
+    against this tree's build of the same entry, A B B A."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    q, k, v, do, scale = long_inputs(T, seed)
+    BH = q.shape[0]
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    _, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+    split = attention._bwd_split(q, 8)
+    c2, c2l = scale * scale, scale * scale * math.log2(math.e)
+    ref = cs._plain_long(q, k, v, do, scale)
+
+    def entry(lib, dkv, o0, o1):
+        def run():
+            _build.check(lib.flash_narrow_bwd_launch(
+                dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), D.data_ptr(), o0.data_ptr(),
+                None if o1 is None else o1.data_ptr(), split.data_ptr(), BH,
+                T, c2l, c2, 0, _build.stream_ptr(q)), "flash_narrow_bwd")
+        return run
+
+    shipped = _build.library()
+    s_dq = entry(shipped, 0, torch.empty_like(q), None)
+    s_dkv = entry(shipped, 1, torch.empty_like(q), torch.empty_like(q))
+    res = []
+    for key, lib in libs.items():
+        lib.flash_narrow_bwd_launch.argtypes = _build.SIGNATURES[
+            "flash_narrow_bwd_launch"]
+        lib.flash_narrow_bwd_launch.restype = ctypes.c_int
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        v_dq, v_dkv = entry(lib, 0, dq, None), entry(lib, 1, dk, dv)
+        v_dq()
+        v_dkv()
+        torch.cuda.synchronize()
+        ov = bwd_over((dq, dk, dv), ref)
+        t_dq = abba(s_dq, v_dq, reps)
+        t_dkv = abba(s_dkv, v_dkv, reps)
+        r = dict(kernel="flash_narrow_bwd_variant", T=T, variant=list(key),
+                 over=ov, dq_shipped_ms=t_dq["parent"],
+                 dq_variant_ms=t_dq["new"], dkv_shipped_ms=t_dkv["parent"],
+                 dkv_variant_ms=t_dkv["new"])
+        cs.log(f"ab: flash_bwd f32 [{BH},{T},8] narrow build (NWG, KT) = "
+               f"{key}: dq/dk/dv at "
+               + " / ".join(f"{x:.4f}" for x in ov)
+               + f" of flash_long's rule; device ms dq shipped "
+               f"{t_dq['parent'][0]:.4f}, variant {t_dq['new'][0]:.4f}, "
+               f"variant {t_dq['new'][1]:.4f}, shipped "
+               f"{t_dq['parent'][1]:.4f}; dkv shipped "
+               f"{t_dkv['parent'][0]:.4f}, variant {t_dkv['new'][0]:.4f}, "
+               f"variant {t_dkv['new'][1]:.4f}, shipped "
+               f"{t_dkv['parent'][1]:.4f}")
+        if max(ov) > 1.0:
+            raise AssertionError(f"narrow bwd {key} T={T}: over {ov}")
+        res.append(r)
+    del ref
+    return res
+
+
 # a C entry over flash_narrow.cu's (C++) one, for a variant build
 NARROW_SHIM = """#include <cuda_runtime.h>
 int flash_narrow_f32(const void*, const void*, const void*, void*, void*,
@@ -645,43 +887,16 @@ extern "C" int narrow_launch(const void* q, const void* k, const void* v,
 
 
 def build_narrow_variants(pairs) -> dict:
-    """csrc/flash_narrow.cu built at each (warpgroups, sub-tiles) pair with
-    this tree's nvcc flags (one nvcc process each, all at once; ptxas's
-    registers and spills of the main kernel logged), each library's
-    ``narrow_launch`` typed: {pair: CDLL}."""
-    from ipdm_tpu_torch.ops.cuda import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = Path(tempfile.mkdtemp(prefix="narrow-", dir=_build.BUILD_DIR))
-    shim = out / "shim.cu"
-    shim.write_text(NARROW_SHIM)
-    nvcc = _build._nvcc()
-    procs = {}
-    for nwg, kt in pairs:
-        lib = out / f"libnarrow_{nwg}_{kt}.so"
-        procs[(nwg, kt)] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
-             f"-DIPDM_NARROW_NWG={nwg}", f"-DIPDM_NARROW_KT={kt}", "-I",
-             str(_build.SRC_DIR), "-shared",
-             str(_build.SRC_DIR / "flash_narrow.cu"), str(shim), "-o",
-             str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for pair, (path, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc flash_narrow.cu at {pair}:\n"
-                               f"{log.decode()}")
-        lines = log.decode(errors="replace").splitlines()
-        for i, ln in enumerate(lines):   # ptxas: the main kernel's registers
-            if "flash_narrow_kernel" in ln and "Compiling" in ln:
-                cs.log(f"ab: narrow build {pair}: " + "; ".join(
-                    x.strip() for x in lines[i + 1:i + 4]
-                    if "registers" in x or "spill" in x))
-        lib = ctypes.CDLL(str(path))
+    """csrc/flash_narrow.cu built at each (warpgroups, sub-tiles) pair
+    (:func:`build_variants`), each library's ``narrow_launch`` typed:
+    {pair: CDLL}."""
+    libs = build_variants("flash_narrow.cu", "flash_narrow_kernel", {
+        (nwg, kt): dict(IPDM_NARROW_NWG=nwg, IPDM_NARROW_KT=kt)
+        for nwg, kt in pairs}, NARROW_SHIM)
+    for lib in libs.values():
         lib.narrow_launch.argtypes = [P, P, P, P, P, P, I, I, ctypes.c_float,
                                       P]
         lib.narrow_launch.restype = ctypes.c_int
-        libs[pair] = lib
     return libs
 
 
@@ -695,13 +910,8 @@ def narrow_variant_case(libs, T, seed, reps):
     import torch
     from ipdm_tpu_torch.ops.cuda import _build, attention
 
-    BH, hd = 4, 8
-    gen = torch.Generator(device="cuda").manual_seed(seed + T)
-    scale = 1.0 / math.sqrt(math.sqrt(hd))
-    q, k = (torch.randn((BH, T, hd), generator=gen, device="cuda")
-            for _ in range(2))
-    v = torch.randn((BH, T, hd), generator=gen, device="cuda") + torch.arange(
-        1.0, BH + 1, device="cuda").view(BH, 1, 1)
+    q, k, v, _, scale = long_inputs(T, seed)
+    BH, _, hd = q.shape
     c2l = scale * scale * math.log2(math.e)
     split = torch.empty((5, BH, T, 16), dtype=torch.bfloat16, device="cuda")
     ref = cs._plain_long(q, k, v, torch.zeros_like(q), scale)
@@ -819,9 +1029,16 @@ def main() -> int:
                     help="time csrc/flash_narrow.cu built at these "
                          "(warpgroups, sub-tiles) against this tree's "
                          "build instead of a parent")
+    ap.add_argument("--narrow-bwd-variants", nargs="+",
+                    metavar="NWG,KT",
+                    help="time csrc/flash_narrow_bwd.cu built at these "
+                         "build constants against this tree's build "
+                         "instead of a parent")
     a = ap.parse_args()
-    if (a.parent is None) == (a.narrow_variants is None):
-        ap.error("give --parent DIR or --narrow-variants, not both")
+    if sum(x is not None for x in (a.parent, a.narrow_variants,
+                                   a.narrow_bwd_variants)) != 1:
+        ap.error("give one of --parent DIR, --narrow-variants, "
+                 "--narrow-bwd-variants")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
@@ -831,15 +1048,25 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     cs.log(f"ab: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.library()
-    if a.narrow_variants:
-        pairs = [tuple(int(x) for x in pv.split(",")) for pv in
-                 a.narrow_variants]
-        libs = build_narrow_variants(pairs)
+    if a.narrow_variants or a.narrow_bwd_variants:
+        if a.narrow_variants:
+            libs = build_narrow_variants([tuple(int(x) for x in pv.split(
+                ",")) for pv in a.narrow_variants])
+            case = narrow_variant_case
+        else:
+            names = ("NWG", "KT")
+            keys = [tuple(int(x) for x in pv.split(","))
+                    for pv in a.narrow_bwd_variants]
+            libs = build_variants("flash_narrow_bwd.cu",
+                                  "flash_narrow_bwd_kernel", {
+                                      key: {f"IPDM_NARROW_BWD_{n}": x
+                                            for n, x in zip(names, key)}
+                                      for key in keys})
+            case = narrow_bwd_variant_case
         res = []
         with torch.no_grad():
             for T in NARROW_T:
-                res += narrow_variant_case(libs, T, a.seed,
-                                           max(2, a.reps // 4))
+                res += case(libs, T, a.seed, max(2, a.reps // 4))
         line = json.dumps({"device": smi, "ab": res})
         if a.out:
             os.makedirs(a.out.parent, exist_ok=True)
@@ -881,10 +1108,13 @@ def main() -> int:
                     for dtype_name in ("bfloat16", "float32"):
                         res.append(flash_head_dim_case(
                             lib, hd, dtype_name, a.seed, max(2, a.reps // 4)))
-                if "flash_fwd" in a.kernels:
-                    for T in NARROW_T:
+                for T in NARROW_T:
+                    if "flash_fwd" in a.kernels:
                         res.append(narrow_case(lib, T, a.seed,
                                                max(2, a.reps // 4)))
+                    if "flash_bwd" in a.kernels:
+                        res.append(narrow_bwd_case(lib, T, a.seed,
+                                                   max(2, a.reps // 4)))
     line = json.dumps({"device": smi, "ab": res})
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)
@@ -894,7 +1124,8 @@ def main() -> int:
               for r in res
               if any(r.get(k) for k in gap_keys[
                   :1 if r.get("fwd_body_changed") else 3])
-              or any(r.get("parent_gaps", ()))]
+              or any(r.get("parent_gaps", ())[
+                  3 if r.get("bwd_body_changed") else 0:])]
     if a.same_bits:
         cs.log(f"ab: outputs bit-equal to the parent's: "
                + ("all" if not differ else f"not {differ}"))

@@ -17,7 +17,12 @@ attention.py) on the CPU.
   bf16 passes of split operands); held to the plain functions and to
   jax.vjp of the library's reference, with planted faults (D dropped,
   the key mask dropped, the f32 body's lo halves dropped) that must miss
-  the tolerance."""
+  the tolerance.
+* The f32 body at head dim 8 (csrc/flash_narrow_bwd.cu), written out as
+  ``bwd_tiles(..., body="narrow")``: 128-row ring tiles, the lse and D
+  terms inside the score products, P and dS split by truncation, the
+  n16 + n8 products; held to the f32 rules beside planted faults (every
+  lo dropped; D from the unsplit dO)."""
 
 import math
 
@@ -202,6 +207,82 @@ def _weights(x, body):
     return x.to(torch.bfloat16).float() if body == "bf16" else x
 
 
+NARROW_TILE = 128  # ring rows a tile of csrc/flash_narrow_bwd.cu (BK)
+NARROW_BODIES = ("narrow", "narrow_one_pass", "narrow_d_unsplit")
+
+
+def _split3(x):
+    """x (f32) as three bf16 values, hi + mid + lo: its 24 bits (the
+    narrow backward's lse and D terms)."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+def _trunc_split(x):
+    """P or dS as the narrow backward splits them: hi = the top 16 bits of
+    x (truncated), lo = bf16(x − hi)."""
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _narrow_bwd(q, k, v, out, lse, do, scale, body):
+    """csrc/flash_narrow_bwd.cu at head dim 8 in f32: D = rowsum(dO·O)
+    with the dO the products see (``narrow_d_unsplit``: the unsplit dO, a
+    planted fault); ring tiles of :data:`NARROW_TILE` rows in order (keys
+    in dq, queries in dkv), rows ≥ T at P = 0; S' = x_hi u_hi + x_hi u_lo
+    + x_lo u_hi − (lse·log2 e as three bf16) with x = fl(c·log2 e·q) (the
+    resident rows, c = scale²), dP − D = do_hi v_hi + do_hi v_lo + do_lo
+    v_hi − (D as three bf16), P = exp2(S'), dS = P·(dP − D); P and dS split
+    by truncation (:func:`_trunc_split`); each tile's N = 8 products hi·hi
+    + lo·hi (the first 8 columns) and hi·lo (the next 8) summed from zero,
+    the two halves added to the outputs in f32. ``narrow_one_pass`` (a
+    planted fault) drops every lo. Returns dq, dk, dv in f32."""
+    BH, T, hd = q.shape
+    c, c2 = scale * scale * math.log2(math.e), scale * scale
+    one_pass = body == "narrow_one_pass"
+
+    def split(x):
+        hi, lo = _split(x.float())
+        return hi, torch.zeros_like(lo) if one_pass else lo
+
+    def split_pd(x):
+        hi, lo = _trunc_split(x)
+        return hi, torch.zeros_like(lo) if one_pass else lo
+
+    dof = do.float()
+    seen = dof if body == "narrow_d_unsplit" else sum(_split(dof))
+    D3 = sum(_split3((out.float() * seen).sum(-1)))
+    L3 = sum(_split3(lse.float() * math.log2(math.e)))
+    qs, ks, vs, ds_ = (split(x) for x in (q, k, v, do))
+    cq, ck = split(q.float() * c), split(k.float() * c)
+
+    def mm3(a, b):  # hi·hi + hi·lo + lo·hi over the last dims
+        return a[0] @ b[0].mT + a[0] @ b[1].mT + a[1] @ b[0].mT
+
+    def tile_sum(p, b):  # the N = 8 product of one tile, halves added
+        ph, pl = split_pd(p)
+        return (ph @ b[0] + pl @ b[0]) + ph @ b[1]
+
+    dq = torch.zeros(BH, T, hd)
+    dk = torch.zeros(BH, T, hd)
+    dv = torch.zeros(BH, T, hd)
+    for j0 in range(0, T, NARROW_TILE):
+        j = slice(j0, min(T, j0 + NARROW_TILE))
+        # dq: resident queries against the key tile j
+        p = torch.exp2(mm3(cq, tuple(x[:, j] for x in ks)) - L3[..., None])
+        dsm = p * (mm3(ds_, tuple(x[:, j] for x in vs)) - D3[..., None])
+        dq += tile_sum(dsm, tuple(x[:, j] for x in ks))
+        # dk, dv: resident keys against the query tile j
+        pt = torch.exp2(mm3(ck, tuple(x[:, j] for x in qs))
+                        - L3[:, None, j])
+        dst = pt * (mm3(vs, tuple(x[:, j] for x in ds_)) - D3[:, None, j])
+        dv += tile_sum(pt, tuple(x[:, j] for x in ds_))
+        dk += tile_sum(dst, tuple(x[:, j] for x in qs))
+    return dq * c2, dk * c2, dv
+
+
 def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
               body="split"):
     """flash_bwd.cu: D = rowsum(dO·O) (flash_bwd_dot_kernel, with the dO
@@ -210,9 +291,13 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
     over query tiles in order, query rows ≥ T at P = 0. Every product runs
     as ``body`` takes it (:func:`_mm`): ``bf16`` (bf16 operands, P and dS
     rounded to bf16 before the products that read them) or ``split`` (f32
-    operands, each product three bf16 passes), or the fault ``one_pass``.
-    Returns dq, dk, dv in f32 (below hd 16 on the tiles' zero-padded
-    columns, the pad dropped)."""
+    operands, each product three bf16 passes), or the fault ``one_pass``;
+    or ``narrow`` (head dim 8 in f32: csrc/flash_narrow_bwd.cu, written
+    out by :func:`_narrow_bwd`, with its faults ``narrow_one_pass`` and
+    ``narrow_d_unsplit``). Returns dq, dk, dv in f32 (below hd 16 on the
+    tiles' zero-padded columns, the pad dropped)."""
+    if body in NARROW_BODIES:
+        return _narrow_bwd(q, k, v, out, lse, do, scale, body)
     BH, T, hd = q.shape
     c2, c = scale * scale * math.log2(math.e), scale * scale
     dof = do.float()
@@ -514,3 +599,72 @@ def test_f32_split_body_gate_small_head_dims(hd, inputs):
     assert not _missed(got, want, rel, absmax, extra)
     ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="one_pass")
     assert _missed(ctrl, want, rel, absmax, extra) == ["dq", "dk", "dv"]
+
+
+# the narrow body's gate cases (head dim 8, BH = 2): T = 385 puts one live
+# row in the last 128-row ring tile
+NARROW_CASES = [(191, "random"), (385, "random"), (191, "ragged"),
+                (385, "ragged")]
+
+
+@pytest.mark.parametrize("T,inputs", NARROW_CASES,
+                         ids=[f"{t}-{i}" for t, i in NARROW_CASES])
+def test_f32_narrow_bwd_body_gate(T, inputs):
+    """The gate of csrc/flash_narrow_bwd.cu (the f32 backward at head dim
+    8), written out by ``bwd_tiles(..., body="narrow")``: it meets the f32
+    rule against the f32 plain backward on the random inputs and the f64
+    witness rule (the f32 rule against the f64 plain backward + 2⁻²⁰·
+    Σ|terms before the cancellation|) on the ragged ones, where dq is a
+    cancellation. The planted fault beside it, every lo dropped
+    (``narrow_one_pass``), misses in dq, dk and dv on both."""
+    hd = 8
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(
+        T, 7, BH=2, ragged=inputs == "ragged", hd=hd))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    rel, absmax = TOL[torch.float32]
+    if inputs == "random":
+        want = attention.attention_bwd_plain(q, k, v, out, lse, do, scale)
+        extra = (0.0, 0.0, 0.0)
+    else:
+        ins = [t.double() for t in (q, k, v, do)]
+        o64, l64 = attention.attention_lse_plain(*ins[:3], scale)
+        want = attention.attention_bwd_plain(*ins[:3], o64, l64, ins[3],
+                                             scale)
+        extra = tuple(RAGGED_F32_EPS * z for z in _bwd_sizes(
+            *ins, o64, l64, scale))
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="narrow")
+    assert not _missed(got, want, rel, absmax, extra)
+    ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="narrow_one_pass")
+    assert _missed(ctrl, want, rel, absmax, extra) == ["dq", "dk", "dv"]
+
+
+@pytest.mark.parametrize("T", [191, 385])
+def test_f32_narrow_bwd_d_from_the_split_do(T):
+    """The narrow body takes D with the dO its products see (hi + lo), so
+    that Σ_j dS_ij = 0 holds for the split operands and the ragged dq
+    stays a clean cancellation. The planted fault, D from the unsplit dO
+    (``narrow_d_unsplit``), is off by dO's split residual, at most ~2⁻¹⁸
+    of each term: on random dO the terms' signs mix and the fault reads
+    0.6-1.4 of the f64 witness rule. Here dO > 0 sits 2⁻¹⁸ (relative)
+    past its hi + lo in every element (1 + 3·2⁻⁹ + 2⁻¹⁸ times a power of
+    2), so the residuals add in D: on the ragged q, k, v the body meets
+    the witness rule and the fault misses it in dq."""
+    hd = 8
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, _ = _inputs(T, 7, BH=2, ragged=True, hd=hd)
+    rng = np.random.default_rng(T)
+    do = ((1 + 3 * 2.0 ** -9 + 2.0 ** -18)
+          * 2.0 ** rng.integers(-1, 2, q.shape)).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    ins = [t.double() for t in (q, k, v, do)]
+    o64, l64 = attention.attention_lse_plain(*ins[:3], scale)
+    want = attention.attention_bwd_plain(*ins[:3], o64, l64, ins[3], scale)
+    extra = tuple(RAGGED_F32_EPS * z for z in _bwd_sizes(
+        *ins, o64, l64, scale))
+    rel, absmax = TOL[torch.float32]
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="narrow")
+    assert not _missed(got, want, rel, absmax, extra)
+    ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="narrow_d_unsplit")
+    assert "dq" in _missed(ctrl, want, rel, absmax, extra)

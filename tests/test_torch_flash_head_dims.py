@@ -190,8 +190,8 @@ def test_kernel_head_dims_are_one_set():
         assert _build.LAUNCHES[f"{name}_wide"] >= 0
     for entry, _ in attention._FORWARD.values():
         assert entry in _build.SIGNATURES
-    assert {"flash_bwd_dq_launch", "flash_bwd_dkv_launch"} <= set(
-        _build.SIGNATURES)
+    assert {"flash_bwd_dq_launch", "flash_bwd_dkv_launch",
+            "flash_narrow_bwd_launch"} <= set(_build.SIGNATURES)
 
 
 def test_head_dims_outside_the_set_raise_on_cuda_tensors():
@@ -229,15 +229,20 @@ def test_f32_scratch_shapes(inst):
     they run: the forward's hi and lo of q, k, v, [6, BH, T, inst], at
     head dim 8 the narrow body's five padded operands [5, BH, T, 16]
     (csrc/flash_narrow.cu); the backward's hi and lo of q, k, v and do,
-    [8, BH, T, inst], at 128 and on the wide bodies, none below (the
-    kernels stage and split their f32 tiles themselves). A scratch short
-    of what a kernel writes would overrun on the card."""
+    [8, BH, T, inst], at 128 and on the wide bodies; at head dim 8 the
+    narrow backward's two packed ring tensors [2, BH, T, 32]
+    (csrc/flash_narrow_bwd.cu); none at 16-64 (the kernels stage and split
+    their f32 tiles themselves). A scratch short of what a kernel writes
+    would overrun on the card."""
     BH, T = 2, 100
     want = (5, BH, T, 16) if inst == 8 else (6, BH, T, inst)
     assert attention._fwd_split(BH, T, inst) == want
     q = torch.zeros((BH, T, inst))
     split = attention._bwd_split(q, inst)
-    if inst < 128:
+    if inst == 8:
+        assert split.shape == (2, BH, T, 32)
+        assert split.dtype == torch.bfloat16
+    elif inst < 128:
         assert split is None
     else:
         assert split.shape == (8, BH, T, inst)
