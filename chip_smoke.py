@@ -4619,10 +4619,11 @@ FLASH_HD_PADDED = (24, 48, 96)
 # count and beyond it
 FLASH_HD128_LONG = (7125, 16384)
 # head dims of the wide bodies (above 128, zero-padded to a multiple of
-# 64: 160 on 192; 192, 256 and 512 on themselves), each on the ragged
-# inputs; the chained f32 backward sums at head dim 256 beyond the proj
-# UNet's token count
-FLASH_HD_WIDE = (160, 192, 256, 512)
+# 64: 160 on 192; 192, 256, 320 and 512 on themselves; the forward's
+# body takes O in slices of 256 columns, so 320 ends on a partial one),
+# each on the ragged inputs; the chained f32 backward sums at head dim 256
+# beyond the proj UNet's token count
+FLASH_HD_WIDE = (160, 192, 256, 320, 512)
 FLASH_HD_WIDE_LONG = (16384,)
 LONG_BLOCK = 512                   # query rows per block of the plain loop
 # the ablations phase's main-path run: the SIEMENS scanner's full size
@@ -4938,9 +4939,12 @@ def head_dim_rows(rows, short, long, abl):
                 hd=x["hd"], T=x["T"], ms=x["ms"], library_ms=x["library_ms"],
                 bound_ms=x["bound_ms"], max_abs_err=x["err"],
                 instance=flash_instance(x["hd"]),
+                body=_build.flash_counter(row["name"],
+                                          flash_instance(x["hd"])),
                 launches_ablations=abl[_build.flash_counter(
                     row["name"], flash_instance(x["hd"]))])
                 for x in short if "ms" in x and x["dtype"] == dtype]
+            row["wide_build"] = wide_build()
         elif row["name"] in ("flash_bwd_dq", "flash_bwd_dkv"):
             kind = row["name"][len("flash_bwd_"):]
             row["head_dims"] = [dict(
@@ -4997,6 +5001,42 @@ def flash_pad_control(hd, T=4097):
                              f"control {'passes' if bad_ok else 'fails'}")
 
 
+def wide_slice_control(hd=320, T=4097):
+    """The wide forward's partial last output slice (``hd`` = 320: a slice
+    of 256 columns, then one of 64; csrc/flash_attn.cu flash_wide_kernel),
+    in bf16 and f32 on seeded N(0, 1) q, k, v [4, T, hd]: the kernel
+    against the plain version at the dtype's rule, beside a planted fault
+    that must fail it, the plain output with the last slice's columns
+    read from the first slice's (V's chunk c0 + h taken as chunk h)."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention, _build
+
+    from_, cols = _build.FLASH_FWD_WIDE_SLICE, hd % _build.FLASH_FWD_WIDE_SLICE
+    for dtype_name in ("bfloat16", "float32"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + hd)
+        q, k, v = (torch.randn((4, T, hd), generator=gen, device="cuda").to(
+            getattr(torch, dtype_name)) for _ in range(3))
+        scale = 1.0 / math.sqrt(math.sqrt(hd))
+        got = attention.flash_attention(q, k, v, scale)
+        want = attention.attention_plain(q, k, v, scale)
+        bad = want.clone()
+        bad[..., from_:] = want[..., :cols]
+        torch.cuda.synchronize()
+        rtol, atol = flash_tol(want, dtype_name)
+        ok, err = _within(got, want, rtol, atol)
+        bad_ok, bad_err = _within(bad, want, rtol, atol)
+        log(f"flash-hd: {SHORT[dtype_name]} [4,{T},{hd}] on the wide "
+            f"forward (slices of {from_} columns, the last of {cols}), "
+            f"N(0, 1) inputs: max |diff| {err:.3e} (tol {atol:.2e} + "
+            f"{rtol:g}·|plain|); planted control, the last slice's columns "
+            f"from the first slice's: max |diff| {bad_err:.3e}, "
+            f"{'passes' if bad_ok else 'fails'}")
+        if not ok or bad_ok:
+            raise AssertionError(f"flash-hd wide slice control hd {hd} "
+                                 f"{dtype_name}: {err}, the control "
+                                 f"{'passes' if bad_ok else 'fails'}")
+
+
 def phase_flash_hd(reps):
     """The flash kernels at head dims 8, 16, 32 and 128, at the padded
     head dims 24, 48 and 96 and on the wide bodies at
@@ -5004,10 +5044,12 @@ def phase_flash_hd(reps):
     kernels at T = 4097 and 7125 on the ragged inputs
     (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its planted
     controls) and the padding's planted fault at each padded head dim
-    (:func:`flash_pad_control`), then the f32 kernels at head dim 8 (the
-    forward on csrc/flash_narrow.cu) at the ablation UNets' T = 16 384
-    and 114 000, at head dim 128 at T = 7125 and 16 384 and at head dim
-    256 at T = 16 384 (:func:`flash_long`). Returns (the ragged stats, the
+    (:func:`flash_pad_control`), the wide forward's partial slice and its
+    planted fault (:func:`wide_slice_control`), then the f32 kernels at
+    head dim 8 (the forward on csrc/flash_narrow.cu) at the ablation
+    UNets' T = 16 384 and 114 000, at head dim 128 at T = 7125 and
+    16 384 and at head dim 256 at T = 16 384 (:func:`flash_long`; the
+    forward on the wide body at both). Returns (the ragged stats, the
     long-T stats of head dim 8, those of head dim 128, those of 256)."""
     import torch
     from ipdm_tpu_torch.ops.cuda import _build, attention
@@ -5025,6 +5067,7 @@ def phase_flash_hd(reps):
         for hd in FLASH_HD_PADDED + FLASH_HD_WIDE:
             if attention.flash_instance(hd) != hd:
                 flash_pad_control(hd)
+        wide_slice_control()
         long = [flash_long(T, 3) for T in FLASH_HD_LONG]
         long128 = [flash_long(T, 3, hd=128) for T in FLASH_HD128_LONG]
         long256 = [flash_long(T, 3, hd=256) for T in FLASH_HD_WIDE_LONG]
@@ -5338,11 +5381,24 @@ def _wide_slice(w, ld_proj, seed, reps):
     flash = {k: v for k, v in launches.items()
              if k.startswith("flash") and v}
     finite = bool(torch.isfinite(out).all())
-    log(f"wide: mc {w} (head dim {w}, instance {inst}): a warm ART slice "
-        f"{dt:.4f} s (the first, at these shapes, {first:.4f} s), output "
-        f"{tuple(out.shape)} finite={finite}, peak memory {peak:.2f} GiB; "
-        f"flash launches by instance {flash}; planar_unit "
-        f"{launches['planar_unit']}")
+    # the forward's device time in a slice: a profiled one (its kernels'
+    # durations summed: the wide body and its split pre-pass)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(seed + 2)
+        torch.cuda.synchronize()
+    fwd_n, fwd_ms = 0, 0.0
+    for kname, (c, ms) in device_kernels(prof).items():
+        if "flash_wide_kernel" in kname or "split_kernel" in kname:
+            fwd_n, fwd_ms = fwd_n + c, fwd_ms + ms
+    del prof
+    log(f"wide: mc {w} (head dim {w}, run at {inst} columns): a warm ART "
+        f"slice {dt:.4f} s (the first, at these shapes, {first:.4f} s), "
+        f"output {tuple(out.shape)} finite={finite}, peak memory "
+        f"{peak:.2f} GiB; flash launches by body {flash}; planar_unit "
+        f"{launches['planar_unit']}; in a profiled slice the flash "
+        f"forward's {fwd_n} launches (wide body and split pre-pass) took "
+        f"{fwd_ms:.3f} device ms")
     n = make_convertor(opt).fbp_geom.grid_n
     if tuple(out.shape) != (1, n, n, 1) or not finite:
         raise AssertionError(f"wide mc {w}: output {tuple(out.shape)} "
@@ -5356,7 +5412,8 @@ def _wide_slice(w, ld_proj, seed, reps):
         for st in stats:
             st["hd"], st["instance"] = w, inst
     return dict(s=dt, first_s=first, peak_gib=peak, launches=launches,
-                name=name, stats=stats)
+                name=name, stats=stats, fwd_device_ms=fwd_ms,
+                fwd_device_launches=fwd_n)
 
 
 def phase_wide(seed: int, out: str, ld_proj, reps: int):
@@ -5426,27 +5483,76 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
     return wide_rows(slices, runs, per)
 
 
-def wide_rows(slices, runs, per):
-    """The kernels JSON line's rows of the f32 kernels at each width of
-    :data:`WIDE_WIDTHS` (the wide bodies at 256, the hd-128 instances at
-    the padded 96): the forward's launches in that width's warm slice, its numbers
-    on that run's q, k, v (T = 7125 and 4096 under ``shapes``); the
-    backward pair's launches in the width's two train runs and its
-    numbers on their first backward."""
+# the wide forward's build constants (csrc/flash_attn.cu IPDM_WIDE_*)
+WIDE_CONSTANTS = ("SLICE", "NWG", "STAGES_F32", "STAGES_BF16", "CREGS")
+
+
+def wide_build(text=None) -> dict:
+    """The wide forward's build constants, from csrc/flash_attn.cu's
+    defaults (or the source ``text``): 64-column chunks of O a CTA holds,
+    consumer warpgroups, ring slots beside a resident Q (f32, bf16), the
+    consumers' registers after setmaxnreg."""
+    import re
+
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    text = text or (_build.SRC_DIR / "flash_attn.cu").read_text()
+    return {n.lower(): int(re.search(rf"#define IPDM_WIDE_{n} (\d+)",
+                                     text).group(1))
+            for n in WIDE_CONSTANTS}
+
+
+def wide_fwd_row(slices):
+    """The kernels JSON line's row of the f32 forward at the widths of
+    :data:`WIDE_WIDTHS`, all on its wide body: launches in the widths'
+    warm slices together, its numbers on their recorded q, k, v, and per
+    width the slice, its shapes and the forward's device ms in a
+    profiled slice."""
     from ipdm_tpu_torch.ops.cuda import _build
     from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
     rows = []
+    names = {slices[w]["name"] for w in WIDE_WIDTHS}
+    if names != {_build.flash_counter("flash_attn_f32", 256)}:
+        raise AssertionError(f"wide: the f32 forward ran on {names}")
+    summarise(rows, "wide", names.pop(), "ipdm_tpu_torch/csrc/flash_attn.cu",
+              "ipdm_tpu/models/unet.py:601",
+              [st for w in WIDE_WIDTHS for st in slices[w]["stats"]], True)
+    rows[-1].update(
+        launches=sum(slices[w]["launches"][slices[w]["name"]]
+                     for w in WIDE_WIDTHS),
+        head_dim=max(WIDE_WIDTHS), dtype="float32",
+        body="wide: one CTA holds up to 256 columns of O, S built once per "
+             "key tile", build=wide_build(),
+        widths=[dict(mc=w, head_dim=w, instance=flash_instance(w),
+                     launches=slices[w]["launches"][slices[w]["name"]],
+                     shapes=f32_shapes(slices[w]["stats"]),
+                     slice=dict(s=slices[w]["s"],
+                                first_s=slices[w]["first_s"],
+                                peak_gib=slices[w]["peak_gib"],
+                                fwd_device_ms=slices[w]["fwd_device_ms"],
+                                fwd_launches=slices[w][
+                                    "fwd_device_launches"]))
+                for w in WIDE_WIDTHS])
+    return rows[0]
+
+
+def wide_rows(slices, runs, per):
+    """The kernels JSON line's rows of the f32 kernels at the widths of
+    :data:`WIDE_WIDTHS`: the forward, the wide body at every one of them
+    (256 on itself, the padded 96 at 128), one row: its launches in the
+    widths' warm slices together, its numbers on those runs' q, k, v
+    (T = 7125 and 4096 of each width under ``widths``), each width's
+    slice and the forward's device ms in a profiled one; the backward
+    pair (the wide bodies at 256, the hd-128 instances at 96), a row per
+    width: its launches in the width's two train runs and its numbers on
+    their first backward."""
+    from ipdm_tpu_torch.ops.cuda import _build
+    from ipdm_tpu_torch.ops.cuda.attention import flash_instance
+
+    rows = [wide_fwd_row(slices)]
     for w in WIDE_WIDTHS:
-        top, inst = slices[w], flash_instance(w)
-        summarise(rows, "wide", top["name"],
-                  "ipdm_tpu_torch/csrc/flash_attn.cu",
-                  "ipdm_tpu/models/unet.py:601", top["stats"], True)
-        rows[-1].update(
-            launches=top["launches"][top["name"]], head_dim=w,
-            instance=inst, dtype="float32", shapes=f32_shapes(top["stats"]),
-            slice=dict(s=top["s"], first_s=top["first_s"],
-                       peak_gib=top["peak_gib"]))
+        inst = flash_instance(w)
         for i, kind in enumerate(("dq", "dkv")):
             name = _build.flash_counter(f"flash_bwd_{kind}", inst)
             st = [p[i] for p in per[w]]
@@ -5678,17 +5784,21 @@ def main() -> int:
     log("kernels: launches in the ablations phase's main-path run: "
         + ", ".join(f"{row['name']} {row['launches_ablations']}"
                     for row in rows))
-    # the wide phase's rows (the wide bodies at mc 256, the hd-128
-    # instances at the padded mc 96); each f32 trio at long T
+    # the wide phase's rows (the forward's wide body at mc 256 and the
+    # padded mc 96; the backward's wide bodies at mc 256, its hd-128
+    # instances at mc 96); each f32 trio at long T (the forward's at head
+    # dims 256 and 128)
     for row in wide:
         part = ("fwd" if row["name"].startswith("flash_attn") else
                 row["name"].split("_")[2])
         row["shapes_long"] = [dict(
-            T=x["T"], ms=x[f"{part}_ms"], bound_ms=x["bound_ms"][part],
+            hd=x["hd"], T=x["T"], ms=x[f"{part}_ms"],
+            bound_ms=x["bound_ms"][part],
             library_ms=x["sdpa_fwd_ms" if part == "fwd"
                          else "sdpa_fwd_bwd_ms"],
-            over=x["over"]) for x in (hd_long256 if row["head_dim"] > 128
-                                      else hd_long128)]
+            over=x["over"])
+            for x in (hd_long256 + hd_long128 if part == "fwd" else
+                      hd_long256 if row["head_dim"] > 128 else hd_long128)]
     rows += wide
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,8 @@
 // Forward flash attention on Hopper (sm_90a) for head dimensions 8, 16,
-// 32, 64 and 128 (template instances) and every multiple of 64 above 128
-// (the wide body): wgmma for both products, TMA for the loads; bf16 or f32
-// in and out. The f32 forward at head dim 8 runs flash_narrow.cu's body.
+// 32 and 64 (template instances; bf16 also 128) and every multiple of 64
+// from 128 up (the wide body; bf16 from 192): wgmma for both products,
+// TMA for the loads; bf16 or f32 in and out. The f32 forward at head dim
+// 8 runs flash_narrow.cu's body.
 //
 // Replaces the TPU flash kernel that ipdm_tpu/models/unet.py:601
 // _flash_attention calls (jax.experimental.pallas.ops.tpu.flash_attention)
@@ -11,11 +12,12 @@
 //   out[bh,t,:] = sum_s softmax_s(scale2 * q[bh,t,:] . k[bh,s,:]) v[bh,s,:]
 //
 // q, k, v, out: [BH, T, HD] of one element type, contiguous, HD in
-// {8, 16, 32, 64, 128} (one template instance each; hopper.cuh's
-// Head<HD>: at HD = 8 the operands lie zero-padded to 16 columns in shared
-// memory, at HD = 128 as two 64-column sub-tiles) or a multiple of 64
-// above 128 (the wide body, below); other head dims reach a kernel
-// zero-padded by the wrapper, ops/cuda/attention.py. With lse !=
+// {8, 16, 32, 64} (one template instance each; hopper.cuh's Head<HD>: at
+// HD = 8 the operands lie zero-padded to 16 columns in shared memory; in
+// bf16 also 128, as two 64-column sub-tiles) or a multiple of 64 from
+// IPDM_FLASH_FWD_WIDE_FROM_<dtype> up (the wide body, below); other head
+// dims reach a kernel zero-padded by the wrapper, ops/cuda/attention.py.
+// With lse !=
 // nullptr (the autograd path asks for it) the kernel also writes the f32
 // natural-log softmax normaliser lse[bh, t] = log(sum_s exp(scale2 * q.k))
 // that the backward kernels (flash_bwd.cu) rebuild P from, the counterpart
@@ -97,28 +99,31 @@
 //   2 slots at two CTAs ran as fast as this before that sum, with no
 //   spill). 128 rows rather than 64 halve the K/V traffic from L2 (each
 //   CTA reads all of its head's K and V).
-// - HD = 128 (the presets at model_channels 128): Q, K and V tiles are
-//   two 128-byte-swizzled sub-tiles each (two TMA boxes a tile), Q K^T
-//   steps into the second after four k16 steps, and P V runs as two
-//   N = 64 halves, one per sub-tile of V, onto O's two halves of 32 sums.
-//   O takes 64 registers a thread, so both bodies run one CTA per SM:
-//   bf16 4 slots, 160 KB, 167 registers; f32 2 slots of hi and lo tiles,
-//   192 KB (4 would take 320 KB), at most 168 registers, where it spills
-//   408 bytes a thread (scripts/ptxas_report.py) beside O, P's
-//   two fragment sets and S. A first body, right and not yet fast.
-// - Above 128 (the presets at model_channels 160-512): the wide body
-//   (flash_wide_kernel, below) takes the head dim as a runtime count nc
-//   of 64-column chunks. Each CTA owns 128 query rows and one 64-column
-//   slice of O (blockIdx.z), so its sums are HD = 64's; the producer
-//   streams Q's and K's chunks for S and V's slice for P V through the
-//   ring. Bound at hd 256, T = 7125, 4 heads: the products, 4*T*T*256*4
-//   flops, 0.210 ms at the bf16 peak, 0.631 ms for f32's three passes;
-//   each of the nc slices' CTAs rebuilds S, nc + 1 products where the
-//   function has 2, a gap from the bound.
-// - No setmaxnreg: an increase asks for registers that some warp has
-//   given back (setmaxnreg.inc blocks until they are free), and the one
-//   producer warp frees 72 x 32, too few to lift 256 consumer threads by
-//   even one step of 8.
+// - HD = 128 in bf16 (no main path: the presets are f32): Q, K and V
+//   tiles are two 128-byte-swizzled sub-tiles each (two TMA boxes a tile),
+//   Q K^T steps into the second after four k16 steps, and P V runs as two
+//   N = 64 halves onto O's two halves of 32 sums; 4 slots, 160 KB, one
+//   CTA per SM, 167 registers. It stays because the wide body is slower
+//   there: 0.3114-0.3162 ms against its 0.2455-0.2466 at T = 7125, 4
+//   heads (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_kernels_ab.py).
+//   The f32 instance it had (2 slots, 408 B spilled a thread at 168
+//   registers) is gone: the wide body runs f32 from 128 up.
+// - From 128 (f32) / 192 (bf16) up: the wide body (flash_wide_kernel,
+//   below) takes the head dim as a runtime count nc of 64-column chunks.
+//   A CTA holds 128 query rows and up to 256 columns of O, so up to
+//   hd 256 it builds S once per key tile for all of O: 2 products of the
+//   2 the function has (its first body built S once per 64-column
+//   slice, nc + 1), and above 256 once per 256-column slice (hd 512: 3).
+//   O at 256 columns is 128 f32 registers a thread; with the scores, P's
+//   two fragment sets and addressing the consumers need ~210, so the
+//   producer is a warpgroup that gives its registers back (setmaxnreg:
+//   producer 24, consumers 240). Bound at hd 256, T = 7125, 4 heads: the
+//   products, 4*T*T*256*4 flops, 0.210 ms at the bf16 peak, 0.631 ms for
+//   f32's three passes. Measured there (NVIDIA H100 80GB HBM3, 700 W;
+//   scripts/torch_kernels_ab.py --parent): f32 0.962 ms (the first body
+//   2.745), bf16 0.483 (SDPA 0.782); hd 512, f32 3.39-3.49 (10.1-10.2);
+//   hd 128, f32 0.543 (the retired instance 0.697). 168 registers at
+//   launch, no spill (scripts/ptxas_report.py).
 // The TPU kernel's 512/1024 blocks and segment-id padding (unet.py:611-
 // 630) are VMEM tiling and do not carry over: keys past T are masked to
 // -inf, queries past T are not written.
@@ -155,8 +160,7 @@ using Out = std::conditional_t<F32, float, bf16>;
 // aligned (swizzle atoms)
 template <bool F32, int HD>
 struct Smem {
-  // ring slots: 2 for f32 at HD = 128 (4 would take 320 KB)
-  static constexpr int STAGES = F32 && HD == 128 ? 2 : 4;
+  static constexpr int STAGES = 4;  // ring slots
   static constexpr int NP = F32 ? 2 : 1;      // [hi, lo]
   bf16 q[NWG][NP][TILE<HD>];
   bf16 k[STAGES][NP][TILE<HD>];
@@ -261,36 +265,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float scale_log2,
   }
   l0 = l0 * cr0 + sum0;  // per-thread partial sums, reduced at the end
   l1 = l1 * cr1 + sum1;
-}
-
-// O = O corr + P V over one 64-column chunk of V (descriptors vH, vL): in
-// f32 the tile's P V summed from zero in sc (dead after the softmax) and
-// added with an f32 FMA, in bf16 onto O in the tensor cores
-template <bool F32>
-__device__ __forceinline__ void pv_chunk(float (&o)[32], float (&sc)[32],
-                                         uint32_t (&p)[F32 ? 2 : 1][16],
-                                         float cr0, float cr1, uint64_t vH,
-                                         uint64_t vL) {
-  constexpr int NP = F32 ? 2 : 1;
-  if constexpr (F32) {
-    add_pv<NP, 64>(o, sc, p, cr0, cr1, vH, vL);
-  } else {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      o[4 * n] *= cr0;
-      o[4 * n + 1] *= cr0;
-      o[4 * n + 2] *= cr1;
-      o[4 * n + 3] *= cr1;
-    }
-    reg_fence(o);
-    reg_fence_a(p);
-    wg_fence();
-    product_rs<NP, 64>(o, p, vH, vL);
-    wg_commit();
-    reg_fence(o);
-    wg_wait_all();
-    reg_fence(o);
-  }
 }
 
 // The rows' lse (where lse != nullptr; m is in log2 units of the score)
@@ -543,29 +517,93 @@ __global__ void __launch_bounds__(NTHREADS, F32 || HD == 128 ? 1 : 2)
   }
 }
 
-// The wide body: head dims above 128 as hdw = WIDE_CHUNK * nc columns,
-// nc a runtime count of 64-column chunks (the wrapper zero-pads the head
-// dim to a multiple of 64). Each CTA owns 128 query rows of one head and
-// one 64-column slice z = blockIdx.z of O, so its sums stay one m64n64
-// accumulator as at HD = 64 (O at 256 columns would take 128 f32
-// registers a thread). The producer streams every operand through the
-// ring in 64-column chunks: for each key tile, nc steps of [Q's chunk c
-// for both warpgroups, K's chunk c] whose products sum S over the head
-// dimension, then one step of V's chunk z for P V. Q is re-read from L2
-// for every key tile (a whole 128-row Q tile at hd 512 would take 256 KB
-// of shared memory in f32 hi and lo), and each of the nc slices' CTAs
-// rebuilds S: nc + 1 products of the 2 the function needs. A slot is
-// released once the next chunk's products are issued and its own have
-// completed (wgmma.wait_group 1), so one chunk's loads overlap the
-// previous chunk's products. bf16 slots 24 KB, f32 (hi and lo) 48 KB,
-// 4 of them either way; one CTA per SM.
+// The wide body: every head dim from IPDM_FLASH_FWD_WIDE_FROM_<dtype> up
+// (f32 128, bf16 192),
+// as hdw = WIDE_CHUNK * nc columns, nc a runtime count of 64-column chunks
+// (the wrapper zero-pads the head dim to a multiple of 64). A CTA owns
+// W_ROWS = 64 * W_NWG query rows of one head (a consumer warpgroup of 64
+// each) and W_SLICE chunks of O's columns, slice z = blockIdx.z: at
+// W_SLICE = 4, 256 columns, so up to hd 256 one CTA builds S once per key
+// tile for every column of O; above, ceil(nc / 4) slices (hd 320 and 448
+// end on a partial slice), S built once per slice. O is W_SLICE m64n64
+// accumulators a thread, 128 f32 registers at 256 columns: beside the
+// scores (32), P's hi and lo fragments (32) and addressing that is ~210,
+// so the producer is a whole warpgroup that gives its registers back
+// (setmaxnreg: 24 a thread) and the consumers rise to W_CREGS (240):
+// 128 * 24 + 256 * 240 = 64 512 of the SM's 65 536.
+// Shared memory: where Q's nc chunks fit in 128 KB (nc <= QCH: f32 hi and
+// lo up to hd 256, bf16 up to 512) they are resident, one TMA load a CTA,
+// and the ring carries 64-key tiles of K's chunk c (nc steps a key tile,
+// whose products sum S over the head dim) then of V's chunk c0 + h (nz
+// steps, one per output chunk); f32 5 slots of 16 KB beside Q's 128 KB,
+// bf16 8 of 8 KB. Above QCH every K step carries Q's chunk c of the CTA's
+// rows too (re-read from L2 each key tile), 4 slots. f32 keeps the
+// template's rule: three bf16 passes, each key tile's P V summed from
+// zero per chunk and added to O with an f32 FMA; bf16 sums P V onto O in
+// the tensor cores, every output chunk's wgmmas in one group.
+#ifndef IPDM_WIDE_SLICE
+#define IPDM_WIDE_SLICE 4        // 64-column chunks of O a CTA holds
+#endif
+#ifndef IPDM_WIDE_NWG
+#define IPDM_WIDE_NWG 2          // consumer warpgroups a CTA (64 rows each)
+#endif
+#ifndef IPDM_WIDE_STAGES_F32
+#define IPDM_WIDE_STAGES_F32 5   // ring slots beside a resident Q, f32
+#endif
+#ifndef IPDM_WIDE_STAGES_BF16
+#define IPDM_WIDE_STAGES_BF16 8  // the same, bf16
+#endif
+#ifndef IPDM_WIDE_CREGS
+#define IPDM_WIDE_CREGS 240      // the consumers' registers a thread
+#endif
+constexpr int W_SLICE = IPDM_WIDE_SLICE;
+constexpr int W_NWG = IPDM_WIDE_NWG;
+constexpr int W_ROWS = BM * W_NWG;
+constexpr int W_THREADS = 128 * (W_NWG + 1);
+// the registers a thread at launch (__launch_bounds__(W_THREADS, 1): the
+// SM's 65 536 over the threads, in steps of 8, at most 255), the
+// consumers' count after setmaxnreg.inc, and the producer's after .dec:
+// what the consumers' increase leaves of the launch's registers
+constexpr int W_LREGS = 65536 / W_THREADS / 8 * 8 > 255
+                            ? 255 : 65536 / W_THREADS / 8 * 8;
+constexpr int W_CREGS = IPDM_WIDE_CREGS;
+constexpr int W_PREGS = (W_LREGS - (W_CREGS - W_LREGS) * W_NWG) / 8 * 8;
+static_assert(W_SLICE >= 1 && W_SLICE <= 4 && (W_NWG == 1 || W_NWG == 2),
+              "wide body: 1-4 output chunks, 1 or 2 consumer warpgroups");
+static_assert(W_NWG == 1 || (W_PREGS >= 24 && W_CREGS % 8 == 0 &&
+                             W_CREGS <= 256 && W_CREGS >= W_LREGS),
+              "wide body: the register split does not fit the SM");
+
+template <bool F32, bool QRES>
+struct WideSmem;
+
+// Q resident: its nc <= QCH chunks of the CTA's rows (128 KB at most),
+// and a ring of K's and V's 64-key chunk tiles
 template <bool F32>
-struct WideSmem {
-  static constexpr int STAGES = 4, NP = F32 ? 2 : 1;
+struct WideSmem<F32, true> {
+  static constexpr int NP = F32 ? 2 : 1;  // [hi, lo]
+  static constexpr int QCH = 16 / (W_NWG * NP);
+  static constexpr int STAGES =
+      F32 ? IPDM_WIDE_STAGES_F32 : IPDM_WIDE_STAGES_BF16;
+  bf16 q[QCH][W_NWG][NP][TILE<64>];
   struct Slot {
-    bf16 q[NWG][NP][TILE<64>];  // chunk c of the CTA's query rows
-    bf16 kv[NP][TILE<64>];      // chunk c of the key tile, or V's chunk z
+    bf16 kv[NP][TILE<64>];
   } slot[STAGES];
+  uint64_t qbar;
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+};
+
+// Q streamed: a K step's slot carries Q's chunk c of the CTA's rows too
+template <bool F32>
+struct WideSmem<F32, false> {
+  static constexpr int NP = F32 ? 2 : 1;
+  static constexpr int STAGES = 4;
+  struct Slot {
+    bf16 q[W_NWG][NP][TILE<64>];
+    bf16 kv[NP][TILE<64>];
+  } slot[STAGES];
+  uint64_t qbar;
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
 };
@@ -576,140 +614,277 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if (threadIdx.x % 32 == 0) mbar_arrive(empty);
 }
 
-template <bool F32>
-__device__ __forceinline__ void consume_wide(WideSmem<F32>& sm, int wg,
-                                             Out<F32>* out, float* lse,
-                                             int T, int nc, float scale_log2,
-                                             int bh, int q0, int nk) {
-  using S = WideSmem<F32>;
+// the next ring slot (s) and the parity (ph) of its next phase
+template <int STAGES>
+__device__ __forceinline__ void advance(int& s, uint32_t& ph) {
+  if (++s == STAGES) {
+    s = 0;
+    ph ^= 1;
+  }
+}
+
+// The producer: one thread loads Q once (resident) and walks the ring:
+// for each key tile, nc steps of K's chunk c (with Q's chunk c where Q is
+// streamed), then nz steps of V's chunk c0 + h
+template <bool F32, bool QRES>
+__device__ __forceinline__ void produce_wide(WideSmem<F32, QRES>& sm,
+                                             const Maps& maps, int nc,
+                                             int c0, int nz, int bh, int q0,
+                                             int nk) {
+  using S = WideSmem<F32, QRES>;
+  constexpr int STAGES = S::STAGES, NP = S::NP;
+  constexpr uint32_t TB = TILE_BYTES<64>;
+  constexpr int QT = QRES ? 0 : W_NWG;  // Q tiles a K step carries
+  if constexpr (QRES) {
+    mbar_expect_tx(&sm.qbar, nc * W_NWG * NP * TB);
+    for (int c = 0; c < nc; ++c)
+      for (int w = 0; w < W_NWG; ++w)
+        for (int p = 0; p < NP; ++p)
+          tma_load(sm.q[c][w][p], &maps.q[p], &sm.qbar, q0 + w * BM, bh,
+                   c * WIDE_CHUNK);
+  }
+  int s = 0;
+  uint32_t ph = 1;  // a fresh barrier's previous phase counts as complete
+  for (int j = 0; j < nk; ++j) {
+    for (int c = 0; c < nc + nz; ++c) {
+      auto& sl = sm.slot[s];
+      mbar_wait(&sm.empty[s], ph);
+      if (c < nc) {
+        mbar_expect_tx(&sm.full[s], (QT + 1) * NP * TB);
+        for (int p = 0; p < NP; ++p) {
+          if constexpr (!QRES)
+            for (int w = 0; w < W_NWG; ++w)
+              tma_load(sl.q[w][p], &maps.q[p], &sm.full[s], q0 + w * BM, bh,
+                       c * WIDE_CHUNK);
+          tma_load(sl.kv[p], &maps.k[p], &sm.full[s], j * BK, bh,
+                   c * WIDE_CHUNK);
+        }
+      } else {
+        mbar_expect_tx(&sm.full[s], NP * TB);
+        for (int p = 0; p < NP; ++p)
+          tma_load(sl.kv[p], &maps.v[p], &sm.full[s], j * BK, bh,
+                   (c0 + c - nc) * WIDE_CHUNK);
+      }
+      advance<STAGES>(s, ph);
+    }
+  }
+}
+
+// One consumer warpgroup: 64 query rows, O's nz <= W_SLICE chunks from
+// column chunk c0, against every key tile
+template <bool F32, bool QRES>
+__device__ __forceinline__ void consume_wide(WideSmem<F32, QRES>& sm,
+                                             int wg, Out<F32>* out,
+                                             float* lse, int T, int nc,
+                                             int c0, int nz,
+                                             float scale_log2, int bh,
+                                             int q0, int nk) {
+  using S = WideSmem<F32, QRES>;
   constexpr int STAGES = S::STAGES, NP = S::NP;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int z = blockIdx.z, hdw = nc * WIDE_CHUNK;
-  float o[32];
+  float o[W_SLICE][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int h = 0; h < W_SLICE; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[h][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  int i = 0;  // ring step: nc + 1 per key tile
+  if constexpr (QRES) mbar_wait(&sm.qbar, 0);
+  int s = 0;
+  uint32_t ph = 0;
   for (int j = 0; j < nk; ++j) {
-    // S = Q K^T, summed over the nc chunks of the head dimension
+    // S = Q K^T, summed over the nc chunks of the head dimension; a
+    // chunk's slot is released once the next chunk's products are issued
+    // and its own have completed
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.f;
     reg_fence(sc);
-    for (int c = 0; c < nc; ++c, ++i) {
-      const int s = i % STAGES;
-      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+    int prev = 0;
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(&sm.full[s], ph);
       const auto& sl = sm.slot[s];
+      const bf16(*qt)[TILE<64>];
+      if constexpr (QRES)
+        qt = sm.q[c][wg];
+      else
+        qt = sl.q[wg];
       wg_fence();
-      product_ss<F32, 64>(sc, sw_desc<64>(sl.q[wg][0]),
-                          sw_desc<64>(sl.q[wg][NP - 1]),
+      product_ss<F32, 64>(sc, sw_desc<64>(qt[0]), sw_desc<64>(qt[NP - 1]),
                           sw_desc<64>(sl.kv[0]), sw_desc<64>(sl.kv[NP - 1]),
                           c > 0);
       wg_commit();
       reg_fence(sc);
-      if (c > 0) {  // the previous chunk's products are done with its slot
+      if (c > 0) {
         wg_wait<1>();
-        release(&sm.empty[(i - 1) % STAGES]);
+        release(&sm.empty[prev]);
       }
+      prev = s;
+      advance<STAGES>(s, ph);
     }
     wg_wait_all();
     reg_fence(sc);
-    release(&sm.empty[(i - 1) % STAGES]);
+    release(&sm.empty[prev]);
 
     if (j == nk - 1 && T % BK) mask_keys(sc, T - j * BK);
     uint32_t p[NP][16];
     float cr0, cr1;
     softmax_tile<NP>(sc, scale_log2, m0, m1, l0, l1, p, cr0, cr1);
-    // O = O corr + P V over V's chunk z
-    const int s = i % STAGES;
-    mbar_wait(&sm.full[s], (i / STAGES) & 1);
-    pv_chunk<F32>(o, sc, p, cr0, cr1, sw_desc<64>(sm.slot[s].kv[0]),
-                  sw_desc<64>(sm.slot[s].kv[NP - 1]));
-    release(&sm.empty[s]);
-    ++i;
+
+    // O = O corr + P V over V's chunks c0 .. c0 + nz - 1
+    if constexpr (F32) {  // each chunk's P V from zero in sc (dead after
+                          // the softmax), added with an f32 FMA
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) {
+        if (h < nz) {
+          mbar_wait(&sm.full[s], ph);
+          add_pv<NP, 64>(o[h], sc, p, cr0, cr1,
+                         sw_desc<64>(sm.slot[s].kv[0]),
+                         sw_desc<64>(sm.slot[s].kv[1]));
+          release(&sm.empty[s]);
+          advance<STAGES>(s, ph);
+        }
+      }
+    } else {  // every chunk's wgmmas onto O in one group
+      int s1 = s;
+      uint32_t ph1 = ph;
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) {
+        if (h < nz) {
+          mbar_wait(&sm.full[s1], ph1);
+          advance<STAGES>(s1, ph1);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[h][4 * n] *= cr0;
+            o[h][4 * n + 1] *= cr0;
+            o[h][4 * n + 2] *= cr1;
+            o[h][4 * n + 3] *= cr1;
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) reg_fence(o[h]);
+      reg_fence_a(p);
+      wg_fence();
+      s1 = s;
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) {
+        if (h < nz) {
+          const uint64_t vd = sw_desc<64>(sm.slot[s1].kv[0]);
+          product_rs<1, 64>(o[h], p, vd, vd);
+          s1 = s1 + 1 == STAGES ? 0 : s1 + 1;
+        }
+      }
+      wg_commit();
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) reg_fence(o[h]);
+      wg_wait_all();
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) reg_fence(o[h]);
+#pragma unroll
+      for (int h = 0; h < W_SLICE; ++h) {
+        if (h < nz) {
+          release(&sm.empty[s]);
+          advance<STAGES>(s, ph);
+        }
+      }
+    }
   }
 
+  const int hdw = nc * WIDE_CHUNK;
   const int r0 = q0 + wg * BM + warp * 16 + lane / 4;
-  finish<F32, WIDE_CHUNK>(
-      o, m0, m1, l0, l1, out + (size_t)bh * T * hdw + z * WIDE_CHUNK, hdw,
-      lse == nullptr || z ? nullptr : lse + (size_t)bh * T, r0, T);
+  Out<F32>* base = out + (size_t)bh * T * hdw + c0 * WIDE_CHUNK;
+#pragma unroll
+  for (int h = 0; h < W_SLICE; ++h)
+    if (h < nz)
+      finish<F32, WIDE_CHUNK>(
+          o[h], m0, m1, l0, l1, base + h * WIDE_CHUNK, hdw,
+          lse == nullptr || c0 || h ? nullptr : lse + (size_t)bh * T, r0,
+          T);
 }
 
-template <bool F32>
-__global__ void __launch_bounds__(NTHREADS, 1)
+template <bool F32, bool QRES>
+__global__ void __launch_bounds__(W_THREADS, 1)
     flash_wide_kernel(const __grid_constant__ Maps maps,
                       Out<F32>* __restrict__ out, float* __restrict__ lse,
                       int T, int nc, float scale_log2) {
-  using S = WideSmem<F32>;
-  constexpr int STAGES = S::STAGES, NP = S::NP;
+  using S = WideSmem<F32, QRES>;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + SW_ATOM - 1) &
       ~uintptr_t(SW_ATOM - 1));
-  const int warp = threadIdx.x / 32;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, z = blockIdx.z;
+  const int bh = blockIdx.y, q0 = blockIdx.x * W_ROWS;
+  const int c0 = blockIdx.z * W_SLICE;
+  const int nz = min(W_SLICE, nc - c0);  // O's chunks in this slice
   const int nk = (T + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
+    mbar_init(&sm.qbar, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], NWG * 4);
+      mbar_init(&sm.empty[s], W_NWG * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == NWG * 4) {  // producer
-    if (threadIdx.x % 32 == 0) {
-      for (int i = 0; i < nk * (nc + 1); ++i) {
-        const int s = i % STAGES, j = i / (nc + 1), c = i % (nc + 1);
-        auto& sl = sm.slot[s];
-        mbar_wait(&sm.empty[s], ((i / STAGES) & 1) ^ 1);
-        if (c < nc) {  // Q's and K's chunk c
-          mbar_expect_tx(&sm.full[s], (NWG + 1) * NP * TILE_BYTES<64>);
-          for (int p = 0; p < NP; ++p) {
-            for (int w = 0; w < NWG; ++w)
-              tma_load(sl.q[w][p], &maps.q[p], &sm.full[s], q0 + w * BM, bh,
-                       c * WIDE_CHUNK);
-            tma_load(sl.kv[p], &maps.k[p], &sm.full[s], j * BK, bh,
-                     c * WIDE_CHUNK);
-          }
-        } else {  // V's chunk z
-          mbar_expect_tx(&sm.full[s], NP * TILE_BYTES<64>);
-          for (int p = 0; p < NP; ++p)
-            tma_load(sl.kv[p], &maps.v[p], &sm.full[s], j * BK, bh,
-                     z * WIDE_CHUNK);
-        }
-      }
-    }
-  } else {
-    consume_wide<F32>(sm, warp / 4, out, lse, T, nc, scale_log2, bh, q0, nk);
+  // one branch a role to the end, on a warp-uniform role, the consumers'
+  // first: with the producer's branch first, ptxas allocated the
+  // consumers' code within the launch's 168 registers, not setmaxnreg's
+  // 240 (~500 B spilled a thread; the mbarrier waits' trap, which both
+  // roles reach, was the other change that lifted it)
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role < W_NWG) {
+    if constexpr (W_NWG > 1) regs_inc<W_CREGS>();
+    consume_wide<F32, QRES>(sm, role, out, lse, T, nc, c0, nz, scale_log2,
+                            bh, q0, nk);
+  } else {  // the producer warpgroup
+    if constexpr (W_NWG > 1) regs_dec<W_PREGS>();
+    if (threadIdx.x == W_NWG * 128)
+      produce_wide<F32, QRES>(sm, maps, nc, c0, nz, bh, q0, nk);
   }
 }
 
-template <bool F32>
-int launch_wide(const Maps& maps, void* out, void* lse, int BH, int T,
-                int hdw, float scale_log2, cudaStream_t st) {
-  constexpr int SMEM_BYTES = (int)sizeof(WideSmem<F32>) + SW_ATOM;
+template <bool F32, bool QRES>
+int launch_wide_body(const Maps& maps, void* out, void* lse, int BH, int T,
+                     int nc, float scale_log2, cudaStream_t st) {
+  constexpr int SMEM_BYTES = (int)sizeof(WideSmem<F32, QRES>) + SW_ATOM;
+  static_assert(SMEM_BYTES <= 232448, "wide body: over 227 KB of shared "
+                                      "memory");
   static bool smem_set = false;  // the attribute is set once per process
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_wide_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+        flash_wide_kernel<F32, QRES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  const int nc = hdw / WIDE_CHUNK;
-  dim3 grid((T + BQ - 1) / BQ, BH, nc);
-  flash_wide_kernel<F32><<<grid, NTHREADS, SMEM_BYTES, st>>>(
+  dim3 grid((T + W_ROWS - 1) / W_ROWS, BH, (nc + W_SLICE - 1) / W_SLICE);
+  flash_wide_kernel<F32, QRES><<<grid, W_THREADS, SMEM_BYTES, st>>>(
       maps, static_cast<Out<F32>*>(out), static_cast<float*>(lse), T, nc,
       scale_log2);
   return (int)cudaGetLastError();
 }
 
-// a head dim the wide body runs: above the largest instance, whole chunks
-inline bool wide_hd(int hd) { return hd > 128 && hd % WIDE_CHUNK == 0; }
+template <bool F32>
+int launch_wide(const Maps& maps, void* out, void* lse, int BH, int T,
+                int hdw, float scale_log2, cudaStream_t st) {
+  const int nc = hdw / WIDE_CHUNK;
+  return nc <= WideSmem<F32, true>::QCH
+             ? launch_wide_body<F32, true>(maps, out, lse, BH, T, nc,
+                                           scale_log2, st)
+             : launch_wide_body<F32, false>(maps, out, lse, BH, T, nc,
+                                            scale_log2, st);
+}
+
+// a head dim the wide body runs: from IPDM_FLASH_FWD_WIDE_FROM_<dtype>
+// up, whole chunks
+inline bool wide_hd(int hd, bool f32) {
+  return hd >= (f32 ? IPDM_FLASH_FWD_WIDE_FROM_F32
+                    : IPDM_FLASH_FWD_WIDE_FROM_BF16) &&
+         hd % WIDE_CHUNK == 0;
+}
 
 int forward_wide_bf16(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int T, int hdw, float scale_log2,
@@ -771,16 +946,22 @@ bool split_maps(Maps* maps, const void* split, int BH, int T) {
          make_map<HD>(&maps->v[1], s + 5 * n, BH, T);
 }
 
+// the template instances stop below IPDM_FLASH_FWD_WIDE_FROM_<dtype> (the
+// entry points send those head dims to the wide body first)
 template <int HD>
 int forward_bf16(const void* q, const void* k, const void* v, void* out,
                  void* lse, int BH, int T, float scale_log2,
                  cudaStream_t st) {
-  Maps maps;
-  if (!make_map<HD>(&maps.q[0], q, BH, T) ||
-      !make_map<HD>(&maps.k[0], k, BH, T) ||
-      !make_map<HD>(&maps.v[0], v, BH, T))
+  if constexpr (HD >= IPDM_FLASH_FWD_WIDE_FROM_BF16) {
     return (int)cudaErrorInvalidValue;
-  return launch<false, HD>(maps, out, lse, BH, T, scale_log2, st);
+  } else {
+    Maps maps;
+    if (!make_map<HD>(&maps.q[0], q, BH, T) ||
+        !make_map<HD>(&maps.k[0], k, BH, T) ||
+        !make_map<HD>(&maps.v[0], v, BH, T))
+      return (int)cudaErrorInvalidValue;
+    return launch<false, HD>(maps, out, lse, BH, T, scale_log2, st);
+  }
 }
 
 template <int HD>
@@ -789,6 +970,8 @@ int forward_f32(const void* q, const void* k, const void* v, void* split,
                 cudaStream_t st) {
   if constexpr (HD == 8) {  // the narrow body (flash_narrow.cu)
     return flash_narrow_f32(q, k, v, split, out, lse, BH, T, scale_log2, st);
+  } else if constexpr (HD >= IPDM_FLASH_FWD_WIDE_FROM_F32) {
+    return (int)cudaErrorInvalidValue;
   } else {
     Maps maps;
     if (!split_maps<HD>(&maps, split, BH, T))
@@ -803,7 +986,7 @@ int forward_f32(const void* q, const void* k, const void* v, void* split,
 }  // namespace
 
 // q, k, v, out: [BH, T, hd] bf16, contiguous, 16-byte aligned, hd in
-// {8, 16, 32, 64, 128} or a multiple of 64 above 128 (the wide body); lse:
+// {8, 16, 32, 64} or a multiple of 64 from 128 up (the wide body); lse:
 // [BH, T] f32 or null. scale_log2 = (scale applied to q.k) * log2(e).
 // Returns cudaGetLastError() (cudaErrorInvalidValue for bad sizes, another
 // hd, or a tensor map that cuTensorMapEncodeTiled refuses).
@@ -812,6 +995,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  float scale_log2, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide_hd(hd, false))
+    return forward_wide_bf16(q, k, v, out, lse, BH, T, hd, scale_log2, st);
   switch (hd) {
 #define IPDM_BF16(H) \
   case H:            \
@@ -819,9 +1004,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     IPDM_FLASH_HEAD_DIMS(IPDM_BF16)
 #undef IPDM_BF16
     default:
-      return wide_hd(hd) ? forward_wide_bf16(q, k, v, out, lse, BH, T, hd,
-                                             scale_log2, st)
-                         : (int)cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -836,6 +1019,9 @@ extern "C" int flash_attn_f32_launch(const void* q, const void* k,
                                      float scale_log2, void* stream) {
   if (BH < 1 || BH > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide_hd(hd, true))
+    return forward_wide_f32(q, k, v, split, out, lse, BH, T, hd, scale_log2,
+                            st);
   switch (hd) {
 #define IPDM_F32(H)                                                       \
   case H:                                                                 \
@@ -843,8 +1029,6 @@ extern "C" int flash_attn_f32_launch(const void* q, const void* k,
     IPDM_FLASH_HEAD_DIMS(IPDM_F32)
 #undef IPDM_F32
     default:
-      return wide_hd(hd) ? forward_wide_f32(q, k, v, split, out, lse, BH, T,
-                                            hd, scale_log2, st)
-                         : (int)cudaErrorInvalidValue;
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,8 @@
 // run on the next instance up, zero-padded by the wrapper); above 128 one
 // wide body per kernel takes the head dim as a runtime count of
 // WIDE_CHUNK-column chunks (the wrapper zero-pads it to a multiple of 64),
-// each chunk a Head<64> tile of its own. A tile of 64
+// each chunk a Head<64> tile of its own; the f32 forward's wide body
+// takes 128 too (IPDM_FLASH_FWD_WIDE_FROM_F32). A tile of 64
 // rows lies in shared memory HDP = max(HD, 16) columns wide: bf16 wgmma
 // takes K in steps of 16, so at HD = 8 the contraction over the head
 // dimension runs on operands zero-padded to 16 (the TMA box is 16 columns
@@ -54,6 +55,12 @@ namespace hopper {
 // count of chunks this wide; _build.py FLASH_WIDE_CHUNK names it too
 #define IPDM_FLASH_WIDE_CHUNK 64
 constexpr int WIDE_CHUNK = IPDM_FLASH_WIDE_CHUNK;
+// the first head dim whose forward runs on the wide body (flash_attn.cu),
+// by dtype: the forward's template instances stop below it (bf16 keeps
+// its hd-128 instance, faster there than the wide body; f32's spilled),
+// the backward's do not; _build.py FLASH_FWD_WIDE_FROM names them too
+#define IPDM_FLASH_FWD_WIDE_FROM_BF16 192
+#define IPDM_FLASH_FWD_WIDE_FROM_F32 128
 
 constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
                               // largest swizzle atom
@@ -427,6 +434,20 @@ __device__ __forceinline__ int count_release(int* c) {
                : "r"(smem_u32(c))
                : "memory");
   return old;
+}
+
+// the calling warpgroup's registers a thread lowered (dec) or raised (inc)
+// to N, a multiple of 8 in [24, 256]: all four warps of the warpgroup
+// execute it; an increase waits until other warpgroups of the CTA have
+// given back enough (ptxas takes the kernel's launch bound as the count
+// at entry)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // a named barrier over ``n`` threads (a multiple of 32)

@@ -85,22 +85,33 @@ FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
 # dim zero-padded to a multiple of this many columns, as a runtime count of
 # chunks (csrc/hopper.cuh IPDM_FLASH_WIDE_CHUNK)
 FLASH_WIDE_CHUNK = 64
+# each forward kernel (``flash_attn`` bf16, ``flash_attn_f32``) runs every
+# width from this one up on its wide body, not on an instance
+# (csrc/hopper.cuh IPDM_FLASH_FWD_WIDE_FROM_BF16 / _F32: bf16 keeps its
+# hd-128 instance, faster there); the backward's instances reach 128
+FLASH_FWD_WIDE_FROM = {"flash_attn": 192, "flash_attn_f32": 128}
+# the columns of O a CTA of the forward's wide body holds, S built once
+# for them (csrc/flash_attn.cu IPDM_WIDE_SLICE chunks)
+FLASH_FWD_WIDE_SLICE = 256
 
 
 def flash_counter(name: str, hd: int) -> str:
     """The :data:`LAUNCHES` key of flash kernel ``name`` at head dimension
-    ``hd`` (an instance's, or above them a padded width of the wide
-    body)."""
+    ``hd``: the body that runs it, an instance's or the wide body's (a
+    forward from :data:`FLASH_FWD_WIDE_FROM` up, every kernel above the
+    largest instance)."""
     if hd == 64:
         return name
-    return f"{name}_hd{hd}" if hd in FLASH_HEAD_DIMS else f"{name}_wide"
+    if hd in FLASH_HEAD_DIMS and hd < FLASH_FWD_WIDE_FROM.get(name, hd + 1):
+        return f"{name}_hd{hd}"
+    return f"{name}_wide"
 
 
 # launches per kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else. The flash kernels
 # count head dimension 64 under their own name, each other head
 # dimension's instance under "<name>_hd<hd>" and the wide body at every
-# width under "<name>_wide" (flash_counter)
+# width it runs under "<name>_wide" (flash_counter)
 FLASH_KERNELS = ("flash_attn", "flash_attn_f32", "flash_bwd_dq",
                  "flash_bwd_dkv")
 LAUNCHES = {"planar_unit": 0, "bp_shift": 0, "flash_attn": 0,

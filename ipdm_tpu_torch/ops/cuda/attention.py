@@ -17,6 +17,9 @@ other head dim up to 128 runs on the next instance up, and every head dim
 above 128 on each kernel's wide body at the next multiple of
 :data:`FLASH_WIDE_CHUNK` columns (:func:`flash_instance`): the wrappers
 zero-pad q, k, v (and out, do) to that width and cut the outputs back.
+The f32 forward runs its wide body from width 128 on, the bf16 forward
+above its hd-128 instance (``_build.FLASH_FWD_WIDE_FROM``): one CTA holds
+up to 256 columns of the output and builds the scores once for them.
 Zero columns add nothing to q·kᵀ, to rowsum(do ∘ out) or to do·vᵀ, and
 the caller's scale is that of the real head dim, so the result is the
 function at the real head dim. The f32 forward and backward at head dim 8

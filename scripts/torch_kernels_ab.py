@@ -6,6 +6,8 @@ against a parent commit's, on one NVIDIA GPU, in one process.
         [--kernels deposit anterp flash_fwd flash_bwd] [--same-bits]
     python3 scripts/torch_kernels_ab.py --narrow-variants NWG,KT [...]
     python3 scripts/torch_kernels_ab.py --narrow-bwd-variants NWG,KT [...]
+    python3 scripts/torch_kernels_ab.py --wide-variants \
+        SLICE,NWG,STAGES_F32,STAGES_BF16,CREGS [...]
 
 DIR is a checkout of the parent commit (``git archive <commit> | tar -x
 -C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
@@ -46,6 +48,18 @@ and on each input:
   are held, the parent's beside them, to the f64 plain backward at
   flash_long's rule instead of to the parent's bits (D still must be
   bit-equal);
+* the forward at head dims 128-512 (:data:`WIDE_FWD_SHAPES`: 128, 192,
+  256, 320 and 512 at T = 4097 and 7125, 256 at 16 384), both dtypes,
+  on seeded N(0, 1) inputs: the parent's and this tree's, each held to
+  the plain forward (out at chip_smoke.py's rule, the lse by lse_check),
+  their distance (not required to be 0 where this tree's forward runs
+  the wide body of _build.FLASH_FWD_WIDE_FROM and the parent's does
+  not), each timed A B B A beside SDPA and the bound;
+* ``wide_slice``: chip_smoke.py's wide-phase slice at mc 256 (the f32 ART
+  slice) with the parent's forward and this tree's, parent, new, new,
+  parent: s/slice and the forward's device ms in a profiled slice; and on
+  the wide phase's recorded forward inputs at each width, the parent's
+  forward and this tree's held to the plain forward;
 * the f32 forward and backward at head dim 8 (4 heads) at T = 16 384 and
   114 000 on chip_smoke.py flash_long's seeded inputs: the parent's and
   this tree's, each held to the f64 plain version over query blocks (out
@@ -68,6 +82,12 @@ at each (warpgroups a CTA, 64-row sub-tiles a ring tile) pair
 (IPDM_NARROW_BWD_NWG / _KT): its dq and its dkv
 each held to the f64 plain backward and timed against this tree's build
 of the same entry (``flash_narrow_bwd_launch``), A B B A.
+
+With ``--wide-variants`` the script builds ``csrc/flash_attn.cu`` at each
+given set of the wide forward's build constants (IPDM_WIDE_SLICE, _NWG,
+_STAGES_F32, _STAGES_BF16, _CREGS; registers and spills logged) and holds
+each to the plain forward and times it against this tree's build, A B B
+A, at :data:`WIDE_VARIANT_SHAPES` in both dtypes.
 
 The last line is a JSON object with the times; with ``--out`` it is also
 written to that file. With ``--same-bits`` the script exits 1 unless
@@ -158,6 +178,14 @@ def parent_narrow_bwd(parent: Path) -> bool:
             / "flash_narrow_bwd.cu").exists()
 
 
+def parent_fwd_wide_from(parent: Path) -> bool:
+    """Whether the parent's forward runs the wide body of this design
+    from a head dim on (``_build.FLASH_FWD_WIDE_FROM``): one CTA holding
+    up to 256 columns of O, S built once per key tile."""
+    return "FLASH_FWD_WIDE_FROM" in (parent / "ipdm_tpu_torch" / "ops"
+                                     / "cuda" / "_build.py").read_text()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -207,6 +235,7 @@ def build_parent(parent: Path) -> ctypes.CDLL:
     lib.wide = parent_takes_wide(parent)
     lib.narrow = parent_narrow(parent)
     lib.narrow_bwd = parent_narrow_bwd(parent)
+    lib.fwd_wide_from = parent_fwd_wide_from(parent)
     return lib
 
 
@@ -626,12 +655,13 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
     res = dict(kernel="flash_hd", dtype=dtype_name, hd=hd, T=4097,
                out_gap=float((out - out_p).abs().max()),
                lse_gap=float((lse - lse_p).abs().max()), parent_gaps=gaps,
-               fwd_body_changed=narrow_is_new(lib, hd, dtype_name),
+               fwd_body_changed=(narrow_is_new(lib, hd, dtype_name)
+                                 or wide_fwd_is_new(lib, hd, dtype_name)),
                bwd_body_changed=bwd_new, **over,
                fwd_parent_ms=t["parent"], fwd_new_ms=t["new"])
     cs.log(f"ab: flash [4,4097,{hd}] {dtype_name}: parent − new max |diff| "
            f"out {res['out_gap']:.3e}, lse {res['lse_gap']:.3e}"
-           + (" (the narrow body against the parent's)"
+           + (" (the narrow or wide body against the parent's)"
               if res["fwd_body_changed"] else "")
            + ", dq/dk/dv/D " + " / ".join(f"{g:.3e}" for g in gaps)
            + (" (dq/dk/dv: the narrow backward against the parent's; "
@@ -959,6 +989,342 @@ def narrow_variant_case(libs, T, seed, reps):
     return res
 
 
+# the wide forward's shapes against the parent's forward: head dims 128
+# (f32 on the wide body, bf16 on its instance: _build.FLASH_FWD_WIDE_FROM)
+# to 512 in both dtypes at
+# T = 4097 (one live key and query in the last tiles) and 7125 (the proj
+# UNet's), and head dim 256 at the ablation UNets' 16 384
+WIDE_FWD_SHAPES = tuple((hd, T) for hd in (128, 192, 256, 320, 512)
+                        for T in (4097, 7125)) + ((256, 16384),)
+
+
+def wide_fwd_is_new(lib, hd, dtype_name) -> bool:
+    """Whether this tree's forward at (``hd``, dtype) runs the wide body
+    of csrc/flash_attn.cu (_build.FLASH_FWD_WIDE_FROM) and the parent's
+    does not run that body (its out and lse then differ by design)."""
+    from ipdm_tpu_torch.ops.cuda import _build
+    name = "flash_attn_f32" if dtype_name == "float32" else "flash_attn"
+    return (_build.flash_counter(name, hd) == f"{name}_wide"
+            and not lib.fwd_wide_from)
+
+
+def wide_fwd_case(lib, hd, T, dtype_name, seed, reps):
+    """The parent's forward and this tree's at head dim ``hd`` on seeded
+    N(0, 1) q, k, v [4, T, hd]: each held to the plain forward (out at
+    chip_smoke.py's rule of the dtype, the lse by lse_check), their
+    distance, each timed A B B A (device ms, the f32 split pre-pass
+    included), SDPA's time and the bound beside them."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed + hd + T)
+    q, k, v = (torch.randn((4, T, hd), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    c2l = scale * scale * math.log2(math.e)
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    out_p, lse_p = parent_forward(lib, q, k, v, c2l)
+    want = attention.attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    rtol, atol = cs.flash_tol(want, dtype_name)
+
+    def over(o):
+        return float(((o.float() - want.float()).abs()
+                      / (atol + rtol * want.float().abs())).max())
+
+    new_over, parent_over = over(out), over(out_p)
+    del want
+    lse_over = cs.lse_check(lse, q, k, scale, dtype_name)[0]
+    parent_lse_over = cs.lse_check(lse_p, q, k, scale, dtype_name)[0]
+    t = abba(lambda: parent_forward(lib, q, k, v, c2l),
+             lambda: attention._forward(q, k, v, scale, with_lse=True), reps)
+    sdpa = cs.sdpa_ms(q, k, v, scale, reps)
+    bound = cs.flash_bound(4, T, hd, dtype_name, "fwd")
+    res = dict(kernel="flash_wide_fwd", dtype=dtype_name, hd=hd, T=T,
+               over=new_over, parent_over=parent_over, lse_over=lse_over,
+               parent_lse_over=parent_lse_over,
+               fwd_body_changed=wide_fwd_is_new(lib, hd, dtype_name),
+               out_gap=float((out.float() - out_p.float()).abs().max()),
+               lse_gap=float((lse - lse_p).abs().max()),
+               parent_ms=t["parent"], new_ms=t["new"], sdpa_ms=sdpa,
+               bound_ms=bound)
+    cs.log(f"ab: flash_fwd {cs.SHORT[dtype_name]} [4,{T},{hd}] N(0, 1): out "
+           f"at {new_over:.4f} of chip_smoke's rule (parent "
+           f"{parent_over:.4f}), lse at {lse_over:.4f} of lse_check's bound "
+           f"(parent {parent_lse_over:.4f}); parent − new max |diff| out "
+           f"{res['out_gap']:.3e}, lse {res['lse_gap']:.3e}"
+           + (" (the new wide body against the parent's)"
+              if res["fwd_body_changed"] else "")
+           + f"; device ms parent {t['parent'][0]:.4f}, new "
+           f"{t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
+           f"{t['parent'][1]:.4f}; SDPA "
+           + ("not run" if sdpa is None else f"{sdpa:.4f}")
+           + f"; bound {bound:.4f}")
+    if new_over > 1.0 or lse_over > 1.0:
+        raise AssertionError(f"flash fwd hd {hd} T={T} {dtype_name}: over "
+                             f"{new_over}, lse {lse_over}")
+    return res
+
+
+# the wide phase's slice: chip_smoke.py's shipped test preset (f32) with
+# both UNets at this model_channels (head dim 256)
+WIDE_SLICE_MC = 256
+
+
+def _fwd_device_ms(prof) -> tuple:
+    """(launches, device ms) of the flash forward's kernels (the wide
+    body and its split pre-pass) in a finished torch.profiler run."""
+    n, ms = 0, 0.0
+    for name, (c, t) in cs.device_kernels(prof).items():
+        if "flash_wide_kernel" in name or "split_kernel" in name:
+            n, ms = n + c, ms + t
+    return n, ms
+
+
+def wide_slice_case(lib, seed):
+    """chip_smoke.py's wide phase slice at mc :data:`WIDE_SLICE_MC` (f32,
+    cuDNN in TF32 as main_torch.py runs it, seeded random weights and
+    sinogram) with the f32 forward launched from the parent's library
+    (attention._forward swapped for the parent's kernel) or this tree's,
+    in the order parent, new, new, parent after a first slice of each:
+    per turn a timed slice (s/slice, host clock to a synchronize) and a
+    profiled one (the forward's launches and device ms: its kernels'
+    durations summed)."""
+    import math
+    import time
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+    from ipdm_tpu_torch.engine.denoiser import progressive_denoiser
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    mc = WIDE_SLICE_MC
+    opt = dict(cs.shipped_preset(), compute_dtype="float32",
+               model_channels_img=mc, model_channels_proj=mc)
+    torch.manual_seed(seed)
+    models = [build_unet(opt, d, device="cuda").eval()
+              for d in ("proj", "img")]
+    host = np.random.default_rng(seed)
+    ld_proj = torch.as_tensor(host.random((1, 2000, 912, 1), np.float32)
+                              * 4.0, device="cuda")
+    new_forward = attention._forward
+
+    def parent_forward_wrapped(q, k, v, scale, with_lse=False):
+        if q.device.type == "cpu":
+            return new_forward(q, k, v, scale, with_lse)
+        hd = q.shape[2]
+        inst = attention.flash_instance(hd)
+        qp, kp, vp = attention._pad(inst, q, k, v)
+        out, lse = parent_forward(lib, qp, kp, vp,
+                                  scale * scale * math.log2(math.e))
+        out, = attention._cut(hd, out)
+        return (out, lse) if with_lse else out
+
+    def run(side, s):
+        attention._forward = (parent_forward_wrapped if side == "parent"
+                              else new_forward)
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(s)
+            out = progressive_denoiser(opt, *models, ld_proj, gen)
+            torch.cuda.synchronize()
+            return out
+        finally:
+            attention._forward = new_forward
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {"parent": [], "new": []}
+    try:
+        with torch.no_grad():
+            outs = {side: run(side, seed + 1) for side in ("parent", "new")}
+            gap = float((outs["parent"] - outs["new"]).abs().max())
+            size = float(outs["new"].abs().max())
+            del outs
+            for side in ("parent", "new", "new", "parent"):
+                t0 = time.perf_counter()
+                run(side, seed + 2)
+                s_slice = time.perf_counter() - t0
+                with torch.profiler.profile(
+                        activities=[ProfilerActivity.CUDA]) as prof:
+                    run(side, seed + 2)
+                n, ms = _fwd_device_ms(prof)
+                got[side].append(dict(s=s_slice, fwd_launches=n,
+                                      fwd_device_ms=ms))
+                cs.log(f"ab: wide slice mc {mc} f32 ({side}'s forward): "
+                       f"{s_slice:.4f} s/slice; profiled slice: the "
+                       f"forward's {n} launches (wide body and split "
+                       f"pre-pass) {ms:.3f} device ms")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    cs.log(f"ab: wide slice mc {mc}: the parent's and the new forward's "
+           f"first slices differ by max |diff| {gap:.3e} (max |out| "
+           f"{size:.3e})")
+    return dict(kernel="wide_slice", mc=mc, slice_gap=gap, slice_size=size,
+                parent=got["parent"], new=got["new"])
+
+
+def wide_inputs_case(lib, seed, mc):
+    """The forward's inputs of chip_smoke.py's wide phase at ``mc`` (the
+    first call of each shape in the f32 ART slice, as its Recorder takes
+    them): the parent's forward and this tree's, each held to the plain
+    forward at chip_smoke.py's f32 rule (the share of it each reads)."""
+    import math
+
+    import numpy as np
+    import torch
+    from ipdm_tpu_torch.engine.denoiser import progressive_denoiser
+    from ipdm_tpu_torch.models import unet
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    opt = dict(cs.shipped_preset(), compute_dtype="float32",
+               model_channels_img=mc, model_channels_proj=mc)
+    torch.manual_seed(seed)
+    models = [build_unet(opt, d, device="cuda").eval()
+              for d in ("proj", "img")]
+    host = np.random.default_rng(seed)
+    ld_proj = torch.as_tensor(host.random((1, 2000, 912, 1), np.float32)
+                              * 4.0, device="cuda")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = []
+    try:
+        with torch.no_grad():
+            with cs.Recorder(unet, "flash_attention",
+                             key=lambda a: tuple(a[0].shape)) as fa:
+                progressive_denoiser(opt, *models, ld_proj, torch.Generator(
+                    device="cuda").manual_seed(seed + 2))
+            for args, _ in fa.calls:
+                q, k, v, scale = args
+                hd = q.shape[2]
+                inst = attention.flash_instance(hd)
+                out = attention.flash_attention(q, k, v, scale)
+                out_p, _ = parent_forward(
+                    lib, *attention._pad(inst, q, k, v),
+                    scale * scale * math.log2(math.e))
+                want = attention.attention_plain(q, k, v, scale)
+                rtol, atol = cs.flash_tol(want, "float32")
+
+                def over(o):
+                    return float(((o[..., :hd] - want).abs()
+                                  / (atol + rtol * want.abs())).max())
+                r = dict(kernel="wide_inputs", mc=mc, T=q.shape[1], hd=hd,
+                         over=over(out), parent_over=over(out_p))
+                cs.log(f"ab: wide phase mc {mc}, its forward's first call "
+                       f"at T = {r['T']}: out at {r['over']:.4f} of the f32 "
+                       f"rule (parent {r['parent_over']:.4f})")
+                res.append(r)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return res
+
+
+# a stand-in for flash_narrow.cu's entry beside a variant build of
+# flash_attn.cu (whose head-dim-8 f32 forward calls it; no variant case
+# runs that head dim)
+NARROW_STUB = """#include <cuda_runtime.h>
+int flash_narrow_f32(const void*, const void*, const void*, void*, void*,
+                     void*, int, int, float, cudaStream_t) {
+  return (int)cudaErrorInvalidValue;
+}
+"""
+# the wide forward's build constants, in --wide-variants' order
+WIDE_CONSTANTS = cs.WIDE_CONSTANTS
+# the variants' cases: (head dim, T), each in bf16 and f32
+WIDE_VARIANT_SHAPES = ((128, 7125), (256, 4096), (256, 7125), (512, 7125))
+
+
+def build_wide_variants(keys) -> dict:
+    """csrc/flash_attn.cu built at each key (:data:`WIDE_CONSTANTS`) with
+    a stand-in for the narrow entry (:func:`build_variants`, which logs
+    each build's registers and spills), the two forward entries typed:
+    {key: CDLL}."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    libs = build_variants("flash_attn.cu", "flash_wide_kernel", {
+        key: {f"IPDM_WIDE_{n}": x for n, x in zip(WIDE_CONSTANTS, key)}
+        for key in keys}, NARROW_STUB)
+    for lib in libs.values():
+        for entry in ("flash_attn_launch", "flash_attn_f32_launch"):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
+    return libs
+
+
+def wide_variant_case(libs, hd, T, dtype_name, seed, reps):
+    """Each variant build of the wide forward on seeded N(0, 1) q, k, v
+    [4, T, hd]: held to the plain forward (out at chip_smoke.py's rule,
+    the lse by its lse_check) and timed against this tree's build (the
+    wrapper) A B B A."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed + hd + T)
+    q, k, v = (torch.randn((4, T, hd), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    c2l = scale * scale * math.log2(math.e)
+    want = attention.attention_plain(q, k, v, scale)
+    rtol, atol = cs.flash_tol(want, dtype_name)
+    f32 = dtype_name == "float32"
+    split = (torch.empty(attention._fwd_split(4, T, hd), dtype=torch.bfloat16,
+                         device="cuda") if f32 else None)
+
+    def shipped():
+        return attention._forward(q, k, v, scale, with_lse=True)
+
+    res = []
+    for key, lib in libs.items():
+        out = torch.empty_like(q)
+        lse = torch.empty((4, T), dtype=torch.float32, device="cuda")
+
+        def variant(lib=lib, out=out, lse=lse):
+            ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+            if f32:
+                ptrs.append(split.data_ptr())
+            entry = "flash_attn_f32_launch" if f32 else "flash_attn_launch"
+            _build.check(getattr(lib, entry)(
+                *ptrs, out.data_ptr(), lse.data_ptr(), 4, T, hd, c2l,
+                _build.stream_ptr(q)), f"flash_wide {key}")
+
+        variant()
+        torch.cuda.synchronize()
+        over = float(((out.float() - want.float()).abs()
+                      / (atol + rtol * want.float().abs())).max())
+        lse_over = cs.lse_check(lse, q, k, scale, dtype_name)[0]
+        t = abba(shipped, variant, reps)
+        r = dict(kernel="flash_wide_variant", dtype=dtype_name, hd=hd, T=T,
+                 variant=dict(zip(WIDE_CONSTANTS, key)), over=over,
+                 lse_over=lse_over, shipped_ms=t["parent"],
+                 variant_ms=t["new"])
+        cs.log(f"ab: flash_wide {cs.SHORT[dtype_name]} [4,{T},{hd}] build "
+               + ", ".join(f"{n} {x}" for n, x in zip(WIDE_CONSTANTS, key))
+               + f": out at {over:.4f} of the rule, lse at {lse_over:.4f}; "
+               f"device ms shipped {t['parent'][0]:.4f}, variant "
+               f"{t['new'][0]:.4f}, variant {t['new'][1]:.4f}, shipped "
+               f"{t['parent'][1]:.4f}")
+        if over > 1.0 or lse_over > 1.0:
+            raise AssertionError(f"wide variant {key} hd {hd} T={T} "
+                                 f"{dtype_name}: {over}, lse {lse_over}")
+        res.append(r)
+    return res
+
+
+
 def flash_fwd_case(lib, dtype_name, args, reps):
     """The parent's forward against this tree's on one recorded q, k, v:
     both held to the plain forward (out at chip_smoke.py's rule, the lse
@@ -1020,7 +1386,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path)
-    groups = ("deposit", "anterp", "flash_fwd", "flash_bwd")
+    groups = ("deposit", "anterp", "flash_fwd", "flash_bwd", "wide_slice")
     ap.add_argument("--kernels", nargs="+", choices=groups, default=groups)
     ap.add_argument("--same-bits", action="store_true",
                     help="exit 1 unless every output of every kernel is "
@@ -1034,11 +1400,17 @@ def main() -> int:
                     help="time csrc/flash_narrow_bwd.cu built at these "
                          "build constants against this tree's build "
                          "instead of a parent")
+    ap.add_argument("--wide-variants", nargs="+",
+                    metavar=",".join(WIDE_CONSTANTS),
+                    help="time csrc/flash_attn.cu's wide forward built at "
+                         "these build constants against this tree's build "
+                         "instead of a parent")
     a = ap.parse_args()
     if sum(x is not None for x in (a.parent, a.narrow_variants,
-                                   a.narrow_bwd_variants)) != 1:
+                                   a.narrow_bwd_variants,
+                                   a.wide_variants)) != 1:
         ap.error("give one of --parent DIR, --narrow-variants, "
-                 "--narrow-bwd-variants")
+                 "--narrow-bwd-variants, --wide-variants")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
@@ -1048,6 +1420,23 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     cs.log(f"ab: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.library()
+    if a.wide_variants:
+        cs.log("ab: the shipped wide forward's build: " + ", ".join(
+            f"{n} {x}" for n, x in cs.wide_build().items()))
+        libs = build_wide_variants([tuple(int(x) for x in pv.split(","))
+                                    for pv in a.wide_variants])
+        res = []
+        with torch.no_grad():
+            for hd, T in WIDE_VARIANT_SHAPES:
+                for dtype_name in ("bfloat16", "float32"):
+                    res += wide_variant_case(libs, hd, T, dtype_name, a.seed,
+                                             max(2, a.reps // 4))
+        line = json.dumps({"device": smi, "ab": res})
+        if a.out:
+            os.makedirs(a.out.parent, exist_ok=True)
+            a.out.write_text(line + "\n")
+        print(line)
+        return 0
     if a.narrow_variants or a.narrow_bwd_variants:
         if a.narrow_variants:
             libs = build_narrow_variants([tuple(int(x) for x in pv.split(
@@ -1108,6 +1497,13 @@ def main() -> int:
                     for dtype_name in ("bfloat16", "float32"):
                         res.append(flash_head_dim_case(
                             lib, hd, dtype_name, a.seed, max(2, a.reps // 4)))
+                if "flash_fwd" in a.kernels and lib.wide:
+                    for hd, T in WIDE_FWD_SHAPES:
+                        for dtype_name in ("bfloat16", "float32"):
+                            res.append(wide_fwd_case(
+                                lib, hd, T, dtype_name, a.seed,
+                                max(2, a.reps // 4)))
+                            torch.cuda.empty_cache()
                 for T in NARROW_T:
                     if "flash_fwd" in a.kernels:
                         res.append(narrow_case(lib, T, a.seed,
@@ -1115,6 +1511,11 @@ def main() -> int:
                     if "flash_bwd" in a.kernels:
                         res.append(narrow_bwd_case(lib, T, a.seed,
                                                    max(2, a.reps // 4)))
+    if "wide_slice" in a.kernels and lib.takes_hd and lib.wide:
+        res.append(wide_slice_case(lib, a.seed))
+        with torch.no_grad():
+            for mc in cs.WIDE_WIDTHS:
+                res += wide_inputs_case(lib, a.seed, mc)
     line = json.dumps({"device": smi, "ab": res})
     if a.out:
         os.makedirs(a.out.parent, exist_ok=True)

@@ -30,7 +30,15 @@ the same three passes over key tiles of 128, with P split by truncation
 (hi = the top 16 bits of p, lo = bf16(p − hi)) and the row sum l taken
 from P·V's column of ones, Σ (P_hi + P_lo); ``fwd_body(..., "narrow")``
 writes it out and
-:func:`test_f32_narrow_body_gate` holds it to the same rules."""
+:func:`test_f32_narrow_body_gate` holds it to the same rules.
+
+From head dim 128 up the f32 forward runs the wide body
+(csrc/flash_attn.cu flash_wide_kernel): S summed over 64-column chunks of
+the head dim, O held in slices of 256 columns (one CTA each; S built
+once a slice), each chunk's P·V summed from zero; :func:`wide_body`
+writes it out and :func:`test_f32_wide_body_gate` holds it to the same
+rules beside two planted faults (the lo dropped; a slice whose S sums its
+own chunks alone)."""
 
 import math
 
@@ -47,6 +55,8 @@ SCALE = 1.0 / math.sqrt(math.sqrt(HD))
 TILE = 64          # keys per tile (flash_attn.cu BK)
 NARROW_TILE = 128  # keys per tile of the narrow body (flash_narrow.cu BK)
 KSTEP = 16         # bf16 wgmma's K step: head dims below it are padded
+CHUNK = 64         # the wide body's column chunk (hopper.cuh WIDE_CHUNK)
+WIDE_SLICE = 4     # chunks of O a wide-body CTA holds (IPDM_WIDE_SLICE)
 RTOL, ATOL_SHARE = 1e-3, 1e-4   # the f32 rule (chip_smoke.py FLASH_TOL)
 LSE_EPS = 2.0 ** -16            # chip_smoke.py LSE_EPS["float32"]
 
@@ -114,6 +124,58 @@ def _mm(a, b, body):
     if body == "one_pass":
         return ah @ bh
     return ah @ bh + ah @ bl + al @ bh
+
+
+def wide_body(q, k, v, scale, body="wide"):
+    """flash_attn.cu's wide body (every head dim from 128 up, f32) on f32
+    [BH, T, hd] tensors: hd zero-padded to a multiple of :data:`CHUNK`;
+    O's columns in slices of :data:`WIDE_SLICE` chunks (one CTA each, the
+    last one partial where the chunks do not divide), each slice running
+    the key tiles of 64 in order on its own: S summed chunk by chunk over
+    the head dim, S += Q_c·K_cᵀ by :func:`_mm` (split), the online softmax
+    as :func:`fwd_body`'s, and for each of the slice's chunks the tile's
+    P·V_c summed from zero (P split) and added to the rescaled O_c; the
+    lse from the first slice. Planted faults: ``wide_one_pass``, every
+    product hi·hi alone (the lo dropped); ``wide_own``, each slice's S
+    summed over its own chunks alone. ``wide_exact``: exact f32 products
+    (the slicing and chunking alone). Returns out and lse."""
+    BH, T, hd = q.shape
+    wide = -(-hd // CHUNK) * CHUNK
+    q, k, v = (torch.cat([x, x.new_zeros(BH, T, wide - hd)], -1)
+               for x in (q, k, v))
+    nc = wide // CHUNK
+    mm = {"wide_one_pass": "one_pass", "wide_exact": "exact"}.get(body,
+                                                                  "split")
+    c = scale * scale * math.log2(math.e)
+    n = -(-T // TILE)
+    pad = torch.zeros(BH, n * TILE - T, wide)
+    K, V = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
+    outs, lse = [], None
+    for c0 in range(0, nc, WIDE_SLICE):
+        own = range(c0, min(nc, c0 + WIDE_SLICE))
+        s_chunks = own if body == "wide_own" else range(nc)
+        m = torch.full((BH, T), -math.inf)
+        l = torch.zeros(BH, T)
+        o = [torch.zeros(BH, T, CHUNK) for _ in own]
+        for j in range(n):
+            kt, vt = (x[:, j * TILE:(j + 1) * TILE] for x in (K, V))
+            s = torch.zeros(BH, T, TILE)
+            for ch in s_chunks:
+                cols = slice(ch * CHUNK, (ch + 1) * CHUNK)
+                s = s + _mm(q[..., cols], kt[..., cols].transpose(1, 2), mm)
+            s = s.masked_fill(j * TILE + torch.arange(TILE) >= T, -math.inf)
+            mn = torch.maximum(m, s.max(-1).values * c)
+            corr = torch.exp2(m - mn)
+            p = torch.exp2(s * c - mn[..., None])
+            l = l * corr + p.sum(-1)
+            for i, ch in enumerate(own):
+                pv = _mm(p, vt[..., ch * CHUNK:(ch + 1) * CHUNK], mm)
+                o[i] = o[i] * corr[..., None] + pv
+            m = mn
+        outs += [x / l[..., None] for x in o]
+        if lse is None:
+            lse = (m + torch.log2(l)) * math.log(2)
+    return torch.cat(outs, -1)[..., :hd], lse
 
 
 def fwd_body(q, k, v, scale, body="split", rows=None):
@@ -304,3 +366,53 @@ def test_f32_narrow_body_gate(T, kind, BH, control):
     hi = _trunc_bf16(p)
     lo = (p - hi).to(torch.bfloat16).float()
     assert float(((hi + lo - p).abs() / p).max()) <= 2.0 ** -16
+
+
+# the wide body (csrc/flash_attn.cu flash_wide_kernel: every head dim from
+# 128 up in 64-column chunks, O in slices of 4 chunks) at head dims 128
+# (one slice of 2 chunks), 192 (one of 3) and 320 (a slice of 4, then a
+# partial one of 1), on random and ragged inputs at T = 191 and 385 (a
+# last key tile of 63 and of 1 live keys). On these the dropped lo moves
+# the lse by 4.3-27× its bound (the out by 0.49-4.3×: the lse carries that
+# control), and a slice whose S sums its own chunks alone misses both
+# checks by ≥ 6× at hd 320
+WIDE_CASES = [(hd, T, kind) for hd in (128, 192, 320) for T in (191, 385)
+              for kind in ("random", "ragged")]
+
+
+@pytest.mark.parametrize("hd,T,kind", WIDE_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in WIDE_CASES])
+def test_f32_wide_body_gate(hd, T, kind):
+    """The wide body's sum order (:func:`wide_body`) meets the f32 rule in
+    out and lse_check's bound in the lse against the JAX package's
+    attention; the body with the lo dropped misses the lse bound by ≥ 2×,
+    and at hd 320 the body whose second slice's S sums only its own
+    chunk misses both by ≥ 2×."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v = _inputs(T, 11, 2, kind, hd)
+    want, want_lse, R = _jax_reference(q, k, v, scale)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = wide_body(tq, tk, tv, scale)
+    assert out.shape == tq.shape
+    assert _over(out, want) <= 1.0
+    assert _lse_over(lse, want_lse, R, T) <= 1.0
+    _, c_lse = wide_body(tq, tk, tv, scale, "wide_one_pass")
+    assert _lse_over(c_lse, want_lse, R, T) >= 2.0
+    if hd > WIDE_SLICE * CHUNK:
+        c_out, c_lse = wide_body(tq, tk, tv, scale, "wide_own")
+        assert _over(c_out, want) >= 2.0
+        assert _lse_over(c_lse, want_lse, R, T) >= 2.0
+
+
+def test_wide_body_without_split_is_the_plain_forward():
+    """The wide body's slices and chunks with exact f32 products are the
+    plain forward: at hd 320 (two slices, the second partial) on ragged
+    inputs at T = 130 its out and lse equal attention_lse_plain's to f32
+    rounding, so the gate above measures the split, not the slicing."""
+    hd = 320
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v = (torch.from_numpy(a) for a in _inputs(130, 2, 2, "ragged", hd))
+    out, lse = wide_body(q, k, v, scale, "wide_exact")
+    pout, plse = attention.attention_lse_plain(q, k, v, scale)
+    torch.testing.assert_close(out, pout, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)

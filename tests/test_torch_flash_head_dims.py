@@ -194,6 +194,40 @@ def test_kernel_head_dims_are_one_set():
             "flash_narrow_bwd_launch"} <= set(_build.SIGNATURES)
 
 
+def test_forward_wide_body_widths_are_one_set():
+    """Each forward kernel runs its wide body from the head dim that
+    csrc/hopper.cuh IPDM_FLASH_FWD_WIDE_FROM_<dtype> names and
+    _build.FLASH_FWD_WIDE_FROM holds (bf16 192: its hd-128 instance
+    stays; f32 128), and counts every such width under its "_wide"
+    counter, each narrower instance under its own; the backward's
+    instances reach 128. The body's output slice (csrc/flash_attn.cu
+    IPDM_WIDE_SLICE chunks) is _build.FLASH_FWD_WIDE_SLICE columns."""
+    import re
+
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    csrc = osp.join(ROOT, "ipdm_tpu_torch", "csrc")
+    with open(osp.join(csrc, "hopper.cuh")) as f:
+        text = f.read()
+    for name, dtype in (("flash_attn", "BF16"), ("flash_attn_f32", "F32")):
+        got = re.search(rf"#define IPDM_FLASH_FWD_WIDE_FROM_{dtype} (\d+)",
+                        text).group(1)
+        assert int(got) == _build.FLASH_FWD_WIDE_FROM[name]
+        for hd in _build.FLASH_HEAD_DIMS + (192, 256, 320, 512):
+            wide = hd >= _build.FLASH_FWD_WIDE_FROM[name]
+            assert (_build.flash_counter(name, hd) == f"{name}_wide") == wide
+            assert _build.flash_counter(name, hd) in _build.LAUNCHES
+    assert _build.flash_counter("flash_attn", 128) == "flash_attn_hd128"
+    assert _build.flash_counter("flash_attn_f32", 128) == \
+        "flash_attn_f32_wide"
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.flash_counter(name, 128) == f"{name}_hd128"
+    with open(osp.join(csrc, "flash_attn.cu")) as f:
+        chunks = re.search(r"#define IPDM_WIDE_SLICE (\d+)", f.read()).group(1)
+    assert int(chunks) * _build.FLASH_WIDE_CHUNK == \
+        _build.FLASH_FWD_WIDE_SLICE
+
+
 def test_head_dims_outside_the_set_raise_on_cuda_tensors():
     """Every head dim from 1 to 128 reaches an instance (the next one up),
     every head dim from 129 to 1024 the wide bodies at the next multiple
