@@ -233,24 +233,27 @@ exits non-zero without a result line:
    every float within 1e-3 relative, each histogram within an L1
    distance of 1% of the pixel count;
    wide — the shipped test preset (f32) with model_channels_img and
-   model_channels_proj at 256 (head dim 256: the wide bodies) and 96
-   (96, zero-padded by the wrappers onto the hd-128 instance), seeded
-   random weights: per width a first and a warm ART slice through
-   progressive_denoiser (s/slice, peak memory, flash launches by
-   instance), the f32 forward on its recorded q, k, v against the plain
-   version; then 3 fit() steps each of train_img and train_proj at each
-   width (f32, B = 1, remat, the engine phase's corpus), the backward
-   pair on their first backward's inputs;
+   model_channels_proj at 256 (head dim 256) and 96 (zero-padded by the
+   wrappers to 128), both on the wide bodies, seeded random weights: per
+   width a first and a warm ART slice through progressive_denoiser
+   (s/slice, peak memory, flash launches by body), the f32 forward on its
+   recorded q, k, v against the plain version; then 3 fit() steps each of
+   train_img and train_proj at each width (f32, B = 1, remat, the engine
+   phase's corpus; the flash backward's event ms a warm step: CUDA
+   events around its wrapper calls), the
+   backward pair on their first backward's inputs;
    flash-hd — (after kernels-train) the flash forward (bf16, f32) and
    both backward kernels at head dims 8, 16, 32 and 128, at the padded
    24, 48 and 96, and on the wide bodies at 160, 192, 256 and 512, T =
    4097 and 7125, on the ragged inputs (q, k scaled so live scores stay
    ≈ −8) at the main path's rules, beside the planted controls of
    flash_ragged and bwd_ragged; the padding's planted fault (the pad
-   read from the next row) at 24, 48, 96 and 160; then the f32
+   read from the next row) at 24, 48, 96 and 160; the wide forward's and
+   the wide backward's partial slices at 320 beside their planted faults
+   (the last slice's columns from the first's); then the f32
    head-dim-8 kernels at T = 16 384 and 114 000 (the forward on
-   csrc/flash_narrow.cu), the head-dim-128 ones at 7125 and 16 384 and
-   the wide bodies at head dim 256 and T = 16 384 (their chained f32
+   csrc/flash_narrow.cu), the wide bodies at head dim 128 at 7125 and
+   16 384 and at head dim 256 and T = 16 384 (their chained f32
    sums) against a plain forward and backward over query blocks in
    f64 (out at the f32 rule, the lse within lse_check's bound, dq, dk,
    dv at the f32 rule plus the f64 witness allowance), two launches
@@ -271,8 +274,8 @@ exits non-zero without a result line:
    phase's under ``launches_quality`` and ``launches_quality_full``;
    the ablations phase's under ``launches_ablations``; the head-dim-8
    f32 flash rows, the f32 rows of the wide phase (the wide bodies at
-   256, the hd-128 instance at the padded 96, each row's ``head_dim``
-   and ``instance``; their long-T numbers under ``shapes_long``), and
+   256 and the padded 96 under ``widths``, the backward's with its
+   ``body`` and ``build``; their long-T numbers under ``shapes_long``), and
    every flash row's ``head_dims``),
    the nvidia-smi line, and the
    last line ``{"ok": true, "device": {...}}``.
@@ -693,6 +696,34 @@ def sdpa_ms(q, k, v, scale, reps, do=None):
                 torch.autograd.grad(o4, (q4, k4, v4), do.view(1, BH, T, hd))
     try:
         return cuda_ms(run, reps)
+    except RuntimeError:
+        return None
+
+
+def sdpa_bwd_ms(q, k, v, do, scale, reps):
+    """SDPA's backward alone at [1, BH, T, hd] (its flash or
+    memory-efficient kernel, as :func:`sdpa_ms`): the forward run once
+    outside the timing, then ``reps`` calls of autograd.grad of its
+    output, the graph kept, under torch.profiler: the device ms a call of
+    every kernel they launch (:func:`device_times`); None where neither
+    kernel takes the shape and dtype."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, T, hd = q.shape
+    q4, k4, v4 = (t_.detach().view(1, BH, T, hd).requires_grad_()
+                  for t_ in (q, k, v))
+    do4 = do.view(1, BH, T, hd)
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]), \
+                torch.enable_grad():
+            o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                scale=scale * scale)
+            kern = device_times(lambda: torch.autograd.grad(
+                o4, (q4, k4, v4), do4, retain_graph=True), reps)
+        return sum(ms for ms, _ in kern.values()) / reps
     except RuntimeError:
         return None
 
@@ -4615,8 +4646,8 @@ FLASH_HD_LONG = (16384, 114000)
 # head dims between the instances, zero-padded by the wrappers: 24 on the
 # hd-32 instance, 48 on 64 (model_channels 48), 96 on 128 (96)
 FLASH_HD_PADDED = (24, 48, 96)
-# the hd-128 instance's chained f32 sums, held at the proj UNet's token
-# count and beyond it
+# the wide backward's chained f32 sums at head dim 128 (the forward's too),
+# held at the proj UNet's token count and beyond it
 FLASH_HD128_LONG = (7125, 16384)
 # head dims of the wide bodies (above 128, zero-padded to a multiple of
 # 64: 160 on 192; 192, 256, 320 and 512 on themselves; the forward's
@@ -4741,7 +4772,7 @@ def narrow_build(src):
 def flash_long(T, reps, hd=8):
     """The f32 kernels at head dim ``hd`` (8: the ablation UNets' middle
     block, the forward on csrc/flash_narrow.cu; 128 and 256: the chained
-    backward sums of the hd-128 instance and the wide bodies) and 4 heads
+    f32 sums of the wide bodies) and 4 heads
     at long token counts, on seeded random q, k (sd 1), v (head h: mean
     h + 1) and dO, against the plain forward and backward in f64 over
     query blocks (:func:`_plain_long`): out at the f32 rule, the lse
@@ -4952,6 +4983,8 @@ def head_dim_rows(rows, short, long, abl):
                 library_ms=x["library_ms"], bound_ms=x[f"{kind}_bound_ms"],
                 max_abs_err=x["err"], over=x["over"],
                 instance=flash_instance(x["hd"]),
+                body=_build.flash_counter(row["name"],
+                                          flash_instance(x["hd"])),
                 launches_ablations=abl[_build.flash_counter(
                     row["name"], flash_instance(x["hd"]))])
                 for x in short if f"{kind}_ms" in x]
@@ -5037,6 +5070,69 @@ def wide_slice_control(hd=320, T=4097):
                                  f"{'passes' if bad_ok else 'fails'}")
 
 
+def wide_bwd_slice_control(hd=320, T=4097):
+    """The wide backward's partial last output slices (``hd`` = 320: dQ,
+    dK and dV each held 256 columns at a time above dkv's paired 128,
+    then 64; csrc/flash_bwd.cu flash_bwd_wide_kernel), in
+    bf16 and f32 on seeded N(0, 1) q, k, v, dO [4, T, hd]: dq, dk and dv
+    against the plain backward on the forward kernel's out and lse at the
+    main path's rule (:data:`BWD_TOL`), two launches bit-equal, beside a
+    planted fault that must fail it, the plain gradients with the last
+    slice's columns read from the first slice's (U's and W's chunk
+    c0 + h taken as chunk h). The first launches share one split of
+    q, k, v and dO (the dq kernel's pre-pass, taken ready by dkv), the
+    repeats split for themselves."""
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention, _build
+
+    for dtype_name in ("bfloat16", "float32"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + hd + 1)
+        q, k, v, do = (torch.randn((4, T, hd), generator=gen,
+                                   device="cuda").to(getattr(torch,
+                                                             dtype_name))
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(math.sqrt(hd))
+        out, lse = attention._forward(q, k, v, scale, with_lse=True)
+        split = attention._bwd_split(q, hd)
+        dq, D = attention.flash_bwd_dq(q, k, v, out, lse, do, scale,
+                                       split=split)
+        dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale,
+                                         split=split,
+                                         ready=split is not None)
+        dq2, D2 = attention.flash_bwd_dq(q, k, v, out, lse, do, scale)
+        dk2, dv2 = attention.flash_bwd_dkv(q, k, v, lse, do, D2, scale)
+        for name, a_, b_ in (("dq", dq, dq2), ("dk", dk, dk2),
+                             ("dv", dv, dv2)):
+            repeat_check(f"flash-hd wide bwd hd {hd} {name}", a_, b_)
+        want = [w.float() for w in attention.attention_bwd_plain(
+            q, k, v, out, lse, do, scale)]
+        rel, share = BWD_TOL[dtype_name]
+        over, bad_over, sliced = [], [], []
+        cols = _build.FLASH_BWD_WIDE_SLICE["flash_bwd_dq"]
+        assert hd > _build.FLASH_BWD_WIDE_SLICE["flash_bwd_dkv"]
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            last = hd % cols   # the partial slice's columns
+            bad = w.clone()
+            bad[..., hd - last:] = w[..., :last]
+            tol = share * float(w.abs().max()) + rel * w.abs()
+            over.append(float(((g.float() - w).abs() / tol).max()))
+            bad_over.append(float(((bad - w).abs() / tol).max()))
+            sliced.append(f"{name} {cols} columns a slice, the last "
+                          f"{last}")
+        torch.cuda.synchronize()
+        log(f"flash-hd: {SHORT[dtype_name]} [4,{T},{hd}] on the wide "
+            f"backward ({'; '.join(sliced)}), N(0, 1) inputs: dq/dk/dv at "
+            + " / ".join(f"{x:.3f}" for x in over)
+            + f" of the tolerance ({share:g}·max|plain| + {rel:g}·|plain|); "
+            f"repeats bit-equal; planted control, the last slices' columns "
+            f"from the first slice's: "
+            + " / ".join(f"{x:.1f}×" for x in bad_over))
+        if max(over) > 1.0 or min(bad_over) <= 1.0:
+            raise AssertionError(f"flash-hd wide bwd slice control hd {hd} "
+                                 f"{dtype_name}: {over}, the control "
+                                 f"{bad_over}")
+
+
 def phase_flash_hd(reps):
     """The flash kernels at head dims 8, 16, 32 and 128, at the padded
     head dims 24, 48 and 96 and on the wide bodies at
@@ -5045,7 +5141,9 @@ def phase_flash_hd(reps):
     (:func:`flash_ragged`, :func:`bwd_ragged`, each beside its planted
     controls) and the padding's planted fault at each padded head dim
     (:func:`flash_pad_control`), the wide forward's partial slice and its
-    planted fault (:func:`wide_slice_control`), then the f32 kernels at
+    planted fault (:func:`wide_slice_control`), the wide backward's
+    partial slices and theirs (:func:`wide_bwd_slice_control`), then the
+    f32 kernels at
     head dim 8 (the forward on csrc/flash_narrow.cu) at the ablation
     UNets' T = 16 384 and 114 000, at head dim 128 at T = 7125 and
     16 384 and at head dim 256 at T = 16 384 (:func:`flash_long`; the
@@ -5068,6 +5166,7 @@ def phase_flash_hd(reps):
             if attention.flash_instance(hd) != hd:
                 flash_pad_control(hd)
         wide_slice_control()
+        wide_bwd_slice_control()
         long = [flash_long(T, 3) for T in FLASH_HD_LONG]
         long128 = [flash_long(T, 3, hd=128) for T in FLASH_HD128_LONG]
         long256 = [flash_long(T, 3, hd=256) for T in FLASH_HD_WIDE_LONG]
@@ -5334,12 +5433,61 @@ def phase_graft(seed: int) -> None:
 
 # model_channels of both UNets in the wide phase, the head dim of every
 # flash block (4 heads over 4·mc channels): 256 runs the wide bodies, 96
-# the hd-128 instance on operands zero-padded by the wrappers (the padded
-# route on a main path). The other padded routes (48 on 64, 160 on the
-# wide bodies at 192) are held by flash-hd's ragged checks and padding
-# controls
+# the wide bodies at 128 on operands zero-padded by the wrappers (the
+# padded route on a main path). The other padded routes (48 on 64, 160
+# on the wide bodies at 192) are held by flash-hd's ragged checks and
+# padding controls
 WIDE_WIDTHS = (256, 96)
 WIDE_TRAIN_STEPS = 3   # fit() steps of each domain at each width
+
+
+class BwdTimer:
+    """Replaces attention.flash_bwd_dq and flash_bwd_dkv by wrappers that
+    record a CUDA event pair on the current stream around each call (D,
+    the split pre-pass, the kernel, the padding copies and any wait of
+    the stream on the host between them), for as long as the ``with``
+    block runs; :meth:`ms` gives each call's event ms in order (after a
+    synchronize)."""
+
+    NAMES = ("flash_bwd_dq", "flash_bwd_dkv")
+
+    def __init__(self, module):
+        self.module = module
+        self.fns = {n: getattr(module, n) for n in self.NAMES}
+        self.events = []
+
+    def __enter__(self):
+        import torch
+
+        def wrap(fn):
+            def run(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a, **kw)
+                e1.record()
+                self.events.append((e0, e1))
+                return res
+            return run
+        for n, fn in self.fns.items():
+            setattr(self.module, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.fns.items():
+            setattr(self.module, n, fn)
+
+    def ms(self):
+        return [e0.elapsed_time(e1) for e0, e1 in self.events]
+
+
+def warm_bwd_ms(timer, steps) -> float:
+    """The flash backward's event ms a warm step (steps 2 on) from a
+    :class:`BwdTimer` over a train run of ``steps`` (each step the same
+    number of calls)."""
+    ms = timer.ms()
+    per = len(ms) // len(steps)
+    return sum(ms[per:]) / (len(steps) - 1)
 
 
 def _wide_slice(w, ld_proj, seed, reps):
@@ -5428,8 +5576,10 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
     Then at each width, fit() of train_img and train_proj for
     :data:`WIDE_TRAIN_STEPS` steps each (f32, B = 1, remat, the engine
     phase's corpus; the counters set to 0 just before each step), whose
-    first backward's inputs feed :func:`bwd_call_stats`. Returns the rows
-    of the kernels JSON line of the wide and hd-128 f32 kernels."""
+    first backward's inputs feed :func:`bwd_call_stats`, and whose warm
+    steps' flash backward calls are timed by CUDA events
+    (:class:`BwdTimer`).
+    Returns the rows of the kernels JSON line of the wide f32 kernels."""
     import torch
     from ipdm_tpu_torch.ops.cuda import _build, attention
 
@@ -5442,12 +5592,13 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
         slices = {w: _wide_slice(w, ld_proj, seed, max(2, reps // 4))
                   for w in WIDE_WIDTHS}
         paths = _example().dataset_paths(out)
-        runs, per = {}, {}
+        runs, per, train_steps = {}, {}, {}
         for w in WIDE_WIDTHS:
             runs[w], bwd = {}, []
             inst = attention.flash_instance(w)
             for domain in ("img", "proj"):
-                with Recorder(attention, "flash_bwd_dq", limit=1) as rec:
+                with Recorder(attention, "flash_bwd_dq", limit=1) as rec, \
+                        BwdTimer(attention) as timer:
                     eng, steps, runs[w][domain], t_fit = _train_run(
                         domain, out, seed, paths, overrides={
                             f"model_channels_{domain}": w,
@@ -5459,10 +5610,19 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
                 losses = [st["loss"] for st in steps]
                 warm = [st["s"] for st in steps[1:]]
                 per_step = steps[-1]["launches"]
+                torch.cuda.synchronize()
+                bwd_ms = warm_bwd_ms(timer, steps)
+                train_steps.setdefault(w, {})[domain] = dict(
+                    s=sum(warm) / len(warm), first_s=steps[0]["s"],
+                    bwd_event_ms=bwd_ms)
                 log(f"wide: train_{domain} at mc {w}, {len(steps)} steps: "
                     "losses " + ", ".join(f"{x:.5f}" for x in losses)
                     + f"; warm {sum(warm) / len(warm):.4f} s/step (first "
-                    f"{steps[0]['s']:.4f} s); peak memory of a step "
+                    f"{steps[0]['s']:.4f} s); the flash backward's 5 dq + 5 "
+                    f"dkv wrapper calls {bwd_ms:.3f} event ms a warm step "
+                    f"(CUDA events around each call: D, split, kernel, "
+                    f"padding); peak "
+                    f"memory of a step "
                     f"{max(st['peak'] for st in steps):.2f} GiB; launches "
                     f"per step {per_step}")
                 want = [_build.flash_counter(k, inst) for k in (
@@ -5480,11 +5640,28 @@ def phase_wide(seed: int, out: str, ld_proj, reps: int):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
     log(f"wide: {time.perf_counter() - t0:.1f} s")
-    return wide_rows(slices, runs, per)
+    return wide_rows(slices, runs, per, train_steps)
 
 
 # the wide forward's build constants (csrc/flash_attn.cu IPDM_WIDE_*)
 WIDE_CONSTANTS = ("SLICE", "NWG", "STAGES_F32", "STAGES_BF16", "CREGS")
+# the wide backward's (csrc/flash_bwd.cu IPDM_WBWD_*)
+WIDE_BWD_CONSTANTS = ("DQ_SLICE", "DKV_SLICE", "CREGS")
+
+
+def wide_bwd_build(text=None) -> dict:
+    """The wide backward's build constants, from csrc/flash_bwd.cu's
+    defaults (or the source ``text``): 64-column chunks of dQ a CTA
+    holds, of dK and of dV a paired dkv CTA holds, the consumers'
+    registers after setmaxnreg."""
+    import re
+
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    text = text or (_build.SRC_DIR / "flash_bwd.cu").read_text()
+    return {n.lower(): int(re.search(rf"#define IPDM_WBWD_{n} (\d+)",
+                                     text).group(1))
+            for n in WIDE_BWD_CONSTANTS}
 
 
 def wide_build(text=None) -> dict:
@@ -5537,39 +5714,61 @@ def wide_fwd_row(slices):
     return rows[0]
 
 
-def wide_rows(slices, runs, per):
+def wide_rows(slices, runs, per, train_steps):
     """The kernels JSON line's rows of the f32 kernels at the widths of
     :data:`WIDE_WIDTHS`: the forward, the wide body at every one of them
     (256 on itself, the padded 96 at 128), one row: its launches in the
     widths' warm slices together, its numbers on those runs' q, k, v
     (T = 7125 and 4096 of each width under ``widths``), each width's
-    slice and the forward's device ms in a profiled one; the backward
-    pair (the wide bodies at 256, the hd-128 instances at 96), a row per
-    width: its launches in the width's two train runs and its numbers on
-    their first backward."""
+    slice and the forward's device ms in a profiled one; each backward
+    kernel, its wide body at every width too, one row: its launches in
+    the widths' train runs together, its numbers on their first
+    backward, the body and its build constants, and per width its
+    launches, shapes and the backward's event ms a warm train step."""
     from ipdm_tpu_torch.ops.cuda import _build
     from ipdm_tpu_torch.ops.cuda.attention import flash_instance
 
     rows = [wide_fwd_row(slices)]
-    for w in WIDE_WIDTHS:
-        inst = flash_instance(w)
-        for i, kind in enumerate(("dq", "dkv")):
-            name = _build.flash_counter(f"flash_bwd_{kind}", inst)
-            st = [p[i] for p in per[w]]
-            summarise(rows, "wide", name, "ipdm_tpu_torch/csrc/flash_bwd.cu",
-                      "ipdm_tpu/models/unet.py:601 → jax/experimental/"
-                      "pallas/ops/tpu/flash_attention.py:"
-                      + ("1287" if kind == "dq" else "941"), st, True)
-            rows[-1].update(
-                launches=runs[w]["img"][name] + runs[w]["proj"][name],
-                launches_train_img=runs[w]["img"][name],
-                launches_train_proj=runs[w]["proj"][name], head_dim=w,
-                instance=inst, dtype="float32",
-                library="SDPA forward + backward of the same q, k, v, dO",
-                shapes=[dict(T=x["T"], ms=x["ms"], plain_ms=x["plain_ms"],
-                             library_ms=x["library_ms"],
-                             bound_ms=max(x["bytes_ms"], x["ops_ms"]),
-                             max_abs_err=x["err"]) for x in st])
+    for i, kind in enumerate(("dq", "dkv")):
+        names = {_build.flash_counter(f"flash_bwd_{kind}",
+                                      flash_instance(w))
+                 for w in WIDE_WIDTHS}
+        if len(names) != 1:
+            raise AssertionError(f"wide: the f32 {kind} ran on {names}")
+        name = names.pop()
+
+        def shapes(w):
+            return [dict(T=x["T"], ms=x["ms"], plain_ms=x["plain_ms"],
+                         library_ms=x["library_ms"],
+                         bound_ms=max(x["bytes_ms"], x["ops_ms"]),
+                         max_abs_err=x["err"])
+                    for x in (p[i] for p in per[w])]
+        summarise(rows, "wide", name, "ipdm_tpu_torch/csrc/flash_bwd.cu",
+                  "ipdm_tpu/models/unet.py:601 → jax/experimental/"
+                  "pallas/ops/tpu/flash_attention.py:"
+                  + ("1287" if kind == "dq" else "941"),
+                  [p[i] for w in WIDE_WIDTHS for p in per[w]], True)
+        cols = _build.FLASH_BWD_WIDE_SLICE[f"flash_bwd_{kind}"]
+        rows[-1].update(
+            launches=sum(runs[w][d][name] for w in WIDE_WIDTHS
+                         for d in ("img", "proj")),
+            head_dim=max(WIDE_WIDTHS), dtype="float32",
+            library="SDPA forward + backward of the same q, k, v, dO",
+            body=("wide: " + (
+                f"one CTA holds 128 rows and {cols} columns of dQ"
+                if kind == "dq" else
+                f"one CTA holds 128 keys and {cols} columns of dK and of "
+                f"dV where they cover the head dim, else "
+                f"{_build.FLASH_BWD_WIDE_SLICE['flash_bwd_dq']} of one of "
+                f"them up to hd 256, beyond 64 keys whose warpgroups hold "
+                f"dV and dK, P handed over")
+                + ", S and dP built once per ring tile and slice"),
+            build=wide_bwd_build(),
+            widths=[dict(mc=w, head_dim=w, instance=flash_instance(w),
+                         launches_train_img=runs[w]["img"][name],
+                         launches_train_proj=runs[w]["proj"][name],
+                         shapes=shapes(w), train=train_steps[w])
+                    for w in WIDE_WIDTHS])
     for row in rows:
         log(f"kernels: {row['name']}: {row['launches']} launches in the "
             f"wide phase's main-path runs")
@@ -5784,10 +5983,9 @@ def main() -> int:
     log("kernels: launches in the ablations phase's main-path run: "
         + ", ".join(f"{row['name']} {row['launches_ablations']}"
                     for row in rows))
-    # the wide phase's rows (the forward's wide body at mc 256 and the
-    # padded mc 96; the backward's wide bodies at mc 256, its hd-128
-    # instances at mc 96); each f32 trio at long T (the forward's at head
-    # dims 256 and 128)
+    # the wide phase's rows (the forward's and the backward's wide bodies
+    # at mc 256 and the padded mc 96); each f32 trio at long T (head dims
+    # 256 and 128)
     for row in wide:
         part = ("fwd" if row["name"].startswith("flash_attn") else
                 row["name"].split("_")[2])
@@ -5797,8 +5995,7 @@ def main() -> int:
             library_ms=x["sdpa_fwd_ms" if part == "fwd"
                          else "sdpa_fwd_bwd_ms"],
             over=x["over"])
-            for x in (hd_long256 + hd_long128 if part == "fwd" else
-                      hd_long256 if row["head_dim"] > 128 else hd_long128)]
+            for x in hd_long256 + hd_long128]
     rows += wide
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -10,7 +10,8 @@
 // wide body per kernel takes the head dim as a runtime count of
 // WIDE_CHUNK-column chunks (the wrapper zero-pads it to a multiple of 64),
 // each chunk a Head<64> tile of its own; the f32 forward's wide body
-// takes 128 too (IPDM_FLASH_FWD_WIDE_FROM_F32). A tile of 64
+// takes 128 too (IPDM_FLASH_FWD_WIDE_FROM_F32), the backward's 128 in both
+// dtypes (IPDM_FLASH_BWD_WIDE_FROM). A tile of 64
 // rows lies in shared memory HDP = max(HD, 16) columns wide: bf16 wgmma
 // takes K in steps of 16, so at HD = 8 the contraction over the head
 // dimension runs on operands zero-padded to 16 (the TMA box is 16 columns
@@ -57,10 +58,13 @@ namespace hopper {
 constexpr int WIDE_CHUNK = IPDM_FLASH_WIDE_CHUNK;
 // the first head dim whose forward runs on the wide body (flash_attn.cu),
 // by dtype: the forward's template instances stop below it (bf16 keeps
-// its hd-128 instance, faster there than the wide body; f32's spilled),
-// the backward's do not; _build.py FLASH_FWD_WIDE_FROM names them too
+// its hd-128 instance, faster there than the wide body; f32's spilled);
+// _build.py FLASH_FWD_WIDE_FROM names them too
 #define IPDM_FLASH_FWD_WIDE_FROM_BF16 192
 #define IPDM_FLASH_FWD_WIDE_FROM_F32 128
+// the backward's (flash_bwd.cu), both dtypes: its template instances stop
+// below it; _build.py FLASH_BWD_WIDE_FROM names it too
+#define IPDM_FLASH_BWD_WIDE_FROM 128
 
 constexpr int SW_ATOM = 1024; // tile alignment: 8 rows x 128 B, the
                               // largest swizzle atom

@@ -45,14 +45,15 @@ SIGNATURES = {
     # q, k, v, split (scratch: attention._fwd_split), out, lse (or null),
     # BH, T, hd, scale_log2, stream
     "flash_attn_f32_launch": [P, P, P, P, P, P, I, I, I, ctypes.c_float, P],
-    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd 8 and
-    # hd >= 128, or null: attention._bwd_split), BH, T, hd, scale_log2,
+    # q, k, v, out, do, lse, D, dq, split (scratch of f32 at hd 8 and on
+    # the wide body, or null: attention._bwd_split), BH, T, hd, scale_log2,
     # scale2, bf16, stream
     "flash_bwd_dq_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
                             ctypes.c_float, ctypes.c_float, I, P],
-    # q, k, v, do, lse, D, dk, dv, split (as dq's), BH, T, hd, scale_log2,
-    # scale2, bf16, stream
-    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, P, I, I, I,
+    # q, k, v, do, lse, D, dk, dv, split (as dq's), split_ready (1: the
+    # wide f32 body's split holds dq's pre-pass of these tensors), BH, T,
+    # hd, scale_log2, scale2, bf16, stream
+    "flash_bwd_dkv_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I,
                              ctypes.c_float, ctypes.c_float, I, P],
     # dkv (0: dq into out0; 1: dk, dv), q, k, v, do, lse, D, out0, out1,
     # split (attention._bwd_split), BH, T, scale_log2, scale2, drop_lo (a
@@ -88,21 +89,32 @@ FLASH_WIDE_CHUNK = 64
 # each forward kernel (``flash_attn`` bf16, ``flash_attn_f32``) runs every
 # width from this one up on its wide body, not on an instance
 # (csrc/hopper.cuh IPDM_FLASH_FWD_WIDE_FROM_BF16 / _F32: bf16 keeps its
-# hd-128 instance, faster there); the backward's instances reach 128
+# hd-128 instance, faster there)
 FLASH_FWD_WIDE_FROM = {"flash_attn": 192, "flash_attn_f32": 128}
 # the columns of O a CTA of the forward's wide body holds, S built once
 # for them (csrc/flash_attn.cu IPDM_WIDE_SLICE chunks)
 FLASH_FWD_WIDE_SLICE = 256
+# the backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``, both dtypes)
+# run every width from this one up on their wide body; their instances
+# stop below it (csrc/hopper.cuh IPDM_FLASH_BWD_WIDE_FROM)
+FLASH_BWD_WIDE_FROM = 128
+# the columns of each output a CTA of the backward's wide body holds, S
+# and dP built once for them (csrc/flash_bwd.cu IPDM_WBWD_DQ_SLICE and
+# IPDM_WBWD_DKV_SLICE chunks); where dkv's 128 do not cover the head dim,
+# dK and dV are held dq's 256 columns at a time, one output each
+FLASH_BWD_WIDE_SLICE = {"flash_bwd_dq": 256, "flash_bwd_dkv": 128}
 
 
 def flash_counter(name: str, hd: int) -> str:
     """The :data:`LAUNCHES` key of flash kernel ``name`` at head dimension
-    ``hd``: the body that runs it, an instance's or the wide body's (a
-    forward from :data:`FLASH_FWD_WIDE_FROM` up, every kernel above the
-    largest instance)."""
+    ``hd``: the body that runs it, an instance's or the wide body's (from
+    :data:`FLASH_FWD_WIDE_FROM` / :data:`FLASH_BWD_WIDE_FROM` up, every
+    kernel above the largest instance)."""
     if hd == 64:
         return name
-    if hd in FLASH_HEAD_DIMS and hd < FLASH_FWD_WIDE_FROM.get(name, hd + 1):
+    wide_from = (FLASH_BWD_WIDE_FROM if name.startswith("flash_bwd")
+                 else FLASH_FWD_WIDE_FROM.get(name, hd + 1))
+    if hd in FLASH_HEAD_DIMS and hd < wide_from:
         return f"{name}_hd{hd}"
     return f"{name}_wide"
 

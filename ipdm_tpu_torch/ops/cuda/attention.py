@@ -17,8 +17,9 @@ other head dim up to 128 runs on the next instance up, and every head dim
 above 128 on each kernel's wide body at the next multiple of
 :data:`FLASH_WIDE_CHUNK` columns (:func:`flash_instance`): the wrappers
 zero-pad q, k, v (and out, do) to that width and cut the outputs back.
-The f32 forward runs its wide body from width 128 on, the bf16 forward
-above its hd-128 instance (``_build.FLASH_FWD_WIDE_FROM``): one CTA holds
+The f32 forward and the backward run their wide bodies from width 128
+on, the bf16 forward above its hd-128 instance
+(``_build.FLASH_FWD_WIDE_FROM``, ``FLASH_BWD_WIDE_FROM``): one CTA holds
 up to 256 columns of the output and builds the scores once for them.
 Zero columns add nothing to q·kᵀ, to rowsum(do ∘ out) or to do·vᵀ, and
 the caller's scale is that of the real head dim, so the result is the
@@ -153,8 +154,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
         do = grad_out.to(q.dtype).contiguous()
-        dq, D = flash_bwd_dq(q, k, v, out, lse, do, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, lse, do, D, ctx.scale)
+        split = _shared_split(q) if q.device.type == "cuda" else None
+        dq, D = flash_bwd_dq(q, k, v, out, lse, do, ctx.scale, split=split)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, do, D, ctx.scale, split=split,
+                               ready=split is not None)
         need = ctx.needs_input_grad
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, None)
@@ -261,28 +264,65 @@ def _fwd_split(BH, T, inst):
     return (5, BH, T, 16) if inst == 8 else (6, BH, T, inst)
 
 
+def _bwd_wide(q, inst) -> bool:
+    """Whether the backward kernels run width ``inst`` on their wide body
+    (``_build.FLASH_BWD_WIDE_FROM``)."""
+    return inst >= _build.FLASH_BWD_WIDE_FROM
+
+
 def _bwd_split(q, inst):
     """The f32 backward kernels' bf16 scratch (else None, passed as null).
 
-    * Head dim 128 and the wide body's widths: hi and lo of q, k, v and
-      do, [8, BH, T, inst].
+    * The wide body's widths (from 128): hi and lo of q, k, v and do,
+      [8, BH, T, inst].
     * Head dim 8 (csrc/flash_narrow_bwd.cu): the ring side's packed rows
       [hi(u) | lo(u) | hi(u) | f], then w's ([2, BH, T, 32]; u, w = k, v
       in dq, q, do in dkv; f the lse and D terms), the same for both
       kernels."""
-    if q.dtype != torch.float32 or 8 < inst < 128:
+    if q.dtype != torch.float32 or (inst != 8 and not _bwd_wide(q, inst)):
         return None
     BH, T, _ = q.shape
     shape = (2, BH, T, 32) if inst == 8 else (8, BH, T, inst)
     return torch.empty(shape, dtype=torch.bfloat16, device=q.device)
 
 
-def flash_bwd_dq(q, k, v, out, lse, do, scale):
+def _shared_split(q):
+    """The split scratch that the autograd backward hands to both kernels:
+    the f32 wide body's (:func:`_bwd_split`, from width 128), which the dq
+    kernel's pre-pass fills with hi and lo of q, k, v and do and the dkv
+    kernel takes as it is; else None (each kernel makes its own, as the
+    narrow body at head dim 8 does)."""
+    inst = flash_instance(q.shape[2])
+    return _bwd_split(q, inst) if _bwd_wide(q, inst) else None
+
+
+def _given_split(name, split, q, inst):
+    """``split`` (passed by the caller) checked to be the f32 wide body's
+    [8, BH, T, inst] bf16 scratch on q's device; a new scratch where it is
+    None (:func:`_bwd_split`)."""
+    if split is None:
+        return _bwd_split(q, inst)
+    BH, T, _ = q.shape
+    if (tuple(split.shape) != (8, BH, T, inst)
+            or split.dtype != torch.bfloat16 or split.device != q.device
+            or q.dtype != torch.float32 or not _bwd_wide(q, inst)
+            or not split.is_contiguous()):
+        raise ValueError(f"{name}: split {tuple(split.shape)} "
+                         f"{split.dtype} is not the f32 wide body's "
+                         f"[8, {BH}, {T}, {inst}] bf16 scratch")
+    return split
+
+
+def flash_bwd_dq(q, k, v, out, lse, do, scale, split=None):
     """dq of attention and D = rowsum(do ∘ out) (f32 [BH, T]), the
     counterpart of the library's _flash_attention_bwd_dq and its di. The
     kernel on CUDA tensors (its f32 D takes do as its products see it,
     hi + lo of the bf16 split: see csrc/flash_bwd.cu), its half of
-    :func:`attention_bwd_plain` on CPU ones."""
+    :func:`attention_bwd_plain` on CPU ones. ``split``: where the f32
+    wide body runs (from head dim 128), a [8, BH, T, width] bf16 scratch
+    (:func:`_bwd_split`) that its pre-pass fills with hi and lo of q, k,
+    v and do, for :func:`flash_bwd_dkv` to take (``ready``); else a
+    scratch of its own. Returns (dq, D)."""
     if q.device.type == "cpu":
         D = _rowsum(out, do)
         _, ks, _, _, ds = _probs_ds(q, k, v, lse, do, D, scale)
@@ -296,7 +336,7 @@ def flash_bwd_dq(q, k, v, out, lse, do, scale):
     BH, T, _ = q.shape
     dq = torch.empty_like(q)
     D = torch.empty((BH, T), dtype=torch.float32, device=q.device)
-    split = _bwd_split(q, inst)
+    split = _given_split("flash_bwd_dq", split, q, inst)
     code = _build.library().flash_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
@@ -305,15 +345,18 @@ def flash_bwd_dq(q, k, v, out, lse, do, scale):
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dq")
     _build.LAUNCHES[_build.flash_counter("flash_bwd_dq", inst)] += 1
-    dq, = _cut(hd, dq)
-    return dq, D
+    return _cut(hd, dq)[0], D
 
 
-def flash_bwd_dkv(q, k, v, lse, do, D, scale):
+def flash_bwd_dkv(q, k, v, lse, do, D, scale, split=None, ready=False):
     """(dk, dv) of attention from the lse and the D of
     :func:`flash_bwd_dq`, the counterpart of the library's
     _flash_attention_bwd_dkv. The kernel on CUDA tensors,
-    its half of :func:`attention_bwd_plain` on CPU ones."""
+    its half of :func:`attention_bwd_plain` on CPU ones. ``split``: as
+    :func:`flash_bwd_dq`'s; with ``ready`` it holds what flash_bwd_dq's
+    pre-pass wrote from these same q, k, v and do, and is taken as it is
+    (the split runs once a backward); else the kernel splits for
+    itself."""
     if q.device.type == "cpu":
         qs, _, dof, p, ds = _probs_ds(q, k, v, lse, do, D, scale)
         return ((torch.matmul(ds.transpose(1, 2), qs) * scale).to(k.dtype),
@@ -325,12 +368,14 @@ def flash_bwd_dkv(q, k, v, lse, do, D, scale):
     _check_rows("flash_bwd_dkv", (("lse", lse), ("D", D)), q)
     BH, T, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    split = _bwd_split(q, inst)
+    if ready and split is None:
+        raise ValueError("flash_bwd_dkv: ready without a split")
+    split = _given_split("flash_bwd_dkv", split, q, inst)
     code = _build.library().flash_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if split is None else split.data_ptr(), BH, T, inst,
-        scale * scale * math.log2(math.e), scale * scale,
+        None if split is None else split.data_ptr(), int(ready), BH, T,
+        inst, scale * scale * math.log2(math.e), scale * scale,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(code, "flash_bwd_dkv")
     _build.LAUNCHES[_build.flash_counter("flash_bwd_dkv", inst)] += 1

@@ -3,13 +3,14 @@
 ``nvcc -Xptxas -v`` reports them for sm_90a (on a machine with the CUDA
 toolkit).
 
-    python3 scripts/ptxas_report.py [flash_attn.cu flash_bwd.cu ...]
+    python3 scripts/ptxas_report.py [--kernel NAME] [flash_attn.cu ...]
 
 Compiles each named source of ``ipdm_tpu_torch/csrc`` (default: all) with
 the build's own flags (``ops/cuda/_build.py`` NVCC_FLAGS), one nvcc per
 source, all at once, into a scratch directory, and prints one line per
-kernel: its demangled name, registers a thread, stack frame, spill
-stores and loads (bytes)."""
+kernel (with ``--kernel``, per kernel whose name holds NAME, e.g.
+``flash_bwd_wide_kernel``): its demangled name, registers a thread, stack
+frame, spill stores and loads (bytes)."""
 
 from __future__ import annotations
 
@@ -26,7 +27,11 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     from ipdm_tpu_torch.ops.cuda import _build
 
-    names = sys.argv[1:] or [p.name for p in sorted(_build.SRC_DIR.glob("*.cu"))]
+    args = sys.argv[1:]
+    only = None
+    if args[:1] == ["--kernel"]:
+        only, args = args[1], args[2:]
+    names = args or [p.name for p in sorted(_build.SRC_DIR.glob("*.cu"))]
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         procs = [(n, subprocess.Popen(
@@ -55,6 +60,8 @@ def main() -> int:
                 pretty = subprocess.run(["c++filt", fn], capture_output=True,
                                         text=True).stdout.strip() or fn
                 st, ss, sl = frame.get(fn, ("?", "?", "?"))
+                if only is not None and only not in pretty:
+                    continue
                 print(f"{name}: {pretty[:150]}: {m.group(1)} registers, "
                       f"stack {st} B, spill stores {ss} B, loads {sl} B")
     return rc

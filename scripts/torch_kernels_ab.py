@@ -8,6 +8,8 @@ against a parent commit's, on one NVIDIA GPU, in one process.
     python3 scripts/torch_kernels_ab.py --narrow-bwd-variants NWG,KT [...]
     python3 scripts/torch_kernels_ab.py --wide-variants \
         SLICE,NWG,STAGES_F32,STAGES_BF16,CREGS [...]
+    python3 scripts/torch_kernels_ab.py --wide-bwd-variants \
+        DQ_SLICE,DKV_SLICE,CREGS [...]
 
 DIR is a checkout of the parent commit (``git archive <commit> | tar -x
 -C DIR``). The script builds DIR's ``ipdm_tpu_torch/csrc`` with the same
@@ -55,6 +57,16 @@ and on each input:
   their distance (not required to be 0 where this tree's forward runs
   the wide body of _build.FLASH_FWD_WIDE_FROM and the parent's does
   not), each timed A B B A beside SDPA and the bound;
+* the backward at head dims 128-512 (:data:`WIDE_BWD_SHAPES`), on seeded
+  N(0, 1) q, k, v, dO with this tree's forward's out and lse: the
+  parent's dq / dkv and this tree's, each held to the plain backward (f32:
+  the f64 plain backward at flash_long's rule; bf16: chip_smoke.py's bf16
+  rule on the same out and lse), their distance, each kernel timed A B B
+  A beside SDPA's backward alone and the bound;
+* ``wide_train``: the mc-256 f32 train step (make_train_step, remat, B =
+  1) of each UNet with the parent's backward kernels and this tree's,
+  parent, new, new, parent: s/step and the flash backward's device ms a
+  step (chip_smoke.py BwdTimer);
 * ``wide_slice``: chip_smoke.py's wide-phase slice at mc 256 (the f32 ART
   slice) with the parent's forward and this tree's, parent, new, new,
   parent: s/slice and the forward's device ms in a profiled slice; and on
@@ -82,6 +94,13 @@ at each (warpgroups a CTA, 64-row sub-tiles a ring tile) pair
 (IPDM_NARROW_BWD_NWG / _KT): its dq and its dkv
 each held to the f64 plain backward and timed against this tree's build
 of the same entry (``flash_narrow_bwd_launch``), A B B A.
+
+With ``--wide-bwd-variants`` it builds ``csrc/flash_bwd.cu`` at each given
+set of the wide backward's build constants (IPDM_WBWD_DQ_SLICE,
+_DKV_SLICE, _CREGS; registers and spills logged) and holds
+each variant's dq and dkv, and this tree's build's, to the plain backward
+and times them against this tree's build, A B B A, at
+:data:`WIDE_BWD_VARIANT_SHAPES` in both dtypes.
 
 With ``--wide-variants`` the script builds ``csrc/flash_attn.cu`` at each
 given set of the wide forward's build constants (IPDM_WIDE_SLICE, _NWG,
@@ -186,6 +205,15 @@ def parent_fwd_wide_from(parent: Path) -> bool:
                                      / "cuda" / "_build.py").read_text()
 
 
+def parent_bwd_wide_from(parent: Path) -> bool:
+    """Whether the parent's backward runs the wide body of this design
+    from a head dim on (``_build.FLASH_BWD_WIDE_FROM``): one CTA holding
+    128 rows and up to 256 columns of dQ (128 of dK and dV), S and dP
+    built once per ring tile."""
+    return "FLASH_BWD_WIDE_FROM" in (parent / "ipdm_tpu_torch" / "ops"
+                                     / "cuda" / "_build.py").read_text()
+
+
 def parent_f32_takes_split(parent: Path) -> bool:
     """Whether the parent's flash_attn_f32_launch takes the split scratch
     (its f32 forward in csrc/flash_attn.cu) or not (the CUDA-core kernel
@@ -228,6 +256,9 @@ def build_parent(parent: Path) -> ctypes.CDLL:
             if (name in ("flash_bwd_dq_launch", "flash_bwd_dkv_launch")
                     and parent_bwd_takes_split(parent)):
                 argtypes = argtypes[:8] + [P] + argtypes[8:]
+            if (name == "flash_bwd_dkv_launch"
+                    and parent_bwd_wide_from(parent)):
+                argtypes = argtypes[:9] + [I] + argtypes[9:]   # ready
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.f32_takes_split = parent_f32_takes_split(parent)
     lib.takes_hd = parent_takes_hd(parent)
@@ -236,6 +267,7 @@ def build_parent(parent: Path) -> ctypes.CDLL:
     lib.narrow = parent_narrow(parent)
     lib.narrow_bwd = parent_narrow_bwd(parent)
     lib.fwd_wide_from = parent_fwd_wide_from(parent)
+    lib.bwd_wide_from = parent_bwd_wide_from(parent)
     return lib
 
 
@@ -487,8 +519,8 @@ def parent_bwd(lib, args):
         _build.check(lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), D_p.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(),
-            *split, BH, T, *hd_args(lib, q), c2l, c2, bf16,
-            stream), "parent flash_bwd_dkv")
+            *split, *((0,) if lib.bwd_wide_from else ()), BH, T,
+            *hd_args(lib, q), c2l, c2, bf16, stream), "parent flash_bwd_dkv")
 
     parent_dq()
     parent_dkv()
@@ -599,6 +631,32 @@ def narrow_bwd_is_new(lib, hd, dtype_name) -> bool:
             and (_build.SRC_DIR / "flash_narrow_bwd.cu").exists())
 
 
+def wide_bwd_is_new(lib, hd, dtype_name) -> bool:
+    """Whether this tree's backward at (``hd``, dtype) runs the wide body
+    of csrc/flash_bwd.cu (_build.FLASH_BWD_WIDE_FROM) and the parent's
+    does not run that body (their dq, dk and dv then differ by design, or
+    may; D is the same kernel's)."""
+    from ipdm_tpu_torch.ops.cuda import _build
+    return (_build.flash_counter("flash_bwd_dq", hd)
+            == "flash_bwd_dq_wide" and not lib.bwd_wide_from)
+
+
+def bwd_rule_over(dtype_name, grads, args, ref=None) -> list:
+    """dq, dk, dv over their rule: f32 against the f64 plain backward
+    ``ref`` at flash_long's rule (:func:`bwd_over`); bf16 against the
+    plain backward on args' (q, k, v, out, lse, do, scale) out and lse at
+    chip_smoke.py's bf16 rule."""
+    if dtype_name == "float32":
+        return bwd_over(grads, ref)
+    from ipdm_tpu_torch.ops.cuda import attention
+    want = attention.attention_bwd_plain(*args)
+    rel, share = cs.BWD_TOL[dtype_name]
+    return [float(((g.float() - w.float()).abs()
+                   / (share * float(w.float().abs().max())
+                      + rel * w.float().abs())).max())
+            for g, w in zip(grads, want)]
+
+
 def bwd_over(grads, ref) -> list:
     """dq, dk, dv over chip_smoke.py flash_long's rule against the f64
     plain backward ``ref`` (:func:`chip_smoke._plain_long`): the f32 rule
@@ -642,12 +700,17 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
     torch.cuda.synchronize()
     gaps = [float((a.float() - b.float()).abs().max())
             for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
-    bwd_new = narrow_bwd_is_new(lib, hd, dtype_name)
+    bwd_new = (narrow_bwd_is_new(lib, hd, dtype_name)
+               or wide_bwd_is_new(lib, hd, dtype_name))
     over = {}
     if bwd_new:
-        ref = cs._plain_long(q, k, v, do, scale)
-        over = dict(bwd_over=bwd_over((dq, dk, dv), ref),
-                    parent_bwd_over=bwd_over((dq_p, dk_p, dv_p), ref))
+        args = (q, k, v, out, lse, do, scale)
+        ref = (cs._plain_long(q, k, v, do, scale)
+               if dtype_name == "float32" else None)
+        over = dict(bwd_over=bwd_rule_over(dtype_name, (dq, dk, dv), args,
+                                           ref),
+                    parent_bwd_over=bwd_rule_over(
+                        dtype_name, (dq_p, dk_p, dv_p), args, ref))
         del ref
     c2l = scale * scale * math.log2(math.e)
     t = abba(lambda: parent_forward(lib, q, k, v, c2l),
@@ -664,8 +727,8 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
            + (" (the narrow or wide body against the parent's)"
               if res["fwd_body_changed"] else "")
            + ", dq/dk/dv/D " + " / ".join(f"{g:.3e}" for g in gaps)
-           + (" (dq/dk/dv: the narrow backward against the parent's; "
-              "against the f64 plain backward at flash_long's rule "
+           + (" (dq/dk/dv: the narrow or wide backward against the "
+              "parent's; against the plain backward at its rule "
               + " / ".join(f"{x:.4f}" for x in over["bwd_over"])
               + ", parent " + " / ".join(f"{x:.4f}"
                                          for x in over["parent_bwd_over"])
@@ -674,7 +737,8 @@ def flash_head_dim_case(lib, hd, dtype_name, seed, reps):
            f"{t['new'][0]:.4f}, new {t['new'][1]:.4f}, parent "
            f"{t['parent'][1]:.4f}")
     if bwd_new and max(over["bwd_over"]) > 1.0:
-        raise AssertionError(f"flash bwd hd 8 f32 T=4097: over {over}")
+        raise AssertionError(f"flash bwd hd {hd} {dtype_name} T=4097: "
+                             f"over {over}")
     return res
 
 
@@ -1069,6 +1133,264 @@ def wide_fwd_case(lib, hd, T, dtype_name, seed, reps):
     return res
 
 
+# the backward at the widths of its wide body: (head dim, T) in f32 and in
+# bf16 (hd 128 in bf16 is its instance's: the parent's kernel both sides)
+WIDE_BWD_SHAPES = {
+    "float32": ((128, 7125), (160, 7125), (192, 7125), (256, 4096),
+                (256, 7125), (320, 7125), (512, 7125)),
+    "bfloat16": ((128, 7125), (256, 4097), (256, 7125), (512, 7125))}
+
+
+def wide_bwd_case(lib, hd, T, dtype_name, seed, reps):
+    """The parent's backward kernels and this tree's at head dim ``hd`` on
+    seeded N(0, 1) q, k, v, dO [4, T, hd], with this tree's forward's out
+    and lse: each held to the plain backward (:func:`bwd_rule_over`),
+    their distance, dq and dkv each timed A B B A (device ms: D, the
+    split pre-pass and the kernel), SDPA's backward alone at the same
+    inputs and the bounds. Both sides pad a head dim between the kernels'
+    widths (hd 160 runs at 192)."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed + hd + T + 1)
+    q, k, v, do = (torch.randn((4, T, hd), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    args = (q, k, v, out, lse, do, scale)
+    # as the autograd backward runs them: one split of q, k, v and dO,
+    # the dq kernel's pre-pass, taken ready by dkv
+    split = attention._bwd_split(q, attention.flash_instance(hd))
+    ready = split is not None
+    dq, D = attention.flash_bwd_dq(*args, split=split)
+    dk, dv = attention.flash_bwd_dkv(q, k, v, lse, do, D, scale,
+                                     split=split, ready=ready)
+    # the parent's kernels through stand-ins of the wrappers (the padding
+    # of a head dim between widths on both sides)
+    p_dq, p_dkv = parent_bwd_fns(lib)
+    dq_p, D_p = p_dq(*args)
+    dk_p, dv_p = p_dkv(q, k, v, lse, do, D_p, scale)
+
+    def parent_dq():
+        p_dq(*args)
+
+    def parent_dkv():
+        p_dkv(q, k, v, lse, do, D, scale)
+    torch.cuda.synchronize()
+    ref = cs._plain_long(q, k, v, do, scale) if dtype_name == "float32" \
+        else None
+    over = bwd_rule_over(dtype_name, (dq, dk, dv), args, ref)
+    parent_over = bwd_rule_over(dtype_name, (dq_p, dk_p, dv_p), args, ref)
+    del ref
+    gaps = [float((a.float() - b.float()).abs().max())
+            for a, b in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (D, D_p))]
+    del dq, dk, dv, dq_p, dk_p, dv_p
+    def new_dq():
+        attention.flash_bwd_dq(*args, split=split)
+
+    def new_dkv():
+        attention.flash_bwd_dkv(q, k, v, lse, do, D, scale, split=split,
+                                ready=ready)
+    t_dq = abba(parent_dq, new_dq, reps)
+    t_dkv = abba(parent_dkv, new_dkv, reps)
+    parts = {kind: {side: bwd_parts_ms(fn, reps) for side, fn in sides}
+             for kind, sides in (("dq", (("parent", parent_dq),
+                                         ("new", new_dq))),
+                                 ("dkv", (("parent", parent_dkv),
+                                          ("new", new_dkv))))}
+    sdpa = cs.sdpa_bwd_ms(q, k, v, do, scale, reps)
+    r = dict(kernel="flash_wide_bwd", dtype=dtype_name, hd=hd, T=T,
+             over=over, parent_over=parent_over, parent_gaps=gaps,
+             bwd_body_changed=wide_bwd_is_new(lib, hd, dtype_name),
+             dq_parent_ms=t_dq["parent"], dq_new_ms=t_dq["new"],
+             dkv_parent_ms=t_dkv["parent"], dkv_new_ms=t_dkv["new"],
+             dq_device=parts["dq"], dkv_device=parts["dkv"],
+             sdpa_bwd_ms=sdpa,
+             dq_bound_ms=cs.flash_bound(4, T, hd, dtype_name, "dq"),
+             dkv_bound_ms=cs.flash_bound(4, T, hd, dtype_name, "dkv"))
+    cs.log(f"ab: flash_bwd {cs.SHORT[dtype_name]} [4,{T},{hd}] N(0, 1): "
+           f"dq/dk/dv at " + " / ".join(f"{x:.4f}" for x in over)
+           + " of the rule (parent " + " / ".join(f"{x:.4f}"
+                                                  for x in parent_over)
+           + "); parent − new max |diff| dq/dk/dv/D "
+           + " / ".join(f"{g:.3e}" for g in gaps)
+           + f"; event ms a call (D, split, kernel, padding) dq parent "
+           f"{t_dq['parent'][0]:.4f}, new "
+           f"{t_dq['new'][0]:.4f}, new {t_dq['new'][1]:.4f}, parent "
+           f"{t_dq['parent'][1]:.4f} (bound {r['dq_bound_ms']:.4f}); dkv "
+           f"parent {t_dkv['parent'][0]:.4f}, new {t_dkv['new'][0]:.4f}, "
+           f"new {t_dkv['new'][1]:.4f}, parent {t_dkv['parent'][1]:.4f} "
+           f"(bound {r['dkv_bound_ms']:.4f}); device ms a call under the "
+           f"profiler, body + D + split: " + "; ".join(
+               f"{kind} {side} " + " + ".join(
+                   f"{parts[kind][side][x]:.4f}" for x in ("body", "D",
+                                                          "split"))
+               for kind in ("dq", "dkv") for side in ("parent", "new"))
+           + "; SDPA backward alone (device ms under the profiler) "
+           + ("not run" if sdpa is None else f"{sdpa:.4f}"))
+    if max(over) > 1.0:
+        raise AssertionError(f"wide bwd hd {hd} T={T} {dtype_name}: {over}")
+    return r
+
+
+def bwd_parts_ms(fn, calls) -> dict:
+    """Device ms a call of fn() (a flash backward call) under
+    torch.profiler, by part: ``body`` (the dq or dkv kernel), ``D``
+    (flash_bwd_dot_kernel), ``split`` (the pre-pass) and ``other`` (the
+    padding copies, the rest)."""
+    parts = dict(body=0.0, D=0.0, split=0.0, other=0.0)
+    for name, (ms, _) in cs.device_times(fn, calls).items():
+        key = ("D" if "flash_bwd_dot_kernel" in name else
+               "split" if "split_kernel" in name else
+               "body" if "flash_bwd" in name else "other")
+        parts[key] += ms / calls
+    return parts
+
+
+def parent_bwd_fns(lib):
+    """Stand-ins for attention.flash_bwd_dq / flash_bwd_dkv (their
+    signatures and results) that launch the parent's kernels on the
+    tensors padded to the width that runs them (a given split is not
+    used: the parent's kernels split for themselves)."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    def dq_fn(q, k, v, out, lse, do, scale, split=None):
+        hd = q.shape[2]
+        inst = attention.flash_instance(hd)
+        qp, kp, vp, op, dop = attention._pad(inst, q, k, v, out, do)
+        BH, T, _ = qp.shape
+        dq = torch.empty_like(qp)
+        D = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+        _build.check(lib.flash_bwd_dq_launch(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(),
+            dop.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+            *split_args(lib, qp), BH, T, *hd_args(lib, qp),
+            scale * scale * math.log2(math.e), scale * scale,
+            int(q.dtype == torch.bfloat16), _build.stream_ptr(q)),
+            "parent flash_bwd_dq")
+        return attention._cut(hd, dq)[0], D
+
+    def dkv_fn(q, k, v, lse, do, D, scale, split=None, ready=False):
+        hd = q.shape[2]
+        inst = attention.flash_instance(hd)
+        qp, kp, vp, dop = attention._pad(inst, q, k, v, do)
+        BH, T, _ = qp.shape
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        _build.check(lib.flash_bwd_dkv_launch(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+            lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *split_args(lib, qp), *((0,) if lib.bwd_wide_from else ()),
+            BH, T, *hd_args(lib, qp), scale * scale * math.log2(math.e),
+            scale * scale, int(q.dtype == torch.bfloat16),
+            _build.stream_ptr(q)), "parent flash_bwd_dkv")
+        return tuple(attention._cut(hd, dk, dv))
+
+    return dq_fn, dkv_fn
+
+
+WIDE_TRAIN_STEPS = 3   # timed train steps a turn, after 2 warm-up steps
+
+
+def wide_train_case(lib, seed):
+    """The train step of each UNet (examples/bench_train_torch.py's:
+    make_train_step, remat, Adam) at the train presets with
+    model_channels :data:`WIDE_SLICE_MC` (f32, head dim 256; img 512²,
+    proj 2000×912, B = 1), seeded random weights and images, with the
+    flash backward's kernels from the parent's library or this tree's, in
+    the order parent, new, new, parent: per turn s/step (host clock of
+    :data:`WIDE_TRAIN_STEPS` steps to a synchronize), the flash
+    backward's event ms a step (chip_smoke.py BwdTimer: CUDA events
+    around its 5 dq and 5 dkv wrapper calls: D, the split pre-pass, the
+    kernels, the padding copies) and, from one more step under
+    torch.profiler, the device ms of its dq and dkv kernels and D
+    (``bwd_device_ms``) and of every split pre-pass of the step, the
+    forward's and the backward's (``split_device_ms``)."""
+    import time
+
+    import numpy as np
+    import torch
+    from ipdm_tpu_torch.config.config import IPDMConfig
+    from ipdm_tpu_torch.engine.denoiser import diffusion_for
+    from ipdm_tpu_torch.engine.trainer import (make_optimizer,
+                                               make_train_step)
+    from ipdm_tpu_torch.models.unet import build_unet
+    from ipdm_tpu_torch.ops.cuda import attention
+
+    new = {n: getattr(attention, n) for n in cs.BwdTimer.NAMES}
+    parent = dict(zip(cs.BwdTimer.NAMES, parent_bwd_fns(lib)))
+    res = []
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for domain, shape in (("img", (1, 512, 512, 1)),
+                              ("proj", (1, 2000, 912, 1))):
+            opt = IPDMConfig().merge(dict(
+                cs._train_preset(domain),
+                **{f"model_channels_{domain}": WIDE_SLICE_MC}))
+            dev = torch.device("cuda")
+            torch.manual_seed(seed)
+            model = build_unet(opt, domain, device=dev, remat=True)
+            step = make_train_step(
+                model, diffusion_for(opt, domain, dev),
+                make_optimizer(model.parameters(), opt.init_lr),
+                opt[f"partial_timesteps_{domain}"],
+                torch.Generator(device=dev).manual_seed(seed))
+            images = torch.as_tensor(np.random.default_rng(seed).random(
+                shape, np.float32), device=dev)
+            got = {"parent": [], "new": []}
+            for side in ("parent", "new", "new", "parent"):
+                fns = parent if side == "parent" else new
+                for n, fn in fns.items():
+                    setattr(attention, n, fn)
+                try:
+                    for _ in range(2):
+                        step(images)
+                    torch.cuda.synchronize()
+                    with cs.BwdTimer(attention) as timer:
+                        t0 = time.perf_counter()
+                        for _ in range(WIDE_TRAIN_STEPS):
+                            step(images)
+                        torch.cuda.synchronize()
+                        s_step = (time.perf_counter() - t0) / WIDE_TRAIN_STEPS
+                    bwd = sum(timer.ms()) / WIDE_TRAIN_STEPS
+                    kern = cs.device_times(lambda: step(images), 1)
+                finally:
+                    for n, fn in new.items():
+                        setattr(attention, n, fn)
+                dev = sum(ms for name, (ms, _) in kern.items()
+                          if "flash_bwd" in name)
+                split_ms = sum(ms for name, (ms, _) in kern.items()
+                               if "split_kernel" in name)
+                got[side].append(dict(s=s_step, bwd_event_ms=bwd,
+                                      bwd_device_ms=dev,
+                                      split_device_ms=split_ms,
+                                      calls=len(timer.ms())))
+                cs.log(f"ab: wide train mc {WIDE_SLICE_MC} {domain} f32 "
+                       f"({side}'s backward kernels): {s_step:.4f} s/step; "
+                       f"the flash backward {bwd:.3f} event ms a step "
+                       f"({len(timer.ms()) // WIDE_TRAIN_STEPS} wrapper "
+                       f"calls a step); profiled step: its dq, dkv and D "
+                       f"kernels {dev:.3f} device ms, every split pre-pass "
+                       f"(forward and backward) {split_ms:.3f}")
+            res.append(dict(kernel="wide_train", domain=domain,
+                            mc=WIDE_SLICE_MC, parent=got["parent"],
+                            new=got["new"]))
+            del model, step, images
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return res
+
+
 # the wide phase's slice: chip_smoke.py's shipped test preset (f32) with
 # both UNets at this model_channels (head dim 256)
 WIDE_SLICE_MC = 256
@@ -1262,6 +1584,123 @@ def build_wide_variants(keys) -> dict:
     return libs
 
 
+# a stand-in for flash_narrow_bwd.cu's entry beside a variant build of
+# flash_bwd.cu (no variant case runs head dim 8)
+NARROW_BWD_STUB = """#include <cuda_runtime.h>
+extern "C" int flash_narrow_bwd_launch(int, const void*, const void*,
+                                       const void*, const void*,
+                                       const void*, const void*, void*,
+                                       void*, void*, int, int, float, float,
+                                       int, void*) {
+  return (int)cudaErrorInvalidValue;
+}
+"""
+# the wide backward's build constants, in --wide-bwd-variants' order
+WIDE_BWD_CONSTANTS = cs.WIDE_BWD_CONSTANTS
+WIDE_BWD_VARIANT_SHAPES = ((128, 7125), (192, 7125), (256, 4096),
+                           (256, 7125), (320, 7125), (512, 7125))
+
+
+def build_wide_bwd_variants(keys) -> dict:
+    """csrc/flash_bwd.cu built at each key (:data:`WIDE_BWD_CONSTANTS`)
+    with a stand-in for the narrow entry, the two backward entries typed:
+    {key: CDLL}."""
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    libs = build_variants("flash_bwd.cu", "flash_bwd_wide_kernel", {
+        key: {f"IPDM_WBWD_{n}": x for n, x in zip(WIDE_BWD_CONSTANTS, key)}
+        for key in keys}, NARROW_BWD_STUB)
+    for lib in libs.values():
+        for entry in ("flash_bwd_dq_launch", "flash_bwd_dkv_launch"):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
+    return libs
+
+
+def wide_bwd_variant_case(libs, hd, T, dtype_name, seed, reps):
+    """Each variant build of the wide backward on seeded N(0, 1) q, k, v,
+    dO [4, T, hd] with this tree's forward's out and lse: its dq, dk and
+    dv held to the plain backward (:func:`bwd_rule_over`), beside this
+    tree's build's (the wrappers) and their distance from them, dq and
+    dkv each timed against this tree's build A B B A (event ms a call:
+    D, the split pre-pass and the kernel)."""
+    import math
+
+    import torch
+    from ipdm_tpu_torch.ops.cuda import _build, attention
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed + hd + T + 1)
+    q, k, v, do = (torch.randn((4, T, hd), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    out, lse = attention._forward(q, k, v, scale, with_lse=True)
+    args = (q, k, v, out, lse, do, scale)
+    dq0, D0 = attention.flash_bwd_dq(*args)
+    dk0, dv0 = attention.flash_bwd_dkv(q, k, v, lse, do, D0, scale)
+    ref = cs._plain_long(q, k, v, do, scale) if dtype_name == "float32" \
+        else None
+    shipped_over = bwd_rule_over(dtype_name, (dq0, dk0, dv0), args, ref)
+    c2, c2l = scale * scale, scale * scale * math.log2(math.e)
+    bf16 = int(dtype_name == "bfloat16")
+    split = attention._bwd_split(q, hd)
+    sp = None if split is None else split.data_ptr()
+    res = []
+    for key, lib in libs.items():
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        D = torch.empty_like(lse)
+
+        def var_dq(lib=lib, dq=dq, D=D):
+            _build.check(lib.flash_bwd_dq_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+                sp, 4, T, hd, c2l, c2, bf16, _build.stream_ptr(q)),
+                f"flash_bwd_dq {key}")
+
+        def var_dkv(lib=lib, dk=dk, dv=dv, D=D):
+            _build.check(lib.flash_bwd_dkv_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), D.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                sp, 0, 4, T, hd, c2l, c2, bf16, _build.stream_ptr(q)),
+                f"flash_bwd_dkv {key}")
+
+        var_dq()
+        var_dkv()
+        torch.cuda.synchronize()
+        over = bwd_rule_over(dtype_name, (dq, dk, dv), args, ref)
+        gaps = [float((a_.float() - b_.float()).abs().max())
+                for a_, b_ in ((dq, dq0), (dk, dk0), (dv, dv0), (D, D0))]
+        t_dq = abba(lambda: attention.flash_bwd_dq(*args), var_dq, reps)
+        t_dkv = abba(lambda: attention.flash_bwd_dkv(
+            q, k, v, lse, do, D0, scale), var_dkv, reps)
+        r = dict(kernel="flash_wide_bwd_variant", dtype=dtype_name, hd=hd,
+                 T=T, variant=list(key), over=over,
+                 shipped_over=shipped_over, shipped_gaps=gaps,
+                 dq_shipped_ms=t_dq["parent"], dq_variant_ms=t_dq["new"],
+                 dkv_shipped_ms=t_dkv["parent"],
+                 dkv_variant_ms=t_dkv["new"])
+        cs.log(f"ab: flash_bwd_wide {cs.SHORT[dtype_name]} [4,{T},{hd}] "
+               f"build {key}: dq/dk/dv at "
+               + " / ".join(f"{x:.4f}" for x in over)
+               + " of the rule (shipped " + " / ".join(
+                   f"{x:.4f}" for x in shipped_over)
+               + "); variant − shipped max |diff| dq/dk/dv/D "
+               + " / ".join(f"{g:.3e}" for g in gaps)
+               + f"; event ms a call dq shipped "
+               f"{t_dq['parent'][0]:.4f}, variant {t_dq['new'][0]:.4f}, "
+               f"variant {t_dq['new'][1]:.4f}, shipped "
+               f"{t_dq['parent'][1]:.4f}; dkv shipped "
+               f"{t_dkv['parent'][0]:.4f}, variant {t_dkv['new'][0]:.4f}, "
+               f"variant {t_dkv['new'][1]:.4f}, shipped "
+               f"{t_dkv['parent'][1]:.4f}")
+        if max(over + shipped_over) > 1.0:
+            raise AssertionError(f"wide bwd variant {key} hd {hd} T={T} "
+                                 f"{dtype_name}: {over}, shipped "
+                                 f"{shipped_over}")
+        res.append(r)
+    return res
+
+
 def wide_variant_case(libs, hd, T, dtype_name, seed, reps):
     """Each variant build of the wide forward on seeded N(0, 1) q, k, v
     [4, T, hd]: held to the plain forward (out at chip_smoke.py's rule,
@@ -1386,7 +1825,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path)
-    groups = ("deposit", "anterp", "flash_fwd", "flash_bwd", "wide_slice")
+    groups = ("deposit", "anterp", "flash_fwd", "flash_bwd", "wide_bwd",
+              "wide_train", "wide_slice")
     ap.add_argument("--kernels", nargs="+", choices=groups, default=groups)
     ap.add_argument("--same-bits", action="store_true",
                     help="exit 1 unless every output of every kernel is "
@@ -1405,12 +1845,18 @@ def main() -> int:
                     help="time csrc/flash_attn.cu's wide forward built at "
                          "these build constants against this tree's build "
                          "instead of a parent")
+    ap.add_argument("--wide-bwd-variants", nargs="+",
+                    metavar=",".join(WIDE_BWD_CONSTANTS),
+                    help="time csrc/flash_bwd.cu's wide backward built at "
+                         "these build constants against this tree's build "
+                         "instead of a parent")
     a = ap.parse_args()
     if sum(x is not None for x in (a.parent, a.narrow_variants,
-                                   a.narrow_bwd_variants,
-                                   a.wide_variants)) != 1:
+                                   a.narrow_bwd_variants, a.wide_variants,
+                                   a.wide_bwd_variants)) != 1:
         ap.error("give one of --parent DIR, --narrow-variants, "
-                 "--narrow-bwd-variants, --wide-variants")
+                 "--narrow-bwd-variants, --wide-variants, "
+                 "--wide-bwd-variants")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
@@ -1420,6 +1866,24 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     cs.log(f"ab: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     _build.library()
+    if a.wide_bwd_variants:
+        cs.log("ab: the shipped wide backward's build: " + ", ".join(
+            f"{n} {x}" for n, x in cs.wide_bwd_build().items()))
+        libs = build_wide_bwd_variants([tuple(int(x) for x in pv.split(
+            ",")) for pv in a.wide_bwd_variants])
+        res = []
+        with torch.no_grad():
+            for hd, T in WIDE_BWD_VARIANT_SHAPES:
+                for dtype_name in ("bfloat16", "float32"):
+                    res += wide_bwd_variant_case(libs, hd, T, dtype_name,
+                                                 a.seed, max(2, a.reps // 4))
+                    torch.cuda.empty_cache()
+        line = json.dumps({"device": smi, "ab": res})
+        if a.out:
+            os.makedirs(a.out.parent, exist_ok=True)
+            a.out.write_text(line + "\n")
+        print(line)
+        return 0
     if a.wide_variants:
         cs.log("ab: the shipped wide forward's build: " + ", ".join(
             f"{n} {x}" for n, x in cs.wide_build().items()))
@@ -1511,6 +1975,15 @@ def main() -> int:
                     if "flash_bwd" in a.kernels:
                         res.append(narrow_bwd_case(lib, T, a.seed,
                                                    max(2, a.reps // 4)))
+    if "wide_bwd" in a.kernels and lib.takes_hd and lib.wide:
+        with torch.no_grad():
+            for dtype_name, shapes in WIDE_BWD_SHAPES.items():
+                for hd, T in shapes:
+                    res.append(wide_bwd_case(lib, hd, T, dtype_name,
+                                             a.seed, max(2, a.reps // 4)))
+                    torch.cuda.empty_cache()
+    if "wide_train" in a.kernels and lib.takes_hd and lib.wide:
+        res += wide_train_case(lib, a.seed)
     if "wide_slice" in a.kernels and lib.takes_hd and lib.wide:
         res.append(wide_slice_case(lib, a.seed))
         with torch.no_grad():

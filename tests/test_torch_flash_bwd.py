@@ -22,7 +22,17 @@ attention.py) on the CPU.
   ``bwd_tiles(..., body="narrow")``: 128-row ring tiles, the lse and D
   terms inside the score products, P and dS split by truncation, the
   n16 + n8 products; held to the f32 rules beside planted faults (every
-  lo dropped; D from the unsplit dO)."""
+  lo dropped; D from the unsplit dO).
+* The wide body (csrc/flash_bwd.cu flash_bwd_wide_kernel: f32 from head
+  dim 128, bf16 from 192), written out as ``bwd_tiles(..., body="wide")``
+  (and ``"wide_bf16"``; ``split``, ``one_pass`` and ``bf16`` reach it at
+  those widths): 64-row ring tiles in order, S and dP summed chunk by
+  chunk over the whole head dim once per ring tile and output slice (dq
+  256 columns, dkv 128 of dK and of dV), the slice's products per chunk;
+  held to the plain backward, the f32 rule plus the f64 witness, and in
+  bf16 to jax.vjp of the library's reference, beside planted faults (a
+  partial slice's columns from the wrong chunk, D dropped, the lo halves
+  dropped)."""
 
 import math
 
@@ -34,7 +44,7 @@ import torch
 from jax.experimental.pallas.ops.tpu.flash_attention import \
     mha_reference_no_custom_vjp
 
-from ipdm_tpu_torch.ops.cuda import attention
+from ipdm_tpu_torch.ops.cuda import _build, attention
 
 TILE = 64      # rows per tile: flash_attn.cu BK, flash_bwd.cu BN
 KSTEP = 16     # bf16 wgmma's K step: head dims below it are padded
@@ -283,6 +293,130 @@ def _narrow_bwd(q, k, v, out, lse, do, scale, body):
     return dq * c2, dk * c2, dv
 
 
+WIDE_CHUNK = _build.FLASH_WIDE_CHUNK   # the wide body's column chunk
+# chunks of each output a wide-body CTA holds (csrc/flash_bwd.cu
+# IPDM_WBWD_DQ_SLICE, IPDM_WBWD_DKV_SLICE); where dkv's paired slice does
+# not cover the head dim, dK and dV are held dq's count at a time
+WIDE_BWD_SLICE = {k[len("flash_bwd_"):]: c // WIDE_CHUNK
+                  for k, c in _build.FLASH_BWD_WIDE_SLICE.items()}
+# the wide body's bodies: (the products' body for _mm, P and dS rounded
+# to bf16)
+WIDE_BODIES = {"wide": ("split", False), "wide_one_pass": ("one_pass", False),
+               "wide_bf16": ("bf16", True), "wide_exact": ("bf16", False),
+               "wide_wrong_chunk": ("split", False)}
+
+
+def _wide_bwd(q, k, v, out, lse, do, scale, body="wide", drop_d=False,
+              mask=True):
+    """csrc/flash_bwd.cu's wide body on [BH, T, hd] tensors: hd
+    zero-padded to a multiple of :data:`WIDE_CHUNK`; D = rowsum(dO·O) with
+    the dO the products see (``drop_d`` plants its loss); the resident
+    rows (queries in dq, keys in dkv; 128 a CTA, 64 a warpgroup; where
+    dkv's slice holds one output each, 64 keys a CTA, dV and S in one
+    warpgroup, dK and dP in the other, P handed over: the rows are
+    independent, so they run side by side here) against the 64-row
+    ring tiles in order. Per output slice (dq :data:`WIDE_BWD_SLICE`
+    ["dq"] chunks; dkv ["dkv"] chunks of dK and of dV, or where those do
+    not cover the head dim ["dq"] chunks of each; the last partial where
+    the chunks do not divide) and ring tile,
+    S = Σ_c X_c·U_cᵀ and
+    dP = Σ_c Y_c·W_cᵀ over the nc chunks in order (by :func:`_mm` of the
+    body), P = exp2(c·S − lse₂) (ring rows ≥ T at 0: keys in dq with
+    ``mask``, queries in dkv), dS = P·(dP − D), then for each of the
+    slice's chunks h the tile's dQ_h += dS·U_{c0+h} (dK_h += dSᵀ·U_{c0+h},
+    dV_h += Pᵀ·W_{c0+h}), chained over the ring tiles. Bodies
+    (:data:`WIDE_BODIES`): ``wide`` (f32, three bf16 passes), ``wide_bf16``
+    (P and dS rounded to bf16), the planted ``wide_one_pass`` (every lo
+    dropped) and ``wide_wrong_chunk`` (a partial slice's products read
+    chunk h, not c0 + h), and ``wide_exact`` (exact f32 products: the
+    slicing and chunking alone). Returns dq, dk, dv in f32."""
+    mm_body, rounds = WIDE_BODIES[body]
+    BH, T, hd = q.shape
+    wide = -(-hd // WIDE_CHUNK) * WIDE_CHUNK
+    nc = wide // WIDE_CHUNK
+    c2, c = scale * scale * math.log2(math.e), scale * scale
+    dof = do.float()
+    if mm_body != "bf16":   # D from the dO the products see
+        dof = sum(_split(dof)) if mm_body == "split" else _split(dof)[0]
+    D = (out.float() * dof).sum(-1)
+    if drop_d:
+        D = torch.zeros_like(D)
+    n = -(-T // TILE)
+    rows = n * TILE
+
+    def pad(x):
+        p = torch.zeros(BH, rows, wide)
+        p[:, :T, :hd] = x.float()
+        return p
+    Q, K, V, dO = (pad(x) for x in (q, k, v, do))
+    lse2 = torch.full((BH, rows), math.inf)
+    lse2[:, :T] = lse * math.log2(math.e)
+    Dp = torch.zeros(BH, rows)
+    Dp[:, :T] = D
+    live = torch.arange(rows) < T
+    mm = lambda a, b: _mm(a, b, mm_body)
+    weights = lambda x: x.to(torch.bfloat16).float() if rounds else x
+
+    def chunk(x, ch):
+        return x[..., ch * WIDE_CHUNK:(ch + 1) * WIDE_CHUNK]
+
+    def slices(kind):
+        sl = WIDE_BWD_SLICE[kind]
+        if kind == "dkv" and nc > sl:
+            sl = WIDE_BWD_SLICE["dq"]   # dK and dV each held apart
+        for c0 in range(0, nc, sl):
+            nz = min(sl, nc - c0)
+            wrong = body == "wide_wrong_chunk" and nz < sl
+            yield c0, [h if wrong else c0 + h for h in range(nz)]
+
+    def scores(x, y, u, w):  # S and dP over the nc chunks in order
+        s = torch.zeros(*x.shape[:2], u.shape[1])
+        dp = torch.zeros_like(s)
+        for ch in range(nc):
+            s = s + mm(chunk(x, ch), chunk(u, ch).transpose(1, 2))
+            dp = dp + mm(chunk(y, ch), chunk(w, ch).transpose(1, 2))
+        return s, dp
+
+    dq = torch.zeros(BH, rows, wide)
+    for c0, src in slices("dq"):
+        acc = [torch.zeros(BH, rows, WIDE_CHUNK) for _ in src]
+        for j in range(n):
+            t = slice(j * TILE, (j + 1) * TILE)
+            s, dp = scores(Q, dO, K[:, t], V[:, t])
+            p = torch.exp2(s * c2 - lse2[..., None])
+            if mask:
+                p = p * live[t]
+            ds = weights(p * (dp - Dp[..., None]))
+            for h, ch in enumerate(src):
+                acc[h] = acc[h] + mm(ds, chunk(K[:, t], ch))
+        dq[..., c0 * WIDE_CHUNK:(c0 + len(src)) * WIDE_CHUNK] = \
+            torch.cat(acc, -1) * c
+    dk = torch.zeros(BH, rows, wide)
+    dv = torch.zeros(BH, rows, wide)
+    for c0, src in slices("dkv"):
+        ak = [torch.zeros(BH, rows, WIDE_CHUNK) for _ in src]
+        av = [torch.zeros(BH, rows, WIDE_CHUNK) for _ in src]
+        for j in range(n):
+            t = slice(j * TILE, (j + 1) * TILE)
+            st, dpt = scores(K, V, Q[:, t], dO[:, t])
+            pt = torch.exp2(st * c2 - lse2[:, None, t]) * live[t]
+            dst = pt * (dpt - Dp[:, None, t])
+            pt, dst = weights(pt), weights(dst)
+            for h, ch in enumerate(src):
+                ak[h] = ak[h] + mm(dst, chunk(Q[:, t], ch))
+                av[h] = av[h] + mm(pt, chunk(dO[:, t], ch))
+        cols = slice(c0 * WIDE_CHUNK, (c0 + len(src)) * WIDE_CHUNK)
+        dk[..., cols] = torch.cat(ak, -1) * c
+        dv[..., cols] = torch.cat(av, -1)
+    return tuple(x[:, :T, :hd] for x in (dq, dk, dv))
+
+
+def _runs_wide(hd, body) -> bool:
+    """Whether the card runs head dim ``hd`` (padded as the wrappers pad
+    it) on the wide body (_build.FLASH_BWD_WIDE_FROM, both dtypes)."""
+    return attention.flash_instance(hd) >= _build.FLASH_BWD_WIDE_FROM
+
+
 def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
               body="split"):
     """flash_bwd.cu: D = rowsum(dO·O) (flash_bwd_dot_kernel, with the dO
@@ -294,10 +428,18 @@ def bwd_tiles(q, k, v, out, lse, do, scale, drop_d=False, mask=True,
     operands, each product three bf16 passes), or the fault ``one_pass``;
     or ``narrow`` (head dim 8 in f32: csrc/flash_narrow_bwd.cu, written
     out by :func:`_narrow_bwd`, with its faults ``narrow_one_pass`` and
-    ``narrow_d_unsplit``). Returns dq, dk, dv in f32 (below hd 16 on the
-    tiles' zero-padded columns, the pad dropped)."""
+    ``narrow_d_unsplit``); or the wide body (:func:`_wide_bwd`), by name
+    (:data:`WIDE_BODIES`) or where the card runs ``split``, ``one_pass``
+    or ``bf16`` on it (:func:`_runs_wide`). Returns dq, dk, dv in f32
+    (below hd 16 on the tiles' zero-padded columns, the pad dropped)."""
     if body in NARROW_BODIES:
         return _narrow_bwd(q, k, v, out, lse, do, scale, body)
+    if body in ("split", "one_pass", "bf16") and _runs_wide(q.shape[-1],
+                                                          body):
+        body = {"split": "wide", "one_pass": "wide_one_pass",
+                "bf16": "wide_bf16"}[body]
+    if body in WIDE_BODIES:
+        return _wide_bwd(q, k, v, out, lse, do, scale, body, drop_d, mask)
     BH, T, hd = q.shape
     c2, c = scale * scale * math.log2(math.e), scale * scale
     dof = do.float()
@@ -510,8 +652,9 @@ def test_bwd_plain_in_f64_is_autograd_of_the_plain_forward():
 
 # -- the other head dims the kernels are instantiated for --------------------
 # (FLASH_HEAD_DIMS; below hd 16 every tile zero-padded to 16 columns, as
-# hopper.cuh's Head<HD> lays them out; at 128 two 64-column sub-tiles, the
-# same sums per column), each with its scale 1/√√hd
+# hopper.cuh's Head<HD> lays them out; at 128 in f32 the wide body, in bf16
+# two 64-column sub-tiles, the same sums per column), each with its scale
+# 1/√√hd
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 128])
 def test_kernel_tiling_matches_the_plain_functions_small_head_dims(hd):
@@ -668,3 +811,109 @@ def test_f32_narrow_bwd_d_from_the_split_do(T):
     assert not _missed(got, want, rel, absmax, extra)
     ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="narrow_d_unsplit")
     assert "dq" in _missed(ctrl, want, rel, absmax, extra)
+
+
+# -- the wide body (csrc/flash_bwd.cu flash_bwd_wide_kernel) -----------------
+# at head dims 128 (one dq slice of 2 chunks, one dkv slice), 192 (one of 3;
+# dkv 2 + 1), 256 (one of 4; dkv 2 + 2) and 320 (dq 4 + a partial 1, dkv
+# 2 + 2 + 1) on T = 65, 130 and 191 (one, two and 63 live rows in the last
+# ring tile)
+WIDE_CASES = [(hd, T) for hd in (128, 192, 256, 320) for T in (65, 130, 191)]
+
+
+@pytest.mark.parametrize("inputs", ["random", "ragged"])
+@pytest.mark.parametrize("hd,T", WIDE_CASES,
+                         ids=[f"{h}-{t}" for h, t in WIDE_CASES])
+def test_f32_wide_bwd_body_gate(hd, T, inputs):
+    """The wide body's f32 sum order (``bwd_tiles(..., body="wide")``)
+    meets the f32 rule against attention_bwd_plain in f32 on random
+    inputs, and the f64 witness rule (the f32 rule against the f64 plain
+    backward + 2⁻²⁰·Σ|terms before the cancellation|) on the ragged ones,
+    where dq is a cancellation; the body with every lo dropped misses both
+    in dq, dk and dv."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(
+        T, 9, BH=2, ragged=inputs == "ragged", hd=hd))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    rel, absmax = TOL[torch.float32]
+    if inputs == "random":
+        want = attention.attention_bwd_plain(q, k, v, out, lse, do, scale)
+        extra = (0.0, 0.0, 0.0)
+    else:
+        ins = [t.double() for t in (q, k, v, do)]
+        o64, l64 = attention.attention_lse_plain(*ins[:3], scale)
+        want = attention.attention_bwd_plain(*ins[:3], o64, l64, ins[3],
+                                             scale)
+        extra = tuple(RAGGED_F32_EPS * z for z in _bwd_sizes(
+            *ins, o64, l64, scale))
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="wide")
+    assert all(g.shape == q.shape for g in got)
+    assert not _missed(got, want, rel, absmax, extra)
+    ctrl = bwd_tiles(q, k, v, out, lse, do, scale, body="wide_one_pass")
+    assert _missed(ctrl, want, rel, absmax, extra) == ["dq", "dk", "dv"]
+
+
+@pytest.mark.parametrize("hd,T", WIDE_CASES,
+                         ids=[f"{h}-{t}" for h, t in WIDE_CASES])
+def test_bf16_wide_bwd_body_matches_library_vjp(hd, T):
+    """The wide body in bf16 (bf16 operands, P and dS rounded to bf16
+    before the products, as the library rounds them) against jax.vjp of
+    the library's mha_reference on the same bf16-rounded inputs in f32, at
+    the bf16 rule, on ragged inputs, with the f32 forward's out and lse
+    (test_bf16_body_matches_library_vjp's reason)."""
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(T, 3, ragged=True, hd=hd))
+    out, lse = attention.attention_lse_plain(q.float(), k.float(),
+                                             v.float(), scale)
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="wide_bf16")
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: _library_attention(a, b, c, scale),
+                     jq, jk, jv)
+    rel, absmax = TOL[torch.bfloat16]
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        _close(g.to(torch.bfloat16).float(), np.asarray(w, np.float32),
+               name, rel, absmax)
+
+
+@pytest.mark.parametrize("fault", ["wrong_chunk", "drop_d", "one_pass"])
+def test_wide_bwd_planted_faults_miss(fault):
+    """At head dim 320 (dq's slices of 4 and 1 chunks, dkv's of 2, 2 and
+    1) on the ragged inputs at T = 130, each planted fault of the wide
+    body moves gradients past the f32 rule against the plain backward:
+    the partial slices' products reading chunk h in place of c0 + h (dq,
+    dk and dv), D dropped, every lo dropped."""
+    hd, T = 320, 130
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(T, 1, ragged=True, hd=hd))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    want = attention.attention_bwd_plain(q, k, v, out, lse, do, scale)
+    rel, absmax = TOL[torch.float32]
+    assert not _missed(bwd_tiles(q, k, v, out, lse, do, scale, body="wide"),
+                       want, rel, absmax)
+    if fault == "drop_d":
+        got = bwd_tiles(q, k, v, out, lse, do, scale, drop_d=True,
+                        body="wide")
+    else:
+        got = bwd_tiles(q, k, v, out, lse, do, scale, body=f"wide_{fault}")
+    missed = _missed(got, want, rel, absmax)
+    assert missed == (["dq", "dk", "dv"] if fault != "drop_d" else missed)
+    assert missed, fault
+
+
+def test_wide_bwd_without_split_is_the_plain_backward():
+    """The wide body's slices and chunks with exact f32 products are the
+    plain backward: at hd 320 on ragged inputs at T = 130, dq, dk and dv
+    equal attention_bwd_plain's to f32 rounding, so the gate above
+    measures the split, not the slicing."""
+    hd = 320
+    scale = 1.0 / math.sqrt(math.sqrt(hd))
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(130, 2, ragged=True, hd=hd))
+    out, lse = attention.attention_lse_plain(q, k, v, scale)
+    want = attention.attention_bwd_plain(q, k, v, out, lse, do, scale)
+    got = bwd_tiles(q, k, v, out, lse, do, scale, body="wide_exact")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))

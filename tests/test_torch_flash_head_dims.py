@@ -200,8 +200,10 @@ def test_forward_wide_body_widths_are_one_set():
     _build.FLASH_FWD_WIDE_FROM holds (bf16 192: its hd-128 instance
     stays; f32 128), and counts every such width under its "_wide"
     counter, each narrower instance under its own; the backward's
-    instances reach 128. The body's output slice (csrc/flash_attn.cu
-    IPDM_WIDE_SLICE chunks) is _build.FLASH_FWD_WIDE_SLICE columns."""
+    instances stop below 128 (the backward's wide body:
+    test_backward_wide_body_widths_are_one_set). The body's output
+    slice (csrc/flash_attn.cu IPDM_WIDE_SLICE chunks) is
+    _build.FLASH_FWD_WIDE_SLICE columns."""
     import re
 
     from ipdm_tpu_torch.ops.cuda import _build
@@ -221,11 +223,62 @@ def test_forward_wide_body_widths_are_one_set():
     assert _build.flash_counter("flash_attn_f32", 128) == \
         "flash_attn_f32_wide"
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert _build.flash_counter(name, 128) == f"{name}_hd128"
+        assert _build.flash_counter(name, 128) == f"{name}_wide"
     with open(osp.join(csrc, "flash_attn.cu")) as f:
         chunks = re.search(r"#define IPDM_WIDE_SLICE (\d+)", f.read()).group(1)
     assert int(chunks) * _build.FLASH_WIDE_CHUNK == \
         _build.FLASH_FWD_WIDE_SLICE
+
+
+def test_backward_wide_body_widths_are_one_set():
+    """The backward kernels run their wide body, in both dtypes, from the
+    head dim that csrc/hopper.cuh IPDM_FLASH_BWD_WIDE_FROM names and
+    _build.FLASH_BWD_WIDE_FROM holds (128: the hd-128 instances are
+    retired), the wrappers choose the body (attention._bwd_wide) and hand
+    the f32 wide body its split scratch by the same set (the autograd
+    backward's shared one, attention._shared_split, is that scratch and
+    only that, and the wrappers take it), and
+    flash_counter counts every such width under the "_wide" counter of
+    each kernel and each narrower width under its instance's; the body's
+    output slices (csrc/flash_bwd.cu IPDM_WBWD_DQ_SLICE,
+    IPDM_WBWD_DKV_SLICE chunks) are _build.FLASH_BWD_WIDE_SLICE
+    columns."""
+    import re
+
+    from ipdm_tpu_torch.ops.cuda import _build
+
+    csrc = osp.join(ROOT, "ipdm_tpu_torch", "csrc")
+    with open(osp.join(csrc, "hopper.cuh")) as f:
+        text = f.read()
+    got = re.search(r"#define IPDM_FLASH_BWD_WIDE_FROM (\d+)", text).group(1)
+    assert int(got) == _build.FLASH_BWD_WIDE_FROM == 128
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 4, 1), dtype=dtype)
+        for hd in _build.FLASH_HEAD_DIMS + (192, 256, 320, 512):
+            wide = hd >= _build.FLASH_BWD_WIDE_FROM
+            assert attention._bwd_wide(q, hd) == wide
+            split = attention._bwd_split(q, hd)
+            assert (split is not None and split.shape[0] == 8) == (
+                wide and dtype == torch.float32)
+            # the autograd backward's shared scratch: the wide f32 body's
+            # alone, and one that both wrappers take
+            q_hd = torch.zeros((1, 4, hd), dtype=dtype)
+            shared = attention._shared_split(q_hd)
+            assert (shared is not None) == (wide and dtype == torch.float32)
+            if shared is not None:
+                assert attention._given_split("t", shared, q_hd,
+                                              hd) is shared
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                counter = _build.flash_counter(name, hd)
+                assert counter in _build.LAUNCHES
+                assert (counter == f"{name}_wide") == wide
+    with open(osp.join(csrc, "flash_bwd.cu")) as f:
+        src = f.read()
+    for name, macro in (("flash_bwd_dq", "DQ"), ("flash_bwd_dkv", "DKV")):
+        chunks = re.search(rf"#define IPDM_WBWD_{macro}_SLICE (\d+)",
+                           src).group(1)
+        assert int(chunks) * _build.FLASH_WIDE_CHUNK == \
+            _build.FLASH_BWD_WIDE_SLICE[name]
 
 
 def test_head_dims_outside_the_set_raise_on_cuda_tensors():
